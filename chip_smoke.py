@@ -10,9 +10,11 @@ Phases (any failure exits nonzero before the last line):
    for all sources together;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    same CUDA inputs at the main path's shapes (kernel A: 1M samples of the
-   full-width 300^3 room shell, fp32 and bf16, three output modes, held
-   bit for bit; kernel B: 1M rows), with times, the library yardstick and
-   the bound;
+   full-width 300^3 room shell in the main path's layout, 65536 rays x 16
+   consecutive steps, fp32 and bf16, three output modes, held bit for bit;
+   kernel B: 1M rows), with times, the library yardstick and the bound
+   (kernel B's on the 3xTF32 tensor-core route it takes, the fp32
+   CUDA-core bound printed beside it);
 4. main path: the serving configuration of text2nerf_tpu_torch/data/
    synthetic.py, a full-width room-shell field from a seeded generator, saved
    and loaded through the npz checkpoint, a 200^3 pool-5 alpha mask, then
@@ -35,14 +37,14 @@ import subprocess
 import sys
 import time
 
-# published H100 SXM peaks (dense): HBM bytes/s, fp32 CUDA-core, TF32 and
-# bf16 tensor-core FLOP/s
+# published H100 SXM peaks (dense): HBM bytes/s, fp32 CUDA-core and TF32
+# tensor-core FLOP/s
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
-BF16_FLOPS = 989e12
 
 FULL_RESO = (300, 300, 300)  # TensoRFConfig defaults: 259 samples
+K_A = 16  # the base rung's K: consecutive samples per ray
 N_SAMPLES_A = 1 << 20  # 65536-ray chunk x K=16 base rung
 N_ROWS_B = 1 << 20
 FRAMES = 8
@@ -53,8 +55,9 @@ TOL = {
     # exact in fp64), so the two agree bit for bit
     "fp32": 0.0,
     "bf16": 0.0,
-    # head: 351 + 128 + 128 term fp32 sums in another order, sinf/cosf vs
-    # torch.sin/cos at arguments up to 32|f| (a few ulps each)
+    # head: 351 + 128 + 128 term sums in another order, products in 3xTF32
+    # (about 2^-21 relative each), the kernel's sin/cos (within 1.5 ulp) vs
+    # torch.sin/cos at arguments up to 32|f|
     "head": 1e-4,
     # GPU kernels vs the CPU plain path, whole render (fp32)
     "render": 1e-4,
@@ -112,7 +115,7 @@ def _chunk_samples(rays, aabb, field, n, gen):
     from text2nerf_tpu_torch.models import tensorf as tf
     from text2nerf_tpu_torch.ops.rays import aabb_slab_entry
 
-    k = 16
+    k = K_A
     r = rays[: n // k]
     reso = tf.grid_resolution(field)
     step = tf.step_size(aabb, reso, field.cfg.step_ratio)
@@ -223,13 +226,12 @@ def phase_kernels(dev, report):
     bytes_a += _unique_row_bytes(xn, field, True, True)
     flops_a = n * c_total * 14
     bound_a, by_a = _bound(bytes_a, flops_a)
-    # without reuse between samples: 4 plane rows and 2 line rows per axis
-    touch_a = n * (12 + 4 * (1 + c_total - sum(nd)) + 6 * 4 * c_total)
+    out_a = n * 4 * (1 + c_total - sum(nd))
+    rows_a = bytes_a - n * 12 - out_a
     print(f"kernel A fused fp32: {ms_a:.3f} ms, plain {plain_a:.3f} ms, grid_sample "
-          f"{lib_a:.3f} ms, bound {bound_a:.3f} ms by {by_a} ({bytes_a / 1e6:.1f} MB "
-          f"of unique rows, inputs and outputs, {flops_a / 1e9:.2f} GFLOP) for {n} "
-          f"samples; {touch_a / n:.0f} B touched per sample, "
-          f"{touch_a / HBM_BPS * 1e3:.3f} ms if no row were shared", flush=True)
+          f"{lib_a:.3f} ms, bound {bound_a:.3f} ms by {by_a} ({bytes_a / 1e6:.1f} MB: "
+          f"{out_a / 1e6:.1f} MB output, {n * 12 / 1e6:.1f} MB xn, {rows_a / 1e6:.1f} MB "
+          f"unique rows; {flops_a / 1e9:.2f} GFLOP) for {n} samples", flush=True)
     report["factor_features"] = dict(
         name="factor_features", route="cuda",
         source="text2nerf_tpu_torch/csrc/factor_features.cu",
@@ -260,14 +262,18 @@ def phase_kernels(dev, report):
 
     lib_b = _time_ms(addmm3, 5, flush)
     in_dim, fc = head.w1.shape
-    flops_b = N_ROWS_B * 2 * (in_dim * fc + fc * fc + fc * 3)
+    flops_12 = N_ROWS_B * 2 * (in_dim * fc + fc * fc)  # layers 1 and 2
+    flops_b = flops_12 + N_ROWS_B * 2 * fc * 3
     bytes_b = N_ROWS_B * (cfg.app_dim + 3) * 4 + sum(
         head[k].numel() * 4 for k in ("w1", "b1", "w2", "b2", "w3", "b3"))
-    bound_b, by_b = _bound(bytes_b, flops_b)
+    # the kernel's route: layers 1 and 2 as three TF32 products each
+    # (3xTF32) on the tensor cores
+    bound_b, by_b = _bound(bytes_b, 3 * flops_12, TF32_FLOPS)
+    fp32_bound = _bound(bytes_b, flops_b)[0]
     print(f"kernel B: {ms_b:.3f} ms, plain {plain_b:.3f} ms, 3x addmm (TF32 off) "
-          f"{lib_b:.3f} ms, bound {bound_b:.3f} ms by {by_b} (fp32 {flops_b / 1e9:.1f} GFLOP); "
-          f"TF32 tensor-core bound {_bound(bytes_b, flops_b, TF32_FLOPS)[0]:.3f} ms, "
-          f"bf16 {_bound(bytes_b, flops_b, BF16_FLOPS)[0]:.3f} ms", flush=True)
+          f"{lib_b:.3f} ms, bound {bound_b:.3f} ms by {by_b} (3xTF32: 3 x "
+          f"{flops_12 / 1e9:.1f} GFLOP at 495 TFLOP/s); fp32 CUDA-core bound "
+          f"{fp32_bound:.3f} ms ({flops_b / 1e9:.1f} GFLOP at 67 TFLOP/s)", flush=True)
     report["shading_mlp"] = dict(
         name="shading_mlp", route="cuda",
         source="text2nerf_tpu_torch/csrc/shading_mlp.cu",
@@ -423,7 +429,7 @@ def main():
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _build.BUILD_LOGS.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C7512" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     report = {}

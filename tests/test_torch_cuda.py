@@ -58,7 +58,45 @@ def test_factor_features_kernel_matches_plain(cuda, widths, dtype):
                 assert torch.equal(g, r), float((g - r).abs().max())
 
 
-@pytest.mark.parametrize("app_dim,fea_pe,n", [(27, 6, 4096), (12, 2, 3001), (27, 6, 7)])
+def _ray_major(n_rays, k, reso, gen, device):
+    """xn of n_rays rays, k consecutive one-voxel steps each (ray-major, as
+    the renderer's compacted samples), from seeded origins and directions."""
+    o = torch.rand(n_rays, 1, 3, generator=gen, device=device) * 1.6 - 0.8
+    d = torch.randn(n_rays, 1, 3, generator=gen, device=device)
+    d = d / d.norm(dim=-1, keepdim=True)
+    steps = torch.arange(k, device=device, dtype=torch.float32)[None, :, None]
+    return torch.clamp(o + d * steps * (2.0 / (reso - 1)), -1, 1).reshape(-1, 3)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("k", [1, 16, 128])
+def test_factor_features_walk_matches_plain_in_any_order(cuda, k, dtype):
+    # the main path's widths (64 channels per axis: the walk kernel), rays
+    # of k samples, ray-major, reversed and shuffled, with a ragged tail
+    cfg = ptf.TensoRFConfig()
+    field = _field(cfg, (48, 40, 56), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    xn = _ray_major(5120 // k, k, 48, gen, cuda)[:-5].contiguous()
+    tdt = torch.bfloat16 if dtype == "bf16" else None
+    planes, lines = tuple(field.planes), tuple(field.lines)
+    orders = {"ray-major": xn, "reversed": xn.flip(0).contiguous(),
+              "shuffled": xn[torch.randperm(xn.shape[0], generator=gen, device=cuda)]}
+    for name, x in orders.items():
+        for sig, app in ((True, True), (True, False), (False, True)):
+            before = ff.LAUNCHES
+            got = ff.factor_features(x, planes, lines, field.nd, sigma=sig, app=app,
+                                     dtype=tdt)
+            assert ff.LAUNCHES == before + 1
+            ref = ff.factor_features_plain(x, planes, lines, field.nd, sigma=sig, app=app,
+                                           dtype=tdt)
+            for g, r in zip(got, ref):
+                assert (g is None) == (r is None)
+                if r is not None:
+                    assert torch.equal(g, r), (name, float((g - r).abs().max()))
+
+
+@pytest.mark.parametrize("app_dim,fea_pe", [(27, 6), (12, 2)])
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 4097, 2 ** 20 + 3])
 def test_shading_kernel_matches_plain(cuda, app_dim, fea_pe, n):
     cfg = ptf.TensoRFConfig(app_dim=app_dim, fea_pe=fea_pe)
     head = _field(cfg, (4, 4, 4), cuda).mlp
@@ -66,10 +104,57 @@ def test_shading_kernel_matches_plain(cuda, app_dim, fea_pe, n):
     feats = 2.0 * torch.randn(n, app_dim, generator=gen, device=cuda)
     before = sm.LAUNCHES
     got = sm.shade_fea_noview(head, feats, fea_pe)
-    assert sm.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    assert sm.LAUNCHES == before + (n > 0)
     ref = sm.shade_fea_noview_plain(head, feats, fea_pe)
     assert got.shape == (n, 3)
+    if n:
+        assert float((got - ref).abs().max()) <= 1e-4
+
+
+def test_shading_kernel_is_fp32_faithful_at_full_width(cuda):
+    # 3xTF32 keeps the full-width head within ~3e-7 of its plain version;
+    # one TF32 product per term gives ~3.5e-5, which the 1e-4 above lets
+    # pass: a build that dropped the lo products fails here
+    cfg = ptf.TensoRFConfig()
+    head = _field(cfg, (4, 4, 4), cuda).mlp
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    feats = 2.0 * torch.randn(2 ** 20 + 3, cfg.app_dim, generator=gen, device=cuda)
+    got = sm.shade_fea_noview(head, feats, cfg.fea_pe)
+    ref = sm.shade_fea_noview_plain(head, feats, cfg.fea_pe)
+    assert float((got - ref).abs().max()) <= 3e-6
+
+
+def test_shading_kernel_past_the_fast_trig_range(cuda):
+    # arguments 2^k * f beyond 105615 take sincosf instead of the
+    # branch-free sine and cosine
+    cfg = ptf.TensoRFConfig()
+    head = _field(cfg, (4, 4, 4), cuda).mlp
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    feats = torch.randn(3000, cfg.app_dim, generator=gen, device=cuda)
+    feats[::7] *= 20000.0
+    assert float((feats.abs() * 2 ** (cfg.fea_pe - 1)).max()) > 105615
+    got = sm.shade_fea_noview(head, feats, cfg.fea_pe)
+    ref = sm.shade_fea_noview_plain(head, feats, cfg.fea_pe)
     assert float((got - ref).abs().max()) <= 1e-4
+
+
+def test_shading_weight_cache_follows_the_weights(cuda):
+    cfg = ptf.TensoRFConfig()
+    head = _field(cfg, (4, 4, 4), cuda).mlp
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    feats = 2.0 * torch.randn(5000, cfg.app_dim, generator=gen, device=cuda)
+    first = sm.shade_fea_noview(head, feats, cfg.fea_pe)
+    with torch.no_grad():
+        head["w1"].mul_(-0.5)  # in place: same storage, new version
+    edited = sm.shade_fea_noview(head, feats, cfg.fea_pe)
+    assert float((edited - sm.shade_fea_noview_plain(head, feats, cfg.fea_pe)).abs().max()) <= 1e-4
+    assert float((edited - first).abs().max()) > 1e-2
+    other = _field(cfg, (4, 4, 4), cuda, seed=9).mlp  # a second field
+    got = sm.shade_fea_noview(other, feats, cfg.fea_pe)
+    assert float((got - sm.shade_fea_noview_plain(other, feats, cfg.fea_pe)).abs().max()) <= 1e-4
+    again = sm.shade_fea_noview(head, feats, cfg.fea_pe)
+    assert torch.equal(again, edited)
 
 
 def test_kernels_refuse_grad_inputs(cuda):

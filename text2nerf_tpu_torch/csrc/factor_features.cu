@@ -11,21 +11,33 @@
 // app_raw[n, :] = the app products of axes 0, 1, 2 concatenated (the
 // basis product runs outside, as a plain matrix product).
 //
-// What bounds it on an H100: bytes.  A sample touches 4 plane rows and 2
-// line rows per axis (64 fp32 channels at full width, 4.6 KB in all) and
-// does ~14 flops per channel and axis.  The three 300x300x64 fp32 planes
-// (69 MB) exceed the 50 MB L2, so rows of distant samples come from HBM;
-// rays march through neighbouring cells, so most corner rows of a chunk
-// are shared with nearby samples and hit in L2.
+// What bounds it on an H100: bytes.  A sample reads 12 B and writes 580 B
+// (1 + 144 fp32 at full width) and touches 4 plane rows and 2 line rows
+// per axis (64 fp32 channels each, 4.6 KB in all), ~14 flops per channel
+// and axis.  The unique rows of a chunk's samples are few (~8.6 MB per 1M
+// samples of the main path) and sit in the 50 MB L2, so the output
+// dominates the bound.  What limits the kernels is instruction issue and
+// latency, not bytes: rows shared by neighbouring samples hit L1, and the
+// per-sample work (geometry, the density reduction, the lerps) costs more
+// issue slots than the loads.  The walk kernel's design cuts that work.
 //
-// Design (simple first): one warp per sample, lanes stride the channels,
-// so each corner row is one coalesced 256 B read; corners go through the
-// read-only path (__ldg).  The density sum is a warp shuffle reduction.
-// Outputs are written once, coalesced.  No shared memory.  Index math is
-// fp32 in both compute types; BF16 rounds the gathered values, the lerp
-// weights and every product to bfloat16, as the JAX bf16 path does
-// (fused_gather.py:61-63).  TMA-fed tiles of ray-ordered samples are a
-// later redesign.
+// Design.  Walk kernel (every axis 64 channels, even density counts, the
+// main path's tables): one warp walks a run of 32 consecutive samples
+// (the renderer's compacted samples lie ray by ray, one voxel apart),
+// axis by axis.  Lane j computes the geometry of the run's sample j once;
+// the warp reads each sample's from its lane with shuffles.  Each lane
+// holds 2 channels as one float2, so a row is one 256 B load, and the next
+// sample's 6 rows are loaded before the current sample's arithmetic.
+// Every sample loads its own rows: rows that neighbouring samples share
+// hit L1, and keeping them in registers across samples measured no
+// faster.  Any sample order gives the same bits.  The density sums go through
+// shared memory: each sample's fp64 partial per density lane is stored,
+// and at the end of the axis lane j sums sample j's.  Generic kernel
+// (other widths): one warp per sample, lanes stride the channels, the
+// density sum a warp shuffle reduction.  Outputs are written once,
+// coalesced.  Index math is fp32 in both compute types; BF16 rounds the
+// gathered values, the lerp weights and every product to bfloat16, as
+// the JAX bf16 path does (fused_gather.py:61-63).
 //
 // Same arithmetic as the plain version (ops/fused_gather.py and
 // factor_features_plain), so the two agree bit for bit: every multiply and
@@ -49,6 +61,7 @@ __device__ __forceinline__ constexpr int vec(int i) { return 2 - i; }
 
 struct Dims {
   int h[3], w[3], l[3], c[3], nd[3], app_off[3];
+  int dens_lanes;  // walk kernel: the most density lanes (nd / 2) of an axis
 };
 
 struct Tables {
@@ -132,19 +145,201 @@ __global__ void factor_features_kernel(const float* __restrict__ xn, int n,
   if (SIGMA && lane == 0) sigma_out[s] = sigma;
 }
 
+// ---- walk kernel: 64 channels per axis, one warp per run of samples ------
+
+constexpr int kWalkC = 64;      // fused channels per axis the walk kernel takes
+constexpr int kWalkRun = 32;    // samples a warp walks (the last run may be shorter)
+constexpr int kWalkBlocks = 4;  // resident 256-thread blocks per SM it is built for
+
+// one axis of a sample: plane corner rows p00 + {0, dx, dyw, dyw + dx}
+// (row = y*W + x; dx, dy are 0 at the clamped edge), line rows l0, l0 + dl,
+// and the lerp weights
+struct AxisGeo {
+  int p00, dx, dyw, l0, dl;
+  float tx, ty, tl;
+};
+
+template <bool BF16>
+__device__ __forceinline__ void geometry(const float (&x)[3], int i, const Dims& d, AxisGeo& g) {
+  const int w = d.w[i];
+  int x0, y0, l0;
+  coords(x[mat0(i)], w, x0, g.tx);       // plane x indexes W
+  coords(x[mat1(i)], d.h[i], y0, g.ty);  // plane y indexes H
+  coords(x[vec(i)], d.l[i], l0, g.tl);
+  g.tx = rnd<BF16>(g.tx);
+  g.ty = rnd<BF16>(g.ty);
+  g.tl = rnd<BF16>(g.tl);
+  g.p00 = y0 * w + x0;
+  g.dx = x0 + 1 < w ? 1 : 0;
+  g.dyw = y0 + 1 < d.h[i] ? w : 0;
+  g.l0 = l0;
+  g.dl = l0 + 1 < d.l[i] ? 1 : 0;
+}
+
+// geometry packed for a shuffle: p00 | dx << 30 | dy << 31, l0 | dl << 31
+struct PackedGeo {
+  uint32_t p, l;
+  float tx, ty, tl;
+};
+
+__device__ __forceinline__ PackedGeo pack(const AxisGeo& g) {
+  return {static_cast<uint32_t>(g.p00) | (static_cast<uint32_t>(g.dx) << 30) |
+              (g.dyw ? 1u << 31 : 0u),
+          static_cast<uint32_t>(g.l0) | (static_cast<uint32_t>(g.dl) << 31), g.tx, g.ty, g.tl};
+}
+
+// the geometry lane `src` holds
+__device__ __forceinline__ AxisGeo shuffle_geo(const PackedGeo& pg, int src, int w) {
+  const uint32_t p = __shfl_sync(0xffffffffu, pg.p, src);
+  const uint32_t l = __shfl_sync(0xffffffffu, pg.l, src);
+  AxisGeo g;
+  g.p00 = static_cast<int>(p & 0x3FFFFFFFu);
+  g.dx = (p >> 30) & 1;
+  g.dyw = (p >> 31) ? w : 0;
+  g.l0 = static_cast<int>(l & 0x7FFFFFFFu);
+  g.dl = l >> 31;
+  g.tx = __shfl_sync(0xffffffffu, pg.tx, src);
+  g.ty = __shfl_sync(0xffffffffu, pg.ty, src);
+  g.tl = __shfl_sync(0xffffffffu, pg.tl, src);
+  return g;
+}
+
+__device__ __forceinline__ float2 load_row(const float* table, int row, int ch, bool on) {
+  if (!on) return make_float2(0.0f, 0.0f);
+  return __ldg(reinterpret_cast<const float2*>(table + static_cast<int64_t>(row) * kWalkC + ch));
+}
+
+// one axis of a sample: its 4 plane corner rows and 2 line rows
+__device__ __forceinline__ void load_rows(const float* plane, const float* line,
+                                          const AxisGeo& g, int ch, bool on, float2 (&pv)[4],
+                                          float2 (&lv)[2]) {
+  pv[0] = load_row(plane, g.p00, ch, on);
+  pv[1] = load_row(plane, g.p00 + g.dx, ch, on);
+  pv[2] = load_row(plane, g.p00 + g.dyw, ch, on);
+  pv[3] = load_row(plane, g.p00 + g.dyw + g.dx, ch, on);
+  lv[0] = load_row(line, g.l0, ch, on);
+  lv[1] = load_row(line, g.l0 + g.dl, ch, on);
+}
+
+template <bool BF16>
+__device__ __forceinline__ float product(float p00, float p01, float p10, float p11, float q0,
+                                         float q1, const AxisGeo& g) {
+  const float top = lerp<BF16>(rnd<BF16>(p00), rnd<BF16>(p01), g.tx);
+  const float bot = lerp<BF16>(rnd<BF16>(p10), rnd<BF16>(p11), g.tx);
+  const float pf = lerp<BF16>(top, bot, g.ty);
+  const float lf = lerp<BF16>(rnd<BF16>(q0), rnd<BF16>(q1), g.tl);
+  return rnd<BF16>(__fmul_rn(pf, lf));
+}
+
+// One warp walks a run of up to 32 consecutive samples, axis by axis:
+// lane j computes the geometry of the run's sample j once and the warp
+// reads each sample's from its lane with shuffles.  Each sample's density
+// partials (one fp64 per density lane) go to shared memory; at the end of
+// the axis lane j sums sample j's and adds them to its density sum, which
+// it writes at the end.
 template <bool BF16, bool SIGMA, bool APP>
-void launch(const float* xn, int n, const Tables& tab, const Dims& d, int app_stride,
+__global__ void __launch_bounds__(256, kWalkBlocks)
+factor_features_walk_kernel(const float* __restrict__ xn, int n, Tables tab, Dims d,
+                            int app_stride, float* __restrict__ sigma_out,
+                            float* __restrict__ app_out) {
+  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t base = warp * kWalkRun;
+  if (base >= n) return;
+  const int cnt = static_cast<int>(base + kWalkRun <= n ? kWalkRun : n - base);
+  const int ch = 2 * lane;  // this lane's channels: ch, ch + 1 of every axis
+  extern __shared__ double partials[];  // [warp in block][sample][density lane]
+  double* part_w = partials + (threadIdx.x >> 5) * kWalkRun * d.dens_lanes;
+
+  float x[3] = {0.0f, 0.0f, 0.0f};
+  if (lane < cnt) {
+    x[0] = xn[3 * (base + lane)];
+    x[1] = xn[3 * (base + lane) + 1];
+    x[2] = xn[3 * (base + lane) + 2];
+  }
+  float sigma = 0.0f;  // sample base + lane's
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int w = d.w[i], nd = d.nd[i];
+    const bool dens = ch < nd;  // nd is even: both channels are density or both app
+    const bool on = dens ? SIGMA : APP;
+    PackedGeo mine;
+    {
+      AxisGeo g;
+      geometry<BF16>(x, i, d, g);
+      mine = pack(g);
+    }
+    AxisGeo cur = shuffle_geo(mine, 0, w);
+    float2 pv[4], lv[2];
+    load_rows(tab.plane[i], tab.line[i], cur, ch, on, pv, lv);
+    for (int j = 0; j < cnt; ++j) {
+      // the next sample's rows, loaded now and used after this sample's
+      // arithmetic
+      AxisGeo nx = cur;
+      float2 npv[4] = {pv[0], pv[1], pv[2], pv[3]};
+      float2 nlv[2] = {lv[0], lv[1]};
+      if (j + 1 < cnt) {
+        nx = shuffle_geo(mine, j + 1, w);
+        load_rows(tab.plane[i], tab.line[i], nx, ch, on, npv, nlv);
+      }
+      const float prod0 =
+          product<BF16>(pv[0].x, pv[1].x, pv[2].x, pv[3].x, lv[0].x, lv[1].x, cur);
+      const float prod1 =
+          product<BF16>(pv[0].y, pv[1].y, pv[2].y, pv[3].y, lv[0].y, lv[1].y, cur);
+      if (SIGMA && dens) {
+        part_w[j * d.dens_lanes + lane] = static_cast<double>(prod0) + static_cast<double>(prod1);
+      }
+      if (APP && !dens) {
+        *reinterpret_cast<float2*>(app_out + (base + j) * app_stride + d.app_off[i] +
+                                   (ch - nd)) = make_float2(prod0, prod1);
+      }
+      cur = nx;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) pv[k] = npv[k];
+      lv[0] = nlv[0];
+      lv[1] = nlv[1];
+    }
+    if (SIGMA) {
+      // sample `lane`'s exact fp64 sum over the density lanes, rounded once
+      __syncwarp();
+      if (lane < cnt) {
+        double sum = 0.0;
+        for (int k = 0; k < nd / 2; ++k) sum += part_w[lane * d.dens_lanes + k];
+        sigma = rnd<BF16>(__fadd_rn(sigma, rnd<BF16>(static_cast<float>(sum))));
+      }
+      __syncwarp();
+    }
+  }
+  if (SIGMA && lane < cnt) sigma_out[base + lane] = sigma;
+}
+
+template <bool BF16, bool SIGMA, bool APP>
+void launch(const float* xn, int n, bool walk, const Tables& tab, const Dims& d, int app_stride,
             float* sigma_out, float* app_out, cudaStream_t stream) {
-  constexpr int kThreads = 256;  // 8 samples per block
-  const int64_t blocks = (static_cast<int64_t>(n) * 32 + kThreads - 1) / kThreads;
-  factor_features_kernel<BF16, SIGMA, APP><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      xn, n, tab, d, app_stride, sigma_out, app_out);
+  constexpr int kThreads = 256;  // 8 warps
+  const int64_t warps = walk ? (static_cast<int64_t>(n) + kWalkRun - 1) / kWalkRun : n;
+  const unsigned blocks = static_cast<unsigned>((warps * 32 + kThreads - 1) / kThreads);
+  if (walk) {
+    const size_t smem = SIGMA ? sizeof(double) * (kThreads / 32) * kWalkRun * d.dens_lanes : 0;
+    if (smem > 48 * 1024) {
+      cudaFuncSetAttribute(factor_features_walk_kernel<BF16, SIGMA, APP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    }
+    factor_features_walk_kernel<BF16, SIGMA, APP><<<blocks, kThreads, smem, stream>>>(
+        xn, n, tab, d, app_stride, sigma_out, app_out);
+  } else {
+    factor_features_kernel<BF16, SIGMA, APP><<<blocks, kThreads, 0, stream>>>(
+        xn, n, tab, d, app_stride, sigma_out, app_out);
+  }
 }
 
 }  // namespace
 
 // dims: 18 ints, h[3] w[3] l[3] c[3] nd[3] app_off[3].  sigma_out and/or
-// app_out may be null; at least one is not.  Returns cudaGetLastError().
+// app_out may be null; at least one is not.  The walk kernel runs when
+// every axis has 64 channels, an even density count and a plane of fewer
+// than 2^30 rows, and the tables are 8-byte aligned (else the generic
+// kernel, one sample per warp).  Returns cudaGetLastError().
 extern "C" int t2n_factor_features(const float* xn, int n,
                                    const float* plane0, const float* plane1, const float* plane2,
                                    const float* line0, const float* line1, const float* line2,
@@ -159,6 +354,10 @@ extern "C" int t2n_factor_features(const float* xn, int n,
     d.nd[i] = dims[12 + i];
     d.app_off[i] = dims[15 + i];
   }
+  d.dens_lanes = 0;
+  for (int i = 0; i < 3; ++i) {
+    if (d.nd[i] / 2 > d.dens_lanes) d.dens_lanes = d.nd[i] / 2;
+  }
   Tables tab;
   tab.plane[0] = plane0;
   tab.plane[1] = plane1;
@@ -166,16 +365,26 @@ extern "C" int t2n_factor_features(const float* xn, int n,
   tab.line[0] = line0;
   tab.line[1] = line1;
   tab.line[2] = line2;
+  bool walk = true;
+  for (int i = 0; i < 3; ++i) {
+    walk = walk && d.c[i] == kWalkC && d.nd[i] % 2 == 0 &&
+           static_cast<int64_t>(d.h[i]) * d.w[i] < (1 << 30) &&
+           reinterpret_cast<uintptr_t>(tab.plane[i]) % 8 == 0 &&
+           reinterpret_cast<uintptr_t>(tab.line[i]) % 8 == 0;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool sig = sigma_out != nullptr, app = app_out != nullptr;
+  const auto go = [&](auto kernel_launch) {
+    kernel_launch(xn, n, walk, tab, d, app_stride, sigma_out, app_out, st);
+  };
   if (bf16) {
-    if (sig && app) launch<true, true, true>(xn, n, tab, d, app_stride, sigma_out, app_out, st);
-    else if (sig) launch<true, true, false>(xn, n, tab, d, app_stride, sigma_out, app_out, st);
-    else launch<true, false, true>(xn, n, tab, d, app_stride, sigma_out, app_out, st);
+    if (sig && app) go(launch<true, true, true>);
+    else if (sig) go(launch<true, true, false>);
+    else go(launch<true, false, true>);
   } else {
-    if (sig && app) launch<false, true, true>(xn, n, tab, d, app_stride, sigma_out, app_out, st);
-    else if (sig) launch<false, true, false>(xn, n, tab, d, app_stride, sigma_out, app_out, st);
-    else launch<false, false, true>(xn, n, tab, d, app_stride, sigma_out, app_out, st);
+    if (sig && app) go(launch<false, true, true>);
+    else if (sig) go(launch<false, true, false>);
+    else go(launch<false, false, true>);
   }
   return static_cast<int>(cudaGetLastError());
 }

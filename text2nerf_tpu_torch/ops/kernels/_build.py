@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so`` at first use.
-The hash covers the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded.  No fast math: the shading head's
-sin/cos arguments reach 32·|f|, where the fast intrinsics lose accuracy.
+The hash covers the source, every local header it includes (``#include
+"x.cuh"`` from ``csrc/``, followed recursively) and the full flag list,
+so an edited source, header or flag is rebuilt and a stale library is
+never loaded.  No fast math: the shading head's sin/cos arguments reach
+32·|f|, where the fast intrinsics lose accuracy.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -24,6 +27,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _LIBS: dict = {}
 #: nvcc's output per source built by this process (ptxas register and
@@ -42,12 +47,28 @@ def _nvcc() -> str:
     )
 
 
+def dependencies(name: str) -> list:
+    """``csrc/<name>.cu`` and the local headers it includes, recursively,
+    in first-include order."""
+    seen = []
+    todo = [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        if not path.exists():
+            raise FileNotFoundError(f"{path} (included by the {name} kernel) is missing")
+        seen.append(path)
+        todo.extend(path.parent / inc for inc in _LOCAL_INCLUDE.findall(path.read_text()))
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in dependencies(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> None:

@@ -32,7 +32,7 @@ TOP_KERNELS = 20
 #: kernel-name fragment → the layer it belongs to
 LAYERS = (
     ("shade_kernel", "kernel B: shading head"),
-    ("factor_features_kernel", "kernel A: factor features"),
+    ("factor_features", "kernel A: factor features"),  # walk and generic kernels
     ("radixSort", "first-K selection sort"),
     ("sort", "first-K selection sort"),
     ("gemm", "basis product (torch.matmul)"),
