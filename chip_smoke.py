@@ -1,29 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero before the last line):
 
 1. card: name and power limit from nvidia-smi;
-2. build: both CUDA kernels from text2nerf_tpu_torch/csrc, nvcc started
+2. build: every CUDA kernel from text2nerf_tpu_torch/csrc, nvcc started
    for all sources together;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   same CUDA inputs at the main path's shapes (kernel A: 1M samples of the
-   full-width 300^3 room shell in the main path's layout, 65536 rays x 16
+   same CUDA inputs at the main paths' shapes (kernel A: 1M samples of the
+   full-width 300^3 room shell in the serving layout, 65536 rays x 16
    consecutive steps, fp32 and bf16, three output modes, held bit for bit;
-   kernel B: 1M rows), with times, the library yardstick and the bound
-   (kernel B's on the 3xTF32 tensor-core route it takes, the fp32
-   CUDA-core bound printed beside it);
-4. main path: the serving configuration of text2nerf_tpu_torch/data/
-   synthetic.py, a full-width room-shell field from a seeded generator, saved
-   and loaded through the npz checkpoint, a 200^3 pool-5 alpha mask, then
-   8 frames of 512^2 along test_trajectory("circle0") through
+   kernel B: 1M rows; kernel A': 1M samples in the train layout, 16384
+   rays x 64 consecutive steps, random output gradients, fp32, held to a
+   tolerance relative to each table's largest gradient), with times, the
+   library yardstick and the bound (kernel B's on the 3xTF32 tensor-core
+   route it takes, the fp32 CUDA-core bound printed beside it);
+4. serving path: the serving configuration of text2nerf_tpu_torch/data/
+   synthetic.py, a full-width room-shell field from a seeded generator,
+   saved and loaded through the npz checkpoint, a 200^3 pool-5 alpha mask,
+   then 8 frames of 512^2 along test_trajectory("circle0") through
    evaluation_path(compact_k=-1): the adaptive renderer with chunk 65536,
-   app_k 128 and ladder (16, 32, 64, 128).  Both kernels' launch counts
-   must rise in that run.  One view is also rendered untruncated
+   app_k 128 and ladder (16, 32, 64, 128).  Kernels A and B must be
+   launched in that run.  One view is also rendered untruncated
    (compact_k = app_k = 160) for max_dev, and a 4096-ray crop is rendered
-   again by the plain versions on the CPU as the reference.
+   again by the plain versions on the CPU as the reference;
+5. training path: the training configuration of data/synthetic.py (targets
+   of 4 views rendered from one shell, a second shell trained toward them
+   with its 200^3 pool-5 mask) stepped by the trainer's own step
+   (trainer._step_kwargs: batch 16384, compacted K 64 in groups of 2,
+   depth-anchored band 6, two-group Adam with runtime decay).  First one
+   compacted step on a 1024-ray crop on the card and again on the CPU
+   through the plain versions, from the same (untrained) params and
+   jitter; then 3 warm-up steps and 20 timed steps, sampler and step
+   inside the window, which ends in a device sync.  mse must fall, and
+   kernels A and A' must be launched in that run.  Then 2 steps of the
+   dense branch (no mask, R = 32, A' launched in its density-only and
+   app-only modes).
 
 Prints a JSON line of per-kernel numbers, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -49,6 +63,10 @@ N_SAMPLES_A = 1 << 20  # 65536-ray chunk x K=16 base rung
 N_ROWS_B = 1 << 20
 FRAMES = 8
 FOG_DISTANCE_SCALE = 0.1  # vs 25: the shell's wall needs ~17 live samples
+K_TRAIN = 64  # train_compact_k: samples per ray of the compacted train step
+N_RAYS_TRAIN = 16384  # batch_size
+TRAIN_WARMUP, TRAIN_STEPS, DENSE_STEPS = 3, 20, 2
+CROP_RAYS = 1024
 TOL = {
     # kernel A, both compute types: the plain version's operations in its
     # order (no FMA contraction, bf16 rounding at every op, density sums
@@ -61,6 +79,15 @@ TOL = {
     "head": 1e-4,
     # GPU kernels vs the CPU plain path, whole render (fp32)
     "render": 1e-4,
+    # kernel A' vs its plain version (index_add_), relative to each table's
+    # largest gradient: both add fp32 terms with atomics in an order that
+    # changes from run to run; a row gathers up to thousands of terms
+    "bwd": 1e-4,
+    # one train step on the card vs the CPU plain versions: the loss (its
+    # sums in another order), and each gradient leaf relative to its
+    # largest (atomics, matmul and reduction order)
+    "train_loss": 1e-5,
+    "train_grad": 1e-4,
     # adaptive vs untruncated: the acc-gate lets a saturated ray drop up
     # to acc_tol = 1e-3 of tail, rays past the top rung keep its truncation
     "max_dev": 1e-2,
@@ -108,14 +135,13 @@ def _bound(bytes_moved, flops, peak_flops=FP32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _chunk_samples(rays, aabb, field, n, gen):
-    """xn at the main path's sample layout: 65536 rays x 16 consecutive
+def _chunk_samples(rays, aabb, field, n, gen, k=K_A):
+    """xn at a main path's sample layout: n / k rays of k consecutive
     march steps each, from a seeded start step per ray."""
     import torch
     from text2nerf_tpu_torch.models import tensorf as tf
     from text2nerf_tpu_torch.ops.rays import aabb_slab_entry
 
-    k = K_A
     r = rays[: n // k]
     reso = tf.grid_resolution(field)
     step = tf.step_size(aabb, reso, field.cfg.step_ratio)
@@ -281,8 +307,86 @@ def phase_kernels(dev, report):
         max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=bound_b,
         bound_by=by_b, library_ms=lib_b,
     )
+    phase_backward(field, aabb, rays, gen, flush, report)
     del field, flush_buf, x
     torch.cuda.empty_cache()
+
+
+def phase_backward(field, aabb, rays, gen, flush, report):
+    """Kernel A' against its plain version at the compacted train step's
+    shape: 16384 rays x 64 consecutive steps of the full-width shell,
+    random output gradients."""
+    import torch
+    from text2nerf_tpu_torch.ops.kernels import factor_features as ff
+
+    planes, lines, nd = tuple(field.planes), tuple(field.lines), field.nd
+    xn = _chunk_samples(rays, aabb, field, N_RAYS_TRAIN * K_TRAIN, gen, K_TRAIN)
+    n = xn.shape[0]
+    na = sum(p.shape[2] - d for p, d in zip(planes, nd))
+    d_sig = torch.randn(n, generator=gen, device=xn.device)
+    d_app = torch.randn(n, na, generator=gen, device=xn.device)
+    abs_err = 0.0
+    for mode, ds, da in (("fused", d_sig, d_app), ("density", d_sig, None),
+                         ("app", None, d_app)):
+        got = ff.factor_features_backward(xn, planes, lines, nd, ds, da)
+        ref = ff.factor_features_backward_plain(xn, planes, lines, nd, ds, da)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, r in zip((*got[0], *got[1]), (*ref[0], *ref[1])):
+            scale = float(r.abs().max())
+            if scale > 0:
+                err = max(err, float((g - r).abs().max()) / scale)
+            else:
+                _require(float(g.abs().max()) == 0, f"kernel A' {mode}: gradient where none")
+            if mode == "fused":
+                abs_err = max(abs_err, float((g - r).abs().max()))
+        print(f"kernel A' {mode:7s} max_abs_err {err:.3e} of each table's largest "
+              f"(tol {TOL['bwd']:g})", flush=True)
+        _require(err <= TOL["bwd"], f"kernel A' {mode}: {err} > {TOL['bwd']}")
+
+    ms = _time_ms(lambda: ff.factor_features_backward(xn, planes, lines, nd, d_sig, d_app),
+                  10, flush)
+    plain = _time_ms(lambda: ff.factor_features_backward_plain(xn, planes, lines, nd, d_sig,
+                                                                d_app), 3, flush)
+    # library yardstick: the backward alone of F.grid_sample's features
+    planes_nchw = [p.permute(2, 0, 1)[None].contiguous().requires_grad_(True) for p in planes]
+    lines_nc1 = [l.T[None, :, :, None].contiguous().requires_grad_(True) for l in lines]
+    with torch.enable_grad():
+        lib_sig, lib_app = _grid_sample_features(xn, planes_nchw, lines_nc1, nd)
+    lib_grads = torch.autograd.grad((lib_sig, lib_app), (*planes_nchw, *lines_nc1),
+                                    (d_sig, d_app), retain_graph=True)
+    ref = ff.factor_features_backward_plain(xn, planes, lines, nd, d_sig, d_app)
+    lib_err = max(
+        float((g[0].permute(1, 2, 0) - r).abs().max()) / float(r.abs().max())
+        for g, r in zip(lib_grads[:3], ref[0]))
+    print(f"kernel A' library (grid_sample backward) vs plain: {lib_err:.3e} of the "
+          f"largest", flush=True)
+    lib = _time_ms(lambda: torch.autograd.grad((lib_sig, lib_app), (*planes_nchw, *lines_nc1),
+                                               (d_sig, d_app), retain_graph=True), 3, flush)
+    del lib_sig, lib_app, lib_grads, planes_nchw, lines_nc1
+    c_total = sum(p.shape[2] for p in planes)
+    table_bytes = sum(t.numel() * 4 for t in (*planes, *lines))
+    rows = _unique_row_bytes(xn, field, True, True)
+    bytes_in = n * (12 + 4 + 4 * na)
+    bytes_b = bytes_in + rows + table_bytes
+    flops = n * c_total * 28
+    bound, by = _bound(bytes_b, flops)
+    # six table rows (four plane corners, two line rows) per axis, one
+    # fp32 add per channel
+    adds = 6 * n * c_total
+    print(f"kernel A' fused fp32: {ms:.3f} ms, plain {plain:.3f} ms, grid_sample backward "
+          f"{lib:.3f} ms, bound {bound:.3f} ms by {by} ({bytes_b / 1e6:.1f} MB: "
+          f"{bytes_in / 1e6:.1f} MB xn and output gradients, {rows / 1e6:.1f} MB unique "
+          f"rows, {table_bytes / 1e6:.1f} MB gradient tables written; {flops / 1e9:.2f} "
+          f"GFLOP) for {n} samples; {adds / 1e9:.3f} G fp32 atomic adds "
+          f"({adds / 2e9:.3f} G float2 reductions)", flush=True)
+    report["factor_features_bwd"] = dict(
+        name="factor_features_bwd", route="cuda",
+        source="text2nerf_tpu_torch/csrc/factor_features_bwd.cu",
+        replaces="text2nerf_tpu/models/tensorf.py:538",
+        max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+        library_ms=lib,
+    )
 
 
 def _adaptive_vs_untruncated(field, aabb, rays, mask, n_samples, dev, name):
@@ -361,6 +465,7 @@ def phase_main_path(dev, card, report, workdir):
     for name, count in launches.items():
         _require(count > 0, f"{name} was not launched on the main path")
         report[name]["launches"] = count
+        report[name]["launches_by_path"] = {"serve": count}
     frames = np.stack(frames)
     _require(frames.shape == (FRAMES, *hw, 3), f"frames {frames.shape}")
     fg = float((frames != 255).any(-1).mean())
@@ -404,6 +509,132 @@ def phase_main_path(dev, card, report, workdir):
     return rays_s, max_dev
 
 
+def crop_step_check(field, aabb, mask, batch, cfg, kw, dev):
+    """One train step from the same params and jitter on the card and on
+    the CPU (plain versions), each on a copy of ``field``: (relative error
+    of the loss, {leaf: error relative to the leaf's largest gradient},
+    the card's metrics)."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch.engine import checkpoints as ckpt
+    from text2nerf_tpu_torch.engine import train_step as ts
+
+    n = batch["rays"].shape[0]
+    jitter = torch.rand((n, 1), generator=torch.Generator().manual_seed(5))
+    flat = ckpt.params_to_jax(field)
+    mask_cpu = {"volume": mask["volume"].cpu(), "aabb": mask["aabb"].cpu(),
+                "pool": mask["pool"]}
+    w = kw["weights"]
+    out = {}
+    for d, m in ((dev, mask), ("cpu", mask_cpu)):
+        f = ckpt.params_from_jax(flat, field.cfg, device=d)
+        st, o = ts.make_train_state(f, cfg.lr_init, cfg.lr_basis, runtime_decay=True)
+        stp = ts.make_train_step(f.cfg, o, device=d, **kw)
+        _, met = stp(st, aabb.to(d), {k: v.to(d) for k, v in batch.items()}, alpha_mask=m,
+                     jitter=jitter)
+        met = {k: float(v) for k, v in met.items()}
+        loss = (met["mse"] + w.depth * met["depth_loss"] + w.transmittance * met["transmit_loss"]
+                + met.get("reg_tv_density", 0.0) + met.get("reg_tv_app", 0.0))
+        out[str(d)] = (loss, ckpt.grads_to_jax(f), met)
+        del f, st, o
+    (loss_g, g_gpu, m_gpu), (loss_c, g_cpu, _) = out[str(dev)], out["cpu"]
+    errs = {k: float(np.abs(g_gpu[k] - g_cpu[k]).max()) / max(float(np.abs(g_cpu[k]).max()), 1e-30)
+            for k in g_cpu}
+    return abs(loss_g - loss_c) / abs(loss_c), errs, m_gpu
+
+
+def phase_train(dev, card, report):
+    """The training path: the trainer's step on the training configuration
+    (compacted, then dense), and one crop step held against the CPU."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch.data import synthetic as syn
+    from text2nerf_tpu_torch.engine import train_step as ts
+    from text2nerf_tpu_torch.ops.kernels import factor_features as ff
+    from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
+
+    t0 = time.perf_counter()
+    rays, rgb, depth = syn.training_targets(dev)
+    field, aabb, mask, cfg, kw = syn.training_setup(dev)
+    torch.cuda.synchronize()
+    print(f"training setup {time.perf_counter() - t0:.1f} s: {rays.shape[0]} target rays, "
+          f"mask occupancy {float(mask['volume'].mean()):.3f}, step settings "
+          f"{ {k: v for k, v in kw.items() if k != 'weights'} }", flush=True)
+    _require(tuple(field.planes[0].shape[:2]) == FULL_RESO[:2], "field is not full width")
+    _require(kw["compact_k"] == K_TRAIN and kw["density_group"] == 2
+             and kw["depth_cap_band"] == 6 and cfg.batch_size == N_RAYS_TRAIN,
+             f"the step settings are not the trainer's defaults: {kw}")
+    sampler = ts.PermutationSampler(rays.shape[0], cfg.batch_size, seed=cfg.seed)
+    # one compacted step on a crop, on the card and on the CPU, from the
+    # untrained params (as the fit converges, its gradients become sums
+    # that cancel, and any summation order moves them relatively more)
+    ids = torch.as_tensor(sampler.next_ids()[:CROP_RAYS], device=dev)
+    batch = {"rays": rays[ids], "rgb": rgb[ids], "depth": depth[ids]}
+    loss_err, grad_errs, m_gpu = crop_step_check(field, aabb, mask, batch, cfg, kw, dev)
+    grad_err = max(grad_errs.values())
+    worst = sorted(grad_errs.items(), key=lambda kv: -kv[1])[:4]
+    print(f"train step on the card vs the CPU plain versions, {CROP_RAYS} rays: loss within "
+          f"{loss_err:.3e} relative (tol {TOL['train_loss']:g}), gradients within "
+          f"{grad_err:.3e} of each leaf's largest (tol {TOL['train_grad']:g}; worst "
+          f"{[(k, f'{v:.2e}') for k, v in worst]}); mse {m_gpu['mse']:.6f}", flush=True)
+    _require(loss_err <= TOL["train_loss"], f"train loss differs: {loss_err}")
+    _require(grad_err <= TOL["train_grad"], f"train gradients differ: {grad_errs}")
+
+    state, opt = ts.make_train_state(field, cfg.lr_init, cfg.lr_basis, runtime_decay=True)
+    step = ts.make_train_step(field.cfg, opt, device=dev, **kw)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def one(state, alpha_mask=mask):
+        ids = torch.as_tensor(sampler.next_ids(), device=dev)
+        batch = {"rays": rays[ids], "rgb": rgb[ids], "depth": depth[ids]}
+        return step(state, aabb, batch, gen, alpha_mask=alpha_mask)
+
+    for _ in range(TRAIN_WARMUP):
+        state, m = one(state)
+    torch.cuda.synchronize()
+    ff.LAUNCHES = ff.BWD_LAUNCHES = sm.LAUNCHES = 0
+    t0 = time.perf_counter()
+    mses = []
+    for _ in range(TRAIN_STEPS):
+        state, m = one(state)
+        mses.append(m["mse"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"factor_features": ff.LAUNCHES, "factor_features_bwd": ff.BWD_LAUNCHES}
+    print(f"train path launches {launches} (kernel B: {sm.LAUNCHES}, eval only)", flush=True)
+    for name, count in launches.items():
+        _require(count > 0, f"{name} was not launched on the training path")
+        report[name]["launches"] = report[name].get("launches", 0) + count
+        report[name].setdefault("launches_by_path", {})["train"] = count
+    mses = [float(v) for v in mses]
+    _require(all(np.isfinite(mses)), f"non-finite mse {mses}")
+    _require(mses[-1] < mses[0], f"mse did not fall over the timed steps: {mses}")
+    ms_step = dt / TRAIN_STEPS * 1e3
+    psnr = [float(-10 * np.log10(v)) for v in (mses[0], mses[-1])]
+    print(f"train ms/step {ms_step:.2f} ({TRAIN_STEPS} steps of {cfg.batch_size} rays in "
+          f"{dt:.3f} s after {TRAIN_WARMUP} warm-up) on {card}; mse {mses[0]:.5f} -> "
+          f"{mses[-1]:.5f}, psnr {psnr[0]:.3f} -> {psnr[1]:.3f}; step {state.step}, last "
+          f"metrics { {k: round(float(v), 6) for k, v in m.items()} }", flush=True)
+
+    # the dense branch: the trainer's regime before its first mask, R = 32
+    modes0 = dict(ff.BWD_MODES)
+    t0 = time.perf_counter()
+    for _ in range(DENSE_STEPS):
+        state, m = one(state, alpha_mask=None)
+    torch.cuda.synchronize()
+    dense = {k: float(v) for k, v in m.items()}
+    modes = {k: ff.BWD_MODES[k] - modes0[k] for k in modes0}
+    print(f"dense branch (R = {kw['microbatch']}): {DENSE_STEPS} steps in "
+          f"{time.perf_counter() - t0:.2f} s, kernel A' launches by mode {modes}, last "
+          f"metrics {dense}", flush=True)
+    _require(all(np.isfinite(list(dense.values()))), f"dense step not finite: {dense}")
+    _require(modes["density"] > 0 and modes["app"] > 0,
+             f"the dense branch did not run kernel A' in both modes: {modes}")
+
+    return {"train_ms_per_step": ms_step, "train_mse_first": mses[0], "train_mse_last": mses[-1],
+            "train_psnr_first": psnr[0], "train_psnr_last": psnr[1]}
+
+
 def main():
     import os
 
@@ -441,8 +672,10 @@ def main():
     finally:
         for f in os.listdir(workdir):
             os.remove(os.path.join(workdir, f))
-    print(json.dumps({"rays_per_s": rays_s, "max_dev": max_dev, "card": card}), flush=True)
-    kernels = [report[k] for k in ("factor_features", "shading_mlp")]
+    train = phase_train(dev, card, report)
+    print(json.dumps({"rays_per_s": rays_s, "max_dev": max_dev, **train, "card": card}),
+          flush=True)
+    kernels = [report[k] for k in ("factor_features", "shading_mlp", "factor_features_bwd")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

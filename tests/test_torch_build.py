@@ -54,7 +54,8 @@ def test_the_hash_covers_the_flags(csrc, monkeypatch):
 def test_the_port_sources_and_their_headers():
     deps = {name: [p.name for p in _build.dependencies(name)] for name in _build.SOURCES}
     assert deps == {
-        "factor_features": ["factor_features.cu"],
+        "factor_features": ["factor_features.cu", "factor_common.cuh"],
+        "factor_features_bwd": ["factor_features_bwd.cu", "factor_common.cuh"],
         "shading_mlp": ["shading_mlp.cu", "hopper.cuh"],
     }
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card, and the
+train step on the card against the CPU.
 
 These skip without an NVIDIA GPU.  The module imports no JAX, so on a
 machine with a card and no JAX it runs with
@@ -158,13 +159,132 @@ def test_shading_weight_cache_follows_the_weights(cuda):
 
 
 def test_kernels_refuse_grad_inputs(cuda):
+    # the forward kernels refuse tables that need grad outside
+    # FactorFeatures, which trains the field through kernel A'
     cfg = ptf.TensoRFConfig(density_n_comp=(2, 2, 2), app_n_comp=(4, 4, 4))
     field = _field(cfg, (6, 6, 6), cuda).requires_grad_(True)
     xn = torch.zeros(8, 3, device=cuda)
     with pytest.raises(RuntimeError, match="no_grad"):
-        field.fused_features(xn)
+        ff.factor_features(xn, tuple(field.planes), tuple(field.lines), field.nd)
     with pytest.raises(RuntimeError, match="no_grad"):
         sm.shade_fea_noview(field.mlp, torch.zeros(8, cfg.app_dim, device=cuda), cfg.fea_pe)
+    before = ff.BWD_LAUNCHES
+    sig, app = field.fused_features(xn)
+    (sig.sum() + app.sum()).backward()
+    assert ff.BWD_LAUNCHES == before + 1 and field.planes[0].grad is not None
+
+
+def _edge_samples(n, gen, device):
+    xn = torch.rand(n, 3, generator=gen, device=device) * 2 - 1
+    if n >= 40:
+        xn[:8] = torch.tensor([[1.0, 1, 1], [-1, -1, -1], [1, -1, 1], [-1, 1, -1],
+                               [1, 0.3, -0.2], [0.1, 1, 0.4], [-0.6, 0.2, 1], [1, 1, -1]])
+        xn[8:16, 0] = 1.0
+        xn[16:24, 1] = 1.0
+        xn[24:32, 2] = 1.0
+    return xn
+
+
+def _rel_err(got, ref):
+    """Largest |got - ref| over each table's largest |ref| (0 where both
+    are 0)."""
+    err = 0.0
+    for g, r in zip((*got[0], *got[1]), (*ref[0], *ref[1])):
+        scale = float(r.abs().max())
+        diff = float((g - r).abs().max())
+        err = max(err, diff / scale if scale > 0 else diff)
+    return err
+
+
+# kernel A' against its plain version: both add fp32 terms with atomics
+# in an order that changes from run to run, so they are held relative to
+# each table's largest gradient
+BWD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("widths", [((16, 16, 16), (48, 48, 48)), ((4, 4, 4), (8, 8, 8))])
+@pytest.mark.parametrize("n", [0, 1, 33, 2 ** 20 + 3])
+def test_factor_features_backward_kernel_matches_plain(cuda, widths, n):
+    # 64-wide tables take the walk kernel, 12-wide the generic one
+    cfg = ptf.TensoRFConfig(density_n_comp=widths[0], app_n_comp=widths[1])
+    field = _field(cfg, (21, 17, 30), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    xn = _edge_samples(n, gen, cuda)
+    planes, lines, nd = tuple(field.planes), tuple(field.lines), field.nd
+    na = sum(widths[1])
+    d_sig = torch.randn(n, generator=gen, device=cuda)
+    d_app = torch.randn(n, na, generator=gen, device=cuda)
+    for ds, da in ((d_sig, d_app), (d_sig, None), (None, d_app)):
+        before = ff.BWD_LAUNCHES
+        got = ff.factor_features_backward(xn, planes, lines, nd, ds, da)
+        torch.cuda.synchronize()
+        assert ff.BWD_LAUNCHES == before + (n > 0)
+        ref = ff.factor_features_backward_plain(xn, planes, lines, nd, ds, da)
+        for g, r in zip((*got[0], *got[1]), (*ref[0], *ref[1])):
+            assert g.shape == r.shape and g.dtype == torch.float32
+        assert _rel_err(got, ref) <= BWD_TOL
+        if ds is None:  # app-only: the density channels get nothing
+            assert all(float(g[..., :d].abs().max()) == 0 for g, d in zip(got[0], nd))
+
+
+def test_factor_features_backward_kernel_accumulates(cuda):
+    # gradients summed twice into one zeroed set of tables
+    cfg = ptf.TensoRFConfig()
+    field = _field(cfg, (48, 40, 56), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    xn = _ray_major(4096 // 16, 16, 48, gen, cuda).contiguous()
+    planes, lines, nd = tuple(field.planes), tuple(field.lines), field.nd
+    d_sig = torch.randn(xn.shape[0], generator=gen, device=cuda)
+    d_app = torch.randn(xn.shape[0], 144, generator=gen, device=cuda)
+    out = (tuple(torch.zeros_like(p) for p in planes), tuple(torch.zeros_like(l) for l in lines))
+    for _ in range(2):
+        ff.factor_features_backward(xn, planes, lines, nd, d_sig, d_app, out=out)
+    ref = ff.factor_features_backward_plain(xn, planes, lines, nd, d_sig, d_app)
+    twice = (tuple(2 * r for r in ref[0]), tuple(2 * r for r in ref[1]))
+    assert _rel_err(out, twice) <= BWD_TOL
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    # the compacted and the dense train step at tiny size, kernels A and A'
+    # on the card against the plain versions on the CPU, same jitter
+    from text2nerf_tpu_torch.engine import checkpoints as PC
+    from text2nerf_tpu_torch.engine import train_step as PTS
+
+    cfg = ptf.TensoRFConfig(density_n_comp=(16, 16, 16), app_n_comp=(48, 48, 48))
+    field = _field(cfg, (32, 32, 32), cuda)
+    with torch.no_grad():
+        zs = torch.linspace(-8, 8, 32, device=cuda)
+        field.lines[0][:, :16] = torch.where((zs > 3) & (zs < 5), 2.0, -2.0)[:, None]
+        field.planes[0][..., :16] = field.planes[0][..., :16].abs() + 1.0
+    field_cpu = params_from_jax(params_to_jax(field), cfg, device="cpu")
+    aabb = torch.tensor([[-8.0] * 3, [8.0] * 3])
+    mask, _ = ptf.update_alpha_mask(field, aabb, (16, 16, 16), pool=5, device=cuda)
+    mask_cpu, _ = ptf.update_alpha_mask(field_cpu, aabb, (16, 16, 16), pool=5, device="cpu")
+    dirs = PR.ray_directions(16, 16, (16.0, 16.0), device="cpu")
+    rays = torch.cat(PR.rays_from_pose(dirs, np.eye(4)), -1)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"rays": rays, "rgb": torch.rand(256, 3, generator=gen),
+             "depth": torch.full((256,), 4.0)}
+    jitter = torch.rand(256, 1, generator=gen)
+    kw = dict(n_samples=48, app_k=16, compact_k=16, density_group=2, density_block=3,
+              depth_cap_band=6, microbatch=4)
+    for masked in (True, False):
+        grads, metrics = [], []
+        for f, m, d in ((field, mask, cuda), (field_cpu.requires_grad_(True), mask_cpu, "cpu")):
+            state, opt = PTS.make_train_state(f, runtime_decay=True)
+            step = PTS.make_train_step(cfg, opt, device=d, runtime_decay=True, **kw)
+            a0, b0 = ff.LAUNCHES, ff.BWD_LAUNCHES
+            _, met = step(state, aabb, batch, alpha_mask=m if masked else None, jitter=jitter)
+            if d == cuda:
+                assert ff.LAUNCHES > a0 and ff.BWD_LAUNCHES > b0
+            metrics.append({k: float(v) for k, v in met.items()})
+            grads.append(PC.grads_to_jax(f))
+        for k in metrics[1]:
+            assert abs(metrics[0][k] - metrics[1][k]) <= 1e-5 * abs(metrics[1][k]), k
+        for k, want in grads[1].items():
+            scale = float(np.abs(want).max())
+            assert float(np.abs(grads[0][k] - want).max()) <= 1e-4 * scale + 1e-12, k
+        assert metrics[1]["mse"] > 0
 
 
 def test_adaptive_render_on_the_card_matches_the_cpu(cuda):
@@ -202,6 +322,7 @@ def test_cuda_calls_never_reach_the_plain_versions(cuda, monkeypatch):
         raise AssertionError("a CUDA call reached a plain version")
 
     monkeypatch.setattr(ff, "factor_features_plain", boom)
+    monkeypatch.setattr(ff, "factor_features_backward_plain", boom)
     monkeypatch.setattr(sm, "shade_fea_noview_plain", boom)
     cfg = ptf.TensoRFConfig(density_n_comp=(4, 4, 4), app_n_comp=(8, 8, 8))
     field = _field(cfg, (16, 16, 16), cuda)
@@ -213,3 +334,16 @@ def test_cuda_calls_never_reach_the_plain_versions(cuda, monkeypatch):
         out = PRd.render_chunked(field, aabb, rays, n_samples=20, chunk=128, app_k=8,
                                  alpha_mask=mask, compact_k=compact_k, device=cuda)
         assert out.rgb.is_cuda and bool(torch.isfinite(out.rgb).all())
+    # the train step's backward runs kernel A' and never the plain version
+    from text2nerf_tpu_torch.engine import train_step as PTS
+
+    field.requires_grad_(True)
+    state, opt = PTS.make_train_state(field)
+    step = PTS.make_train_step(cfg, opt, device=cuda, n_samples=20, app_k=8, compact_k=8)
+    before = ff.BWD_LAUNCHES
+    batch = {"rays": rays, "rgb": torch.rand(rays.shape[0], 3, device=cuda),
+             "depth": torch.full((rays.shape[0],), 4.0, device=cuda)}
+    for m in (mask, None):
+        _, metrics = step(state, aabb, batch, alpha_mask=m)
+        assert bool(torch.isfinite(metrics["mse"]))
+    assert ff.BWD_LAUNCHES >= before + 3  # compacted (fused), dense (density, app)

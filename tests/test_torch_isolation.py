@@ -19,6 +19,7 @@ from text2nerf_tpu_torch import device as D
 from text2nerf_tpu_torch.data import trajectories as traj
 from text2nerf_tpu_torch.engine import checkpoints as PC
 from text2nerf_tpu_torch.engine import renderer as PER
+from text2nerf_tpu_torch.engine import train_step as PTS
 from text2nerf_tpu_torch.models import tensorf as ptf
 from text2nerf_tpu_torch.ops import render as PRd
 
@@ -80,6 +81,40 @@ def test_entry_points_raise_without_cuda(small, monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert D.resolve_device("cpu").type == "cpu"
+
+
+def test_train_entry_points_raise_without_cuda(small, monkeypatch):
+    field, aabb, mask = small
+    flat = PC.params_to_jax(field)
+    adam = {"count": 0, "mu": flat, "nu": flat}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opt = torch.optim.SGD(field.parameters(), lr=1.0)
+    calls = [
+        lambda: PTS.make_train_step(field.cfg, opt, n_samples=8),
+        lambda: PRd.render_rays_train_compact(field, aabb, torch.zeros(4, 6), mask,
+                                              n_samples=8),
+        lambda: PC.train_state_from_jax(flat, adam, field.cfg),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # asked for the CPU, they run there
+    step = PTS.make_train_step(field.cfg, opt, n_samples=8, device="cpu")
+    assert callable(step)
+    state = PC.train_state_from_jax(flat, adam, field.cfg, device="cpu")
+    assert state.field.planes[0].device.type == "cpu"
+
+
+def test_a_cpu_field_is_not_trained_for_a_cuda_call(small, monkeypatch):
+    field, aabb, mask = small
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    state, opt = PTS.make_train_state(field)
+    step = PTS.make_train_step(field.cfg, opt, n_samples=8)
+    batch = {"rays": torch.zeros(4, 6), "rgb": torch.zeros(4, 3), "depth": torch.ones(4)}
+    with pytest.raises(ValueError, match="call asked for cuda"):
+        step(state, aabb, batch)
+    with pytest.raises(ValueError, match="call asked for cuda"):
+        PRd.render_rays_train_compact(field, aabb, torch.zeros(4, 6), mask, n_samples=8)
 
 
 def test_a_cpu_field_is_not_rendered_for_a_cuda_call(small, monkeypatch):

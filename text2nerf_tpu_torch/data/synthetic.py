@@ -1,10 +1,11 @@
-"""A deterministic synthetic field for driving the renderer without a
-trained checkpoint (the port's copy of the room shell of ``bench.py``),
-and the serving configuration it is rendered in.
+"""A deterministic synthetic field for driving the renderer and the
+trainer without a trained checkpoint (the port's copy of the room shell of
+``bench.py``), the serving configuration it is rendered in, and the
+training configuration it is fitted in.
 
-``chip_smoke.py`` and ``profile_render.py`` both take the field, the mask
-and the render settings from here, so the profile describes the same
-configuration whose rays/s the smoke run reports.
+``chip_smoke.py``, ``profile_render.py`` and ``profile_train.py`` take the
+fields, the masks and the settings from here, so each profile describes
+the configuration whose numbers the smoke run reports.
 """
 
 from __future__ import annotations
@@ -12,7 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..engine import trainer as TR
 from ..models import tensorf as tf
+from ..ops import rays as R
+from ..ops import render as Rd
 from . import trajectories as traj
 
 #: the full-width field: TensoRFConfig() defaults on a 300^3 grid
@@ -69,3 +73,47 @@ def serving_render_kwargs(field: tf.TensoRF, mask, device) -> dict:
     """evaluation_path keyword arguments of the serving configuration."""
     n_samples = tf.default_n_samples(tf.grid_resolution(field), field.cfg.step_ratio)
     return dict(RENDER_KW, n_samples=n_samples, alpha_mask=mask, device=device)
+
+
+#: training targets: views along serving_poses(), 4 x 512^2 rays
+TRAIN_VIEWS = 4
+
+
+def training_rays(device) -> torch.Tensor:
+    """(N, 6) rays of the first TRAIN_VIEWS serving poses, view-major."""
+    intr = R.default_intrinsics(*VIEW_HW)
+    dirs = R.ray_directions(*VIEW_HW, intr[:2], intr[2:], device=device)
+    poses = serving_poses()[:TRAIN_VIEWS]
+    return torch.cat([torch.cat(R.rays_from_pose(dirs, p), -1) for p in poses])
+
+
+def training_targets(device):
+    """(rays (N, 6), rgb (N, 3), depth (N,)): the training views rendered
+    by the serving path (render_chunked with the serving settings) from
+    serving_shell(1)."""
+    target = serving_shell(1, device)
+    aabb = torch.tensor(AABB, device=device)
+    mask, _ = serving_mask(target, aabb, device)
+    rays = training_rays(device)
+    out = Rd.render_chunked(target, aabb, rays, **serving_render_kwargs(target, mask, device))
+    return rays, out.rgb, out.depth
+
+
+def training_setup(device):
+    """The field to train and how the trainer steps it: (field, aabb,
+    mask, TrainConfig(), make_train_step keyword arguments).  The field is
+    serving_shell(2): the same slab, another seed, so its app factors
+    differ from the targets' and the rgb loss starts high; the mask is its
+    serving 200^3 pool-5 mask; the step settings are the trainer's
+    defaults at full width (300^3, 16/48 components, 259 samples, batch
+    16384, compacted K 64 in groups of 2, depth-anchored band 6)."""
+    field = serving_shell(2, device)
+    aabb = torch.tensor(AABB, device=device)
+    mask, _ = serving_mask(field, aabb, device)
+    cfg = TR.TrainConfig()
+    reso = tf.grid_resolution(field)
+    n_samples = tf.default_n_samples(reso, field.cfg.step_ratio)
+    group, block = TR._resolve_group(cfg, np.asarray(AABB, np.float32), reso,
+                                     field.cfg.step_ratio)
+    kw = TR._step_kwargs(cfg, n_samples=n_samples, group=group, block=block, white_bg=True)
+    return field.requires_grad_(True), aabb, mask, cfg, kw

@@ -12,6 +12,10 @@ in the other:
 - ``alphaMask.mask`` (np.packbits of the [z, y, x] volume),
   ``alphaMask.shape``, ``alphaMask.aabb``, ``alphaMask.pool``;
 - ``__loop_state__``: optional JSON bytes.
+
+:func:`train_state_from_jax` / :func:`train_state_to_jax` carry a train
+state (the params and optax's Adam moments) across, so a JAX run can be
+resumed in the port; :func:`grads_to_jax` splits gradients as the params.
 """
 
 from __future__ import annotations
@@ -27,22 +31,135 @@ from ..models.tensorf import TensoRF, TensoRFConfig
 from ..utils.atomic_io import atomic_savez
 
 
+def _jax_leaves(field: TensoRF):
+    """(parameter, [(JAX key, channel slice)]) for every parameter of the
+    field: a fused table splits into its density and app channels."""
+    out = []
+    for name, tables in (("planes", field.planes), ("lines", field.lines)):
+        for i, t in enumerate(tables):
+            nd = field.nd[i]
+            out.append((t, [(f"density_{name}/{i}", slice(0, nd)),
+                            (f"app_{name}/{i}", slice(nd, None))]))
+    out.append((field.basis, [("basis", None)]))
+    for k in ("w1", "b1", "w2", "b2", "w3", "b3"):
+        out.append((field.mlp[k], [(f"mlp/{k}", None)]))
+    return out
+
+
+def _split(field: TensoRF, value_of) -> dict:
+    """{JAX key: ndarray} of ``value_of(parameter)`` for every parameter,
+    copies (a training step updates the parameters in place)."""
+    flat = {}
+    for p, keys in _jax_leaves(field):
+        v = value_of(p).detach().cpu()
+        for key, sl in keys:
+            flat[key] = np.array((v if sl is None else v[..., sl]).numpy())
+    return flat
+
+
 def params_to_jax(field: TensoRF) -> dict:
     """The field as the JAX parameter pytree, flattened: {path: ndarray}."""
-    flat = {}
-    groups = (
-        ("density_planes", field.density_planes()),
-        ("density_lines", field.density_lines()),
-        ("app_planes", field.app_planes()),
-        ("app_lines", field.app_lines()),
-    )
-    for name, tensors in groups:
-        for i, t in enumerate(tensors):
-            flat[f"{name}/{i}"] = t.detach().cpu().contiguous().numpy()
-    flat["basis"] = field.basis.detach().cpu().numpy()
-    for k in ("w1", "b1", "w2", "b2", "w3", "b3"):
-        flat[f"mlp/{k}"] = field.mlp[k].detach().cpu().numpy()
-    return flat
+    return _split(field, lambda p: p)
+
+
+def grads_to_jax(field: TensoRF) -> dict:
+    """The field's ``.grad`` split as :func:`params_to_jax` splits the
+    values (zeros for a parameter without a gradient)."""
+    return _split(field, lambda p: torch.zeros_like(p) if p.grad is None else p.grad)
+
+
+def _flatten_tree(tree, prefix=""):
+    """{'/'-joined path: ndarray} of a nested dict / tuple of arrays; empty
+    tuples (optax's MaskedNode) have no leaves."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten_tree(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten_tree(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def _adam_moments(opt_state):
+    """(count, {key: mu}, {key: nu}) from an optax optimizer state (every
+    ``ScaleByAdamState`` in it, found by its count/mu/nu fields) or from
+    the dict :func:`train_state_to_jax` returns."""
+    if isinstance(opt_state, dict) and "mu" in opt_state:
+        return int(opt_state["count"]), dict(opt_state["mu"]), dict(opt_state["nu"])
+    found = []
+
+    def walk(node):
+        if all(hasattr(node, a) for a in ("count", "mu", "nu")):
+            found.append(node)
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk(opt_state)
+    if not found:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+    counts = {int(np.asarray(a.count)) for a in found}
+    if len(counts) != 1:
+        raise ValueError(f"Adam states disagree on their count: {sorted(counts)}")
+    mu, nu = {}, {}
+    for a in found:
+        mu.update(_flatten_tree(a.mu))
+        nu.update(_flatten_tree(a.nu))
+    return counts.pop(), mu, nu
+
+
+def train_state_from_jax(params_flat: dict, opt_state, cfg: Optional[TensoRFConfig] = None,
+                         *, step: Optional[int] = None, lr_init=0.02, lr_basis=1e-3,
+                         factor=1.0, runtime_decay=False, device=None):
+    """A port TrainState resuming a JAX run: the field from the flattened
+    params, and its Adam state from optax's (``count``, ``mu``/``nu`` per
+    leaf → ``step``, ``exp_avg``/``exp_avg_sq`` per parameter, a fused
+    table's density ‖ app moments concatenated along channels).  ``step``
+    defaults to the Adam count."""
+    from .train_step import TrainState, make_optimizer
+
+    field = params_from_jax(params_flat, cfg, device=device)
+    opt = make_optimizer(field, lr_init, lr_basis, factor, runtime_decay)
+    count, mu, nu = _adam_moments(opt_state)
+
+    def joined(tree, keys, like):
+        parts = [torch.from_numpy(np.array(tree[k], np.float32)) for k, _ in keys]
+        return torch.cat(parts, -1).to(like.device).reshape(like.shape)
+
+    for p, keys in _jax_leaves(field):
+        opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": joined(mu, keys, p),
+            "exp_avg_sq": joined(nu, keys, p),
+        }
+    return TrainState(field, opt, count if step is None else int(step))
+
+
+def train_state_to_jax(state) -> dict:
+    """The state as JAX arrays: ``params`` (flattened), the Adam ``count``
+    (int32), ``mu`` / ``nu`` (flattened like the params) and ``step``."""
+    field, opt = state.field, state.optimizer
+    counts = {int(opt.state[p]["step"]) for p, _ in _jax_leaves(field) if p in opt.state}
+    if len(counts) > 1:
+        raise ValueError(f"parameters disagree on their Adam step: {sorted(counts)}")
+
+    def moment(name):
+        return _split(field, lambda p: opt.state[p][name] if p in opt.state
+                      else torch.zeros_like(p))
+
+    return {
+        "params": params_to_jax(field),
+        "count": np.int32(counts.pop() if counts else 0),
+        "mu": moment("exp_avg"),
+        "nu": moment("exp_avg_sq"),
+        "step": np.int32(state.step),
+    }
 
 
 def _infer_cfg(flat: dict) -> TensoRFConfig:

@@ -1,5 +1,6 @@
-"""TensoRF vm_split field as an ``nn.Module`` (port of the eval part of
-``text2nerf_tpu/models/tensorf.py``).
+"""TensoRF vm_split field as an ``nn.Module`` (port of
+``text2nerf_tpu/models/tensorf.py``: the field, its alpha mask, the
+regularizers and the optimizer groups).
 
 Layouts follow the JAX package: planes are channels-last ``[H, W, C]``,
 lines ``[L, C]``, plane i spans world axes ``MAT_MODE[i]`` (x indexes W,
@@ -26,7 +27,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import check_on, resolve_device
-from ..ops.kernels.factor_features import MAT_MODE, VEC_MODE, factor_features
+from ..ops.kernels.factor_features import (
+    MAT_MODE, VEC_MODE, FactorFeatures, factor_features,
+)
 from . import mlp as mlp_mod
 
 
@@ -165,10 +168,11 @@ class TensoRF(nn.Module):
         return tuple(l[..., d:] for l, d in zip(self.lines, self.nd))
 
     def _factors(self, xn, sigma, app, dtype):
-        return factor_features(
-            xn, tuple(self.planes), tuple(self.lines), self.nd,
-            sigma=sigma, app=app, dtype=dtype,
-        )
+        planes, lines = tuple(self.planes), tuple(self.lines)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (*planes, *lines)):
+            # training: kernel A forward, kernel A' (the scatter-add) backward
+            return FactorFeatures.apply(xn, self.nd, sigma, app, dtype, *planes, *lines)
+        return factor_features(xn, planes, lines, self.nd, sigma=sigma, app=app, dtype=dtype)
 
     def _basis(self, app_raw, dtype):
         if dtype is None:
@@ -213,6 +217,86 @@ def grid_resolution(field: TensoRF) -> Tuple[int, int, int]:
     """Grid resolution (x, y, z) from the line lengths."""
     ls = [field.lines[i].shape[0] for i in range(3)]
     return (ls[2], ls[1], ls[0])
+
+
+def param_groups(field: TensoRF):
+    """Optimizer groups: the factor planes and lines are ``spatial`` (lr
+    0.02), the basis and the head ``network`` (lr 1e-3), as the JAX
+    package's ``param_group_labels``."""
+    return [
+        {"name": "spatial", "params": [*field.planes, *field.lines]},
+        {"name": "network", "params": [field.basis, *field.mlp.parameters()]},
+    ]
+
+
+def grouping_safe(aabb, grid_size, step_ratio: float, group: int = 2, block: int = 4,
+                  dir_bound: float = 1.0) -> bool:
+    """True when ``group`` ray-consecutive samples span at most ``block -
+    2`` grid cells per axis: the worst drift across the group along an
+    axis is (group-1)·step·dir_bound / unit (host arithmetic, fp32 units as
+    the JAX package's)."""
+    aabb = np.asarray(aabb, np.float32)
+    units = (aabb[1] - aabb[0]) / (np.asarray(grid_size, np.float32) - np.float32(1))
+    step = float(np.mean(units, dtype=np.float32)) * step_ratio
+    drift = (group - 1) * step * dir_bound / float(np.min(units))
+    return drift <= block - 2 + 1e-6
+
+
+def grouping_block(aabb, grid_size, step_ratio: float, group: int = 2, max_block: int = 4,
+                   dir_bound: float = 1.0) -> int:
+    """Smallest safe packing block for grouped density samples, or 0 when
+    none up to ``max_block`` is safe."""
+    for block in range(3, max_block + 1):
+        if grouping_safe(aabb, grid_size, step_ratio, group, block, dir_bound):
+            return block
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# Regularizers, on the density and app channel slices of the fused tables
+# (TV divides by each group's own channel count)
+# ---------------------------------------------------------------------------
+
+
+def _tv_plane(plane):
+    """TV of one (H, W, C) plane: 2·(h_tv / count_h + w_tv / count_w)."""
+    h, w, c = plane.shape
+    h_tv = torch.sum((plane[1:] - plane[:-1]) ** 2)
+    w_tv = torch.sum((plane[:, 1:] - plane[:, :-1]) ** 2)
+    return 2.0 * (h_tv / ((h - 1) * w * c) + w_tv / (h * (w - 1) * c))
+
+
+def tv_loss_density(field: TensoRF):
+    return sum(_tv_plane(p) for p in field.density_planes()) * 1e-2
+
+
+def tv_loss_app(field: TensoRF):
+    return sum(_tv_plane(p) for p in field.app_planes()) * 1e-2
+
+
+def density_l1(field: TensoRF):
+    """Mean |.| of the density factors."""
+    return sum(
+        torch.mean(torch.abs(p)) + torch.mean(torch.abs(l))
+        for p, l in zip(field.density_planes(), field.density_lines())
+    )
+
+
+def vector_comp_diffs(field: TensoRF):
+    """Orthogonality regularizer: mean |off-diagonal| of each line's
+    component Gram matrix."""
+
+    def one(lines):
+        total = 0.0
+        for line in lines:
+            v = line.T  # (C, L): components are rows
+            dotp = v @ v.T
+            n_comp = v.shape[0]
+            off = dotp.reshape(-1)[1:].reshape(n_comp - 1, n_comp + 1)[..., :-1]
+            total = total + torch.mean(torch.abs(off))
+        return total
+
+    return one(field.density_lines()) + one(field.app_lines())
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,18 @@
-"""Kernel A wrapper: TensoRF factor features (``csrc/factor_features.cu``).
+"""Kernel A and kernel A' wrappers: TensoRF factor features
+(``csrc/factor_features.cu``) and their scatter-add backward
+(``csrc/factor_features_bwd.cu``).
 
-Replaces the XLA-lowered fused factor gather of
+Kernel A replaces the XLA-lowered fused factor gather of
 ``text2nerf_tpu/models/tensorf.py:538`` (and its density-only :335 and
-app-only :575 forms).  Inputs are the fused (density ‖ app) tables of the
-vm_split field: three planes ``[H_i, W_i, C_i]`` and three lines
+app-only :575 forms); kernel A' replaces XLA's autodiff of it, the
+scatter-add into the tables.  Inputs are the fused (density ‖ app) tables
+of the vm_split field: three planes ``[H_i, W_i, C_i]`` and three lines
 ``[L_i, C_i]`` whose first ``nd_i`` channels are density.
+:class:`FactorFeatures` joins the two for autograd.
 
-For CPU tensors the wrapper runs :func:`factor_features_plain`; for CUDA
-tensors it launches the kernel or raises.
+For CPU tensors each wrapper runs its plain version
+(:func:`factor_features_plain`, :func:`factor_features_backward_plain`);
+for CUDA tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -17,14 +22,17 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..fused_gather import sample_line, sample_plane
+from ..fused_gather import _coords, sample_line, sample_plane
 from . import _build
 
 MAT_MODE = ((0, 1), (0, 2), (1, 2))
 VEC_MODE = (2, 1, 0)
 
-#: kernel launches since the last reset (the main path's proof of use)
+#: kernel A launches since the last reset (the main path's proof of use)
 LAUNCHES = 0
+#: kernel A' launches since the last reset, and the same by output mode
+BWD_LAUNCHES = 0
+BWD_MODES = {"fused": 0, "density": 0, "app": 0}
 
 
 def factor_features_plain(
@@ -149,3 +157,197 @@ def _lib():
                        ctypes.c_int, ctypes.c_int, vp, vp, vp]
         fn.restype = ctypes.c_int
     return lib
+
+
+# ---------------------------------------------------------------------------
+# Kernel A': the backward, a scatter-add into the tables
+# ---------------------------------------------------------------------------
+
+
+def _channel_grads(n, c, nd, d_sigma, d_app_raw, app_off, like):
+    """(N, C) gradient of one axis's products: d_sigma on the density
+    channels, the axis's slice of d_app_raw on the app channels."""
+    g = like.new_zeros((n, c))
+    if d_sigma is not None:
+        g[:, :nd] = d_sigma[:, None]
+    if d_app_raw is not None:
+        g[:, nd:] = d_app_raw[:, app_off: app_off + c - nd]
+    return g
+
+
+def factor_features_backward_plain(xn, planes, lines, nd: Sequence[int], d_sigma,
+                                   d_app_raw):
+    """Plain PyTorch version of kernel A': ``(d_planes, d_lines)``, fp32
+    tables in the fused layout, for the gradients ``d_sigma`` (N,) and
+    ``d_app_raw`` (N, Σna) of :func:`factor_features`' outputs (either may
+    be None).  Per sample and axis the plane value ``pf`` and line value
+    ``lf`` are recomputed as the forward computes them; ``g·lf`` goes to
+    the four bilinear corners and ``g·pf`` to the two line rows, in the
+    order of reverse-mode autodiff of the lerps, scattered with
+    ``index_add_``.  An edge-clamped upper index lands both weights in one
+    row."""
+    n = xn.shape[0]
+    d_planes, d_lines = [], []
+    app_off = 0
+    for i in range(3):
+        plane, line = planes[i], lines[i]
+        h, w, c = plane.shape
+        length = line.shape[0]
+        g = _channel_grads(n, c, nd[i], d_sigma, d_app_raw, app_off, plane)
+        app_off += c - nd[i]
+        m0, m1 = MAT_MODE[i]
+        pf = sample_plane(plane, xn[:, m0], xn[:, m1])
+        lf = sample_line(line, xn[:, VEC_MODE[i]])
+        dpf, dlf = g * lf, g * pf
+        x0, tx = _coords(xn[:, m0], w)
+        y0, ty = _coords(xn[:, m1], h)
+        x1 = torch.clamp(x0 + 1, max=w - 1)
+        y1 = torch.clamp(y0 + 1, max=h - 1)
+        tx, ty = tx[:, None], ty[:, None]
+        d_top, d_bot = dpf * (1.0 - ty), dpf * ty
+        dp = plane.new_zeros((h * w, c))
+        dp.index_add_(0, y0 * w + x0, d_top * (1.0 - tx))
+        dp.index_add_(0, y0 * w + x1, d_top * tx)
+        dp.index_add_(0, y1 * w + x0, d_bot * (1.0 - tx))
+        dp.index_add_(0, y1 * w + x1, d_bot * tx)
+        l0, tl = _coords(xn[:, VEC_MODE[i]], length)
+        l1 = torch.clamp(l0 + 1, max=length - 1)
+        tl = tl[:, None]
+        dl = line.new_zeros((length, c))
+        dl.index_add_(0, l0, dlf * (1.0 - tl))
+        dl.index_add_(0, l1, dlf * tl)
+        d_planes.append(dp.reshape(h, w, c))
+        d_lines.append(dl)
+    return tuple(d_planes), tuple(d_lines)
+
+
+def factor_features_backward(xn, planes, lines, nd: Sequence[int], d_sigma=None,
+                             d_app_raw=None, *, out=None):
+    """Gradients of the tables for the output gradients ``d_sigma`` (N,)
+    and ``d_app_raw`` (N, Σna) (either may be None, not both): fp32 tables
+    in the fused layout.  ``out=(d_planes, d_lines)`` accumulates into
+    those tables instead of fresh zeroed ones."""
+    nd = tuple(int(v) for v in nd)
+    _check(xn, planes, lines, nd, d_sigma is not None, d_app_raw is not None, None)
+    n = xn.shape[0]
+    na_total = sum(p.shape[2] - d for p, d in zip(planes, nd))
+    if d_sigma is not None and (d_sigma.shape != (n,) or d_sigma.dtype != torch.float32):
+        raise ValueError(f"d_sigma must be ({n},) float32, got {tuple(d_sigma.shape)}")
+    if d_app_raw is not None and (
+        d_app_raw.shape != (n, na_total) or d_app_raw.dtype != torch.float32
+    ):
+        raise ValueError(
+            f"d_app_raw must be ({n}, {na_total}) float32, got {tuple(d_app_raw.shape)}"
+        )
+    if out is not None:
+        for t, ref in zip((*out[0], *out[1]), (*planes, *lines)):
+            if t.shape != ref.shape or t.dtype != torch.float32 or t.device != xn.device:
+                raise ValueError("out tables must match the tables' shapes, fp32, same device")
+    if xn.device.type == "cpu":
+        got = factor_features_backward_plain(xn, planes, lines, nd, d_sigma, d_app_raw)
+        if out is None:
+            return got
+        for t, g in zip((*out[0], *out[1]), (*got[0], *got[1])):
+            t.add_(g)
+        return out
+    if xn.device.type != "cuda":
+        raise ValueError(f"factor_features_backward: no kernel for device {xn.device}")
+    return _launch_backward(xn, planes, lines, nd, d_sigma, d_app_raw, out)
+
+
+def _launch_backward(xn, planes, lines, nd, d_sigma, d_app_raw, out):
+    global BWD_LAUNCHES
+    d_sigma = None if d_sigma is None else d_sigma.contiguous()
+    d_app_raw = None if d_app_raw is None else d_app_raw.contiguous()
+    if not all(t.is_contiguous() for t in (xn, *planes, *lines)):
+        raise ValueError("factor_features_backward: inputs must be contiguous")
+    zero = out is None
+    if zero:
+        out = (tuple(torch.empty_like(p, dtype=torch.float32) for p in planes),
+               tuple(torch.empty_like(l, dtype=torch.float32) for l in lines))
+    elif not all(t.is_contiguous() for t in (*out[0], *out[1])):
+        raise ValueError("factor_features_backward: out tables must be contiguous")
+    n = xn.shape[0]
+    if n >= 2 ** 31:
+        raise ValueError("factor_features_backward: at most 2^31 - 1 samples per launch")
+    if n == 0:
+        if zero:
+            for t in (*out[0], *out[1]):
+                t.zero_()
+        return out
+    na = [planes[i].shape[2] - nd[i] for i in range(3)]
+    dims = (ctypes.c_int * 18)(
+        *(p.shape[0] for p in planes),
+        *(p.shape[1] for p in planes),
+        *(l.shape[0] for l in lines),
+        *(p.shape[2] for p in planes),
+        *nd,
+        0, na[0], na[0] + na[1],
+    )
+    lib = _lib_backward()
+    with torch.cuda.device(xn.device):
+        err = lib.t2n_factor_features_bwd(
+            _build.ptr(xn), n,
+            *(_build.ptr(p) for p in planes), *(_build.ptr(l) for l in lines),
+            ctypes.cast(dims, ctypes.c_void_p), sum(na),
+            _build.ptr(d_sigma), _build.ptr(d_app_raw),
+            *(_build.ptr(t) for t in out[0]), *(_build.ptr(t) for t in out[1]),
+            int(zero), _build.stream_of(xn),
+        )
+    _build.check(err, "factor_features_backward launch")
+    BWD_LAUNCHES += 1
+    mode = "fused" if d_sigma is not None and d_app_raw is not None else (
+        "density" if d_sigma is not None else "app")
+    BWD_MODES[mode] += 1
+    return out
+
+
+def _lib_backward():
+    lib = _build.library("factor_features_bwd")
+    fn = lib.t2n_factor_features_bwd
+    if fn.argtypes is None:
+        vp = ctypes.c_void_p
+        fn.argtypes = [vp, ctypes.c_int, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int,
+                       vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int, vp]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+class FactorFeatures(torch.autograd.Function):
+    """Factor features with a gradient for the tables: kernel A forward
+    (on detached tables, under no_grad), kernel A' backward on CUDA
+    tensors, their plain versions on CPU tensors.  ``xn`` gets no
+    gradient: rays are not trained.
+
+    ``FactorFeatures.apply(xn, nd, sigma, app, dtype, *planes, *lines)``
+    returns ``(sigma_feat | None, app_raw | None)`` as
+    :func:`factor_features`."""
+
+    @staticmethod
+    def forward(ctx, xn, nd, sigma, app, dtype, *tables):
+        if dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "kernel A' has no bf16 backward: train with compute dtype fp32"
+            )
+        planes, lines = tables[:3], tables[3:]
+        with torch.no_grad():
+            out = factor_features(
+                xn, tuple(t.detach() for t in planes), tuple(t.detach() for t in lines),
+                nd, sigma=sigma, app=app, dtype=dtype,
+            )
+        ctx.save_for_backward(xn, *tables)
+        ctx.nd = tuple(int(v) for v in nd)
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_sigma, d_app_raw):
+        xn, *tables = ctx.saved_tensors
+        needs = ctx.needs_input_grad[5:]
+        if (d_sigma is None and d_app_raw is None) or not any(needs):
+            return (None,) * (5 + len(tables))
+        d_planes, d_lines = factor_features_backward(
+            xn, tuple(tables[:3]), tuple(tables[3:]), ctx.nd, d_sigma, d_app_raw,
+        )
+        grads = [g if need else None for g, need in zip((*d_planes, *d_lines), needs)]
+        return (None, None, None, None, None, *grads)

@@ -1,20 +1,27 @@
-"""Volume rendering of a TensoRF field, eval paths (port of the eval part of
+"""Volume rendering of a TensoRF field (port of
 ``text2nerf_tpu/ops/render.py``).
 
 - :func:`render_rays`: dense marching, appearance on the top-``app_k``
-  samples per ray by weight.
+  samples per ray by weight; ``is_train=True`` is the train branch
+  (per-ray jitter, no eval z-cull, the autograd head, the random
+  background coin).
 - :func:`render_rays_compact` / :func:`render_rays_compact_need`: the
-  alpha-mask compacted renderer (first ``compact_k`` mask-live samples per
-  ray), the second also returning each ray's escalation rung.
+  alpha-mask compacted eval renderer (first ``compact_k`` mask-live
+  samples per ray), the second also returning each ray's escalation rung.
+- :func:`render_rays_train_compact`: the compacted train renderer (the
+  first or the depth-anchored last ``compact_k`` mask-live samples, in
+  groups of ``density_group`` ray-consecutive samples).
 - :func:`render_chunked_adaptive`: the serving renderer; one base-rung
   pass per chunk, then one repacked pass over the rays that need more.
-- :func:`render_chunked`: chunked dispatch over the three.
+- :func:`render_chunked`: chunked dispatch over the eval renderers.
 
-Factor features go through kernel A and the ``MLP_Fea_noview`` head
-through kernel B on CUDA tensors.  Sample placement, occupancy, the
-first-K selection, compositing and the escalation bookkeeping are plain
-PyTorch in this port slice.  Training (jitter, random background, the
-autodiff head) is not ported yet.
+Factor features go through kernel A (and, in training, its backward
+kernel A') on CUDA tensors, and the eval ``MLP_Fea_noview`` head through
+kernel B; the train head is plain ``torch`` matmuls under autograd, as the
+JAX package's training runs its XLA head.  Sample placement, occupancy,
+the live selection, compositing and the escalation bookkeeping are plain
+PyTorch in this port slice.  Randomness (jitter, the background coin) is
+drawn from a ``torch.Generator`` unless the caller passes it in.
 """
 
 from __future__ import annotations
@@ -23,8 +30,10 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..device import as_tensor, check_on, resolve_device
+from ..models import mlp as mlp_mod
 from ..models import tensorf as tf
 from .kernels import shading_mlp
 from .rays import aabb_slab_entry
@@ -38,13 +47,16 @@ class RenderOutput(NamedTuple):
     acc: torch.Tensor      # (B,) accumulated opacity
 
 
-def _shade(cfg, field, app_feat):
-    """Eval shading head: kernel B on CUDA tensors, its plain version on
-    the CPU."""
+def _shade(cfg, field, app_feat, is_train: bool = False):
+    """Shading head: in eval kernel B on CUDA tensors (its plain version on
+    the CPU); in training the autograd head."""
     if cfg.shading_mode != "MLP_Fea_noview":
         raise NotImplementedError(
             f"shading mode {cfg.shading_mode!r} is not ported yet"
         )
+    if is_train:
+        return mlp_mod.shade(cfg.shading_mode, field.mlp, None, None, app_feat,
+                             fea_pe=cfg.fea_pe)
     return shading_mlp.shade_fea_noview(field.mlp, app_feat, cfg.fea_pe)
 
 
@@ -63,12 +75,15 @@ def raw2alpha(sigma, dists):
     return alpha, weights, t[:, -1:]
 
 
-def _march(cfg, field, aabb, rays, n_samples):
-    """Slab entry and fixed-step sample depths of eval marching."""
+def _march(cfg, field, aabb, rays, n_samples, jitter=None):
+    """Slab entry and fixed-step sample depths; ``jitter`` (B, 1) offsets
+    each ray's steps (training)."""
     rays_o, rays_d = rays[:, :3], rays[:, 3:6]
     step = tf.step_size(aabb, tf.grid_resolution(field), cfg.step_ratio)
     t_min = aabb_slab_entry(rays_o, rays_d, aabb, cfg.near, cfg.far)
     steps = torch.arange(n_samples, dtype=rays.dtype, device=rays.device)[None, :]
+    if jitter is not None:
+        steps = steps + jitter
     z_vals = t_min[:, None] + step * steps
     return rays_o, rays_d, step, t_min, z_vals
 
@@ -77,18 +92,41 @@ def _in_aabb(pts, aabb):
     return torch.all((pts >= aabb[0]) & (pts <= aabb[1]), dim=-1)
 
 
-def _composite(cfg, weights, acc, w_top, rgb_a, z, rays, white_bg):
+def clip01(x):
+    """Clip to [0, 1] as ``jnp.clip`` differentiates: at a tie the
+    gradient splits 0.5 / 0.5 (``torch.clamp`` passes it whole), so a
+    white-background ray that lands exactly on 1.0 trains as in JAX."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
+def _composite(cfg, weights, acc, w_top, rgb_a, z, rays, white_bg, train=False,
+               bg_coin=None):
     app_ok = (w_top > cfg.raymarch_weight_thres)[..., None]
     rgb_a = torch.where(app_ok, rgb_a, torch.zeros_like(rgb_a))
     rgb = torch.sum(w_top[..., None] * rgb_a, dim=1)
     if white_bg:
         rgb = rgb + (1.0 - acc[..., None])
-    rgb = torch.clamp(rgb, 0.0, 1.0)
+    elif train:
+        # the random background: white for the whole batch on a coin < 0.5
+        rgb = torch.where(bg_coin < 0.5, rgb + (1.0 - acc[..., None]), rgb)
+    rgb = clip01(rgb) if train else torch.clamp(rgb, 0.0, 1.0)
     depth = torch.sum(weights * z, dim=-1) + (1.0 - acc) * rays[:, -1]
     return rgb, depth
 
 
-@torch.no_grad()
+def _draws(b, device, jitter, bg_coin, generator, white_bg):
+    """The train renders' per-ray jitter (B, 1) and background coin: the
+    caller's, else drawn from ``generator`` (torch's default one if
+    None)."""
+    if jitter is None:
+        jitter = torch.rand((b, 1), generator=generator, device=device)
+    if not white_bg and bg_coin is None:
+        bg_coin = torch.rand((), generator=generator, device=device)
+    if bg_coin is not None:
+        bg_coin = torch.as_tensor(bg_coin, dtype=torch.float32, device=device)
+    return jitter.to(device=device, dtype=torch.float32).reshape(b, 1), bg_coin
+
+
 def render_rays(
     field,
     aabb,
@@ -96,47 +134,71 @@ def render_rays(
     *,
     n_samples: int,
     app_k: int = 64,
+    is_train: bool = False,
     white_bg: bool = True,
     ndc: bool = False,
     alpha_mask=None,
     eval_z_min: float = 2.0,
     feature_dtype: str = "fp32",
+    jitter=None,
+    bg_coin=None,
+    generator: Optional[torch.Generator] = None,
 ) -> RenderOutput:
-    """Dense eval render of a chunk of rays (B, 6) [o | d]: every ray
-    carries ``n_samples`` samples, out-of-AABB, mask-dead and z <=
-    ``eval_z_min`` samples get sigma 0, and appearance runs on the top
-    ``app_k`` samples by weight.  The training render is not ported yet."""
+    """Dense render of a chunk of rays (B, 6) [o | d]: every ray carries
+    ``n_samples`` samples, out-of-AABB and mask-dead samples get sigma 0,
+    and appearance runs on the top ``app_k`` samples by weight.
+
+    Eval (``is_train=False``, under no_grad): samples at z <=
+    ``eval_z_min`` are culled too, and the head is kernel B.
+    Train: each ray's steps are offset by ``jitter`` (B, 1) in [0, 1), no
+    z-cull, the autograd head, and with ``white_bg=False`` a white
+    background when ``bg_coin`` < 0.5; both are drawn from ``generator``
+    when not given.  Density is gathered per sample: the JAX package's
+    grouped density gathers (``density_group`` > 1) read the same values
+    up to one ulp of its hat weights."""
     if ndc:
         raise NotImplementedError("NDC rays are not ported yet")
     cfg = field.cfg
     fdt = _feature_dtype(feature_dtype)
     b = rays.shape[0]
-    rays_o, rays_d, _, _, z_vals = _march(cfg, field, aabb, rays, n_samples)
-    pts = rays_o[:, None] + rays_d[:, None] * z_vals[..., None]
-    dists = torch.cat(
-        [z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1
-    )
+    if is_train:
+        jitter, bg_coin = _draws(b, rays.device, jitter, bg_coin, generator, white_bg)
+    with torch.no_grad(), record_function("t2n.select"):
+        rays_o, rays_d, _, _, z_vals = _march(
+            cfg, field, aabb, rays, n_samples, jitter if is_train else None
+        )
+        pts = rays_o[:, None] + rays_d[:, None] * z_vals[..., None]
+        dists = torch.cat(
+            [z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1
+        )
+        valid = _in_aabb(pts, aabb)
+        if alpha_mask is not None:
+            am = _nearest_alpha_lookup(alpha_mask, pts.reshape(-1, 3)).reshape(b, -1)
+            valid = valid & (am > 0)
+        if not is_train:
+            valid = valid & (pts[..., 2] > eval_z_min)
+        xn = torch.clamp(tf.normalize_coord(aabb, pts), -1.0, 1.0)
 
-    valid = _in_aabb(pts, aabb)
-    if alpha_mask is not None:
-        am = _nearest_alpha_lookup(alpha_mask, pts.reshape(-1, 3)).reshape(b, -1)
-        valid = valid & (am > 0)
-    valid = valid & (pts[..., 2] > eval_z_min)
+    with torch.set_grad_enabled(is_train and torch.is_grad_enabled()):
+        with record_function("t2n.features"):
+            feat = field.density_feature(xn.reshape(-1, 3), fdt).reshape(b, n_samples)
+        with record_function("t2n.composite"):
+            sigma = torch.where(valid, tf.feature2density(cfg, feat), torch.zeros_like(feat))
+            _, weights, _ = raw2alpha(sigma, dists * cfg.distance_scale)
+            acc = torch.sum(weights, dim=-1)
 
-    xn = torch.clamp(tf.normalize_coord(aabb, pts), -1.0, 1.0)
-    feat = field.density_feature(xn.reshape(-1, 3), fdt).reshape(b, n_samples)
-    sigma = torch.where(valid, tf.feature2density(cfg, feat), torch.zeros_like(feat))
-
-    _, weights, _ = raw2alpha(sigma, dists * cfg.distance_scale)
-    acc = torch.sum(weights, dim=-1)
-
-    # appearance on the top-K weighted samples
-    k = min(app_k, n_samples)
-    w_top, idx = torch.topk(weights, k, dim=-1)
-    xn_k = torch.gather(xn, 1, idx[..., None].expand(-1, -1, 3))
-    app_feat = field.app_feature(xn_k.reshape(-1, 3), fdt)
-    rgb_k = _shade(cfg, field, app_feat).reshape(b, k, 3)
-    rgb, depth = _composite(cfg, weights, acc, w_top, rgb_k, z_vals, rays, white_bg)
+        # appearance on the top-K weighted samples
+        k = min(app_k, n_samples)
+        with record_function("t2n.select"):
+            w_top, idx = torch.topk(weights, k, dim=-1)
+            xn_k = torch.gather(xn, 1, idx[..., None].expand(-1, -1, 3))
+        with record_function("t2n.features"):
+            app_feat = field.app_feature(xn_k.reshape(-1, 3), fdt)
+        with record_function("t2n.head"):
+            rgb_k = _shade(cfg, field, app_feat, is_train).reshape(b, k, 3)
+        with record_function("t2n.composite"):
+            rgb, depth = _composite(cfg, weights, acc, w_top, rgb_k, z_vals, rays, white_bg,
+                                    is_train, bg_coin)
     return RenderOutput(rgb=rgb, depth=depth, z_vals=z_vals, weights=weights, acc=acc)
 
 
@@ -196,6 +258,16 @@ def first_k_live(live, k: int, impl: str = "sort"):
     idx = torch.sort(order_key, dim=-1).values[:, :k]
     sel = idx < n
     return torch.clamp(idx, max=n - 1), sel
+
+
+def last_k_live(live, k: int, impl: str = "sort"):
+    """Per-row indices of the LAST ``k`` True entries of ``live`` (B, N),
+    ascending, plus the selection mask; pad slots are False, point at 0
+    and stand at the front, so the kept indices stay in march order."""
+    n = live.shape[1]
+    idx_r, sel_r = first_k_live(torch.flip(live, (1,)), k, impl=impl)
+    idx = torch.where(sel_r, (n - 1) - idx_r, torch.zeros_like(idx_r))
+    return torch.flip(idx, (1,)), torch.flip(sel_r, (1,))
 
 
 _SELECT_IMPLS = ("sort",)
@@ -345,6 +417,141 @@ def _render_rays_compact(
             return out, need
         return out, torch.sum(flagged)
     return out
+
+
+def render_rays_train_compact(
+    field, aabb, rays, alpha_mask, *, n_samples: int, compact_k: int = 96,
+    app_k: int = 48, white_bg: bool = True, density_group: int = 1,
+    feature_dtype: str = "fp32",
+    select_impl: Optional[str] = None, depth_gt=None, cap_band_samples: int = 0,
+    jitter=None, bg_coin=None, generator: Optional[torch.Generator] = None,
+    device=None,
+) -> RenderOutput:
+    """Train render over alpha-mask compacted samples: features (and, in
+    the backward, scatter-adds) only for ``compact_k`` mask-live samples
+    per ray, taken in groups of ``density_group`` ray-consecutive samples.
+
+    The march is jittered per ray and padded to a multiple of the group;
+    occupancy is tested every ``density_group``-th sample (for group 1,
+    every (pool-1)//2-th when the mask's dilation licenses it), which is
+    only sound when the mask's pool dilation covers the skipped samples:
+    a group the mask does not license raises.  ``depth_gt`` (B,) with
+    ``cap_band_samples`` > 0 keeps the LAST live groups at z <= depth_gt +
+    band·step (rays with depth_gt <= 0 are uncapped), so the window ends
+    at the supervised surface; otherwise the first live groups.  Features
+    are gathered per sample (the JAX package's ``density_block`` packing
+    has no counterpart).  Runs on ``device`` (cuda unless asked)."""
+    dev, aabb, rays = _on_device(field, aabb, rays, alpha_mask, device)
+    g = max(1, int(density_group))
+    occ_stride = g
+    if g == 1:
+        occ_stride = _occ_stride(field, aabb, alpha_mask)
+    elif not occupancy_stride_safe(field, aabb, alpha_mask, g):
+        raise ValueError(
+            "density_group=%d needs a mask pool dilation licensing stride-%d "
+            "occupancy tests (update_alpha_mask(pool>=%d))" % (g, g, 2 * g + 1)
+        )
+    if depth_gt is not None:
+        depth_gt = as_tensor(depth_gt, dev)
+    out, _ = _render_rays_train_compact(
+        field, aabb, rays, alpha_mask, n_samples=n_samples, compact_k=compact_k,
+        app_k=app_k, white_bg=white_bg, density_group=g, occ_stride=occ_stride,
+        feature_dtype=feature_dtype, select_impl=_resolve_select_impl(select_impl),
+        depth_gt=depth_gt, cap_band_samples=cap_band_samples, jitter=jitter,
+        bg_coin=bg_coin, generator=generator,
+    )
+    return out
+
+
+def _render_rays_train_compact(
+    field, aabb, rays, alpha_mask, *, n_samples: int, compact_k: int, app_k: int,
+    white_bg: bool, density_group: int, occ_stride: int, feature_dtype: str,
+    select_impl: str = "sort", depth_gt=None, cap_band_samples: int = 0,
+    jitter=None, bg_coin=None, generator=None,
+):
+    """(RenderOutput, member sample indices (B, Kg·g)) of the compacted
+    train render; the selection carries no gradient."""
+    cfg = field.cfg
+    fdt = _feature_dtype(feature_dtype)
+    g = density_group
+    b = rays.shape[0]
+    jitter, bg_coin = _draws(b, rays.device, jitter, bg_coin, generator, white_bg)
+    with torch.no_grad(), record_function("t2n.select"):
+        # the jittered march, padded to a multiple of g so groups are
+        # ray-consecutive samples; padding samples are never live
+        s_pad = n_samples + ((-n_samples) % g)
+        rays_o, rays_d, step, t_min, z_vals = _march(cfg, field, aabb, rays, s_pad, jitter)
+        steps = torch.arange(s_pad, dtype=rays.dtype, device=rays.device)[None, :] + jitter
+        pts = rays_o[:, None] + rays_d[:, None] * z_vals[..., None]
+        valid = _in_aabb(pts, aabb) & (steps < n_samples)
+
+        # occupancy every occ_stride-th sample, broadcast to its neighbours
+        n_t = (s_pad + occ_stride - 1) // occ_stride
+        pts_t = rays_o[:, None] + rays_d[:, None] * z_vals[:, ::occ_stride, None]
+        occ_t = _nearest_alpha_lookup(alpha_mask, pts_t.reshape(-1, 3)).reshape(b, n_t)
+        occ = torch.repeat_interleave(occ_t, occ_stride, dim=1)[:, :s_pad]
+        live = valid & (occ > 0)
+
+        anchored = depth_gt is not None and cap_band_samples > 0
+        if anchored:
+            # drop live samples behind the supervised surface (+band)
+            cap = torch.where(depth_gt > 0, depth_gt + cap_band_samples * step,
+                              torch.full_like(depth_gt, float("inf")))
+            live = live & (z_vals <= cap[:, None])
+
+        kg = max(1, min(compact_k, n_samples) // g)
+        live_g = live.reshape(b, s_pad // g, g).any(dim=-1) if g > 1 else live
+        select = last_k_live if anchored else first_k_live
+        gidx, g_live = select(live_g, kg, impl=select_impl)
+
+        # the selected groups' member samples; z and points recomputed from
+        # the indices through the expression that built z_vals.  A member
+        # is rendered when its group is live, whatever its own occupancy.
+        midx = (gidx[..., None] * g + torch.arange(g, device=rays.device)).reshape(b, kg * g)
+        steps_k = midx.to(rays.dtype) + jitter
+        z_k = t_min[:, None] + step * steps_k
+        pts_k = rays_o[:, None] + rays_d[:, None] * z_k[..., None]
+        valid_k = (
+            _in_aabb(pts_k, aabb)
+            & (steps_k < n_samples)
+            & torch.repeat_interleave(g_live, g, dim=1)
+        )
+        xn_k = torch.clamp(tf.normalize_coord(aabb, pts_k), -1.0, 1.0)
+        # uniform spacing: every dist is `step`, except the dense march's
+        # final sample, which carries 0
+        dists = torch.where(midx == n_samples - 1, torch.zeros_like(z_k), step)
+        dists = dists * cfg.distance_scale
+
+    # app_k covering the compacted set (the trainer's default) shades every
+    # sample: one fused pass over the tables serves density and appearance
+    shade_all = app_k >= kg * g
+    with record_function("t2n.features"):
+        if shade_all:
+            feat, app_feat = field.fused_features(xn_k.reshape(-1, 3), fdt)
+        else:
+            feat = field.density_feature(xn_k.reshape(-1, 3), fdt)
+    with record_function("t2n.composite"):
+        feat = feat.reshape(b, kg * g)
+        sigma = torch.where(valid_k, tf.feature2density(cfg, feat), torch.zeros_like(feat))
+        _, weights, _ = raw2alpha(sigma, dists)
+        acc = torch.sum(weights, dim=-1)
+
+    if shade_all:
+        k2 = kg * g
+        w_top = weights
+    else:
+        k2 = min(app_k, kg * g)
+        with record_function("t2n.select"):
+            w_top, aidx = torch.topk(weights, k2, dim=-1)
+            xn_a = torch.gather(xn_k, 1, aidx[..., None].expand(-1, -1, 3))
+        with record_function("t2n.features"):
+            app_feat = field.app_feature(xn_a.reshape(-1, 3), fdt)
+    with record_function("t2n.head"):
+        rgb_a = _shade(cfg, field, app_feat, is_train=True).reshape(b, k2, 3)
+    with record_function("t2n.composite"):
+        rgb, depth = _composite(cfg, weights, acc, w_top, rgb_a, z_k, rays, white_bg, True,
+                                bg_coin)
+    return RenderOutput(rgb=rgb, depth=depth, z_vals=z_k, weights=weights, acc=acc), midx
 
 
 #: default K ladder of the adaptive compacted eval
