@@ -12,11 +12,16 @@ Phases (any failure exits nonzero before the last line):
    same CUDA inputs at the main paths' shapes (kernel A: 1M samples of the
    full-width 300^3 room shell in the serving layout, 65536 rays x 16
    consecutive steps, fp32 and bf16, three output modes, held bit for bit;
-   kernel B: 1M rows; kernel A': 1M samples in the train layout, 16384
-   rays x 64 consecutive steps, random output gradients, fp32, held to a
-   tolerance relative to each table's largest gradient), with times, the
-   library yardstick and the bound (kernel B's on the 3xTF32 tensor-core
-   route it takes, the fp32 CUDA-core bound printed beside it);
+   kernel B: 1M rows; kernel A': adversarial inputs (a run inside one
+   cell, every upper edge, runs that cross rays, a ragged n, zero
+   gradients, accumulation, each of its three routes), then 1M samples at
+   the train step's shape, 16384 rays x 64 consecutive steps, in three
+   layouts (neighbouring rays, the train sampler's random rays, the
+   neighbours shuffled), random output gradients, fp32, held to a
+   tolerance relative to each table's largest gradient, with the
+   reductions it issues counted on the host), with times, the library
+   yardstick and the bound (kernel B's on the 3xTF32 tensor-core route it
+   takes, the fp32 CUDA-core bound printed beside it);
 4. serving path: the serving configuration of text2nerf_tpu_torch/data/
    synthetic.py, a full-width room-shell field from a seeded generator,
    saved and loaded through the npz checkpoint, a 200^3 pool-5 alpha mask,
@@ -312,40 +317,187 @@ def phase_kernels(dev, report):
     torch.cuda.empty_cache()
 
 
+def _bwd_layouts(field, aabb, rays, gen):
+    """Kernel A''s samples at the compacted train step's shape, 16384 rays
+    x 64 consecutive steps of the full-width shell: "coherent", the first
+    16384 rays of one view (neighbours, phase 3's layout since kernel A'
+    was ported); "random", 16384 rays of the training views drawn by the
+    train step's PermutationSampler; "shuffled", the coherent samples in a
+    random order (the same row updates without a ray's run)."""
+    import torch
+    from text2nerf_tpu_torch.data import synthetic as syn
+    from text2nerf_tpu_torch.engine.train_step import PermutationSampler
+
+    n = N_RAYS_TRAIN * K_TRAIN
+    coherent = _chunk_samples(rays, aabb, field, n, gen, K_TRAIN)
+    pool = syn.training_rays(rays.device)
+    ids = torch.as_tensor(PermutationSampler(pool.shape[0], N_RAYS_TRAIN, seed=0).next_ids(),
+                          device=rays.device)
+    batch = _chunk_samples(pool[ids], aabb, field, n, gen, K_TRAIN)
+    order = torch.randperm(n, generator=gen, device=rays.device)
+    return {"coherent": coherent, "random": batch, "shuffled": coherent[order].contiguous()}
+
+
+def _bwd_rel_err(got, ref, what):
+    """Largest |got - ref| over each table's largest |ref|; a table whose
+    reference is all zero must come out all zero."""
+    err = 0.0
+    for g, r in zip((*got[0], *got[1]), (*ref[0], *ref[1])):
+        _require(g.shape == r.shape and g.dtype == r.dtype, f"{what}: table {tuple(g.shape)}")
+        scale = float(r.abs().max())
+        if scale > 0:
+            err = max(err, float((g - r).abs().max()) / scale)
+        else:
+            _require(float(g.abs().max()) == 0, f"{what}: gradient where none")
+    return err
+
+
+def _bwd_cases(dev, gen):
+    """Adversarial inputs for kernel A' (name, planes, lines, nd, xn, d_sigma,
+    d_app, route the dispatcher must take, accumulate into given tables)."""
+    import torch
+    from text2nerf_tpu_torch.models import tensorf as tf
+
+    def field(reso, dens=(16, 16, 16), app=(48, 48, 48)):
+        cfg = tf.TensoRFConfig(density_n_comp=dens, app_n_comp=app)
+        f = tf.init_params(cfg, reso, generator=gen, device=dev).requires_grad_(False)
+        return tuple(f.planes), tuple(f.lines), f.nd, sum(app)
+
+    def rays(n_rays, k, reso):  # ray-major, one-voxel steps
+        o = torch.rand(n_rays, 1, 3, generator=gen, device=dev) * 1.6 - 0.8
+        d = torch.randn(n_rays, 1, 3, generator=gen, device=dev)
+        steps = torch.arange(k, device=dev, dtype=torch.float32)[None, :, None]
+        x = o + d / d.norm(dim=-1, keepdim=True) * steps * (2.0 / (reso - 1))
+        return torch.clamp(x, -1, 1).reshape(-1, 3).contiguous()
+
+    def grads(n, na):
+        return (torch.randn(n, generator=gen, device=dev),
+                torch.randn(n, na, generator=gen, device=dev))
+
+    main = field((48, 40, 56))
+    planes, lines, nd, na = main
+    cases = []
+    # 64 samples inside one cell of every plane and line
+    cell = torch.full((64, 3), 0.1, device=dev) + 1e-3 * torch.rand(64, 3, generator=gen,
+                                                                     device=dev)
+    cases.append(("one cell", *main[:3], cell, *grads(64, na), "shared", False))
+    # every upper edge and corner: coincident corner and line rows
+    edge = torch.rand(4096, 3, generator=gen, device=dev) * 2 - 1
+    edge[:8] = torch.tensor([[1.0, 1, 1], [-1, -1, -1], [1, -1, 1], [-1, 1, -1],
+                             [1, 0.3, -0.2], [0.1, 1, 0.4], [-0.6, 0.2, 1], [1, 1, -1]])
+    for a in range(3):
+        edge[8 + 64 * a: 8 + 64 * (a + 1), a] = 1.0
+    edge[200:264] = torch.tensor([1.0, 1.0, 1.0], device=dev)  # a whole run on the corner
+    cases.append(("upper edges", *main[:3], edge, *grads(4096, na), "shared", False))
+    # rays of 5 samples: every run holds parts of several rays; n = 32 * 156 + 20
+    x = rays(1000, 5, 48)
+    cases.append(("runs cross rays, ragged n", *main[:3], x, *grads(x.shape[0], na), "shared",
+                  False))
+    # zero gradients: whole samples, one axis's app slice, d_sigma alone
+    x = rays(128, 64, 48)
+    d_sig, d_app = grads(x.shape[0], na)
+    coin = torch.rand(x.shape[0], generator=gen, device=dev)
+    d_sig[coin < 0.5] = 0.0
+    d_app[coin < 0.4] = 0.0
+    d_app[(coin > 0.6) & (coin < 0.8), 48:96] = 0.0
+    d_app[2048:2048 + 96] = 0.0
+    d_sig[2048:2048 + 96] = 0.0  # three whole runs of nothing
+    cases.append(("zero gradients mixed in", *main[:3], x, d_sig, d_app, "shared", False))
+    cases.append(("all gradients zero", *main[:3], x, torch.zeros_like(d_sig),
+                  torch.zeros_like(d_app), "shared", False))
+    cases.append(("accumulate (out=)", *main[:3], x, *grads(x.shape[0], na), "shared", True))
+    # a line too long for shared memory (L = 1000 x 64 fp32 = 256 KB)
+    long = field((24, 20, 1000))
+    x = rays(64, 64, 1000)
+    cases.append(("global route (L = 1000)", *long[:3], x, *grads(x.shape[0], long[3]),
+                  "global", False))
+    # 12-wide tables
+    narrow = field((21, 17, 30), (4, 4, 4), (8, 8, 8))
+    x = rays(64, 40, 30)
+    cases.append(("generic route (12 wide)", *narrow[:3], x, *grads(x.shape[0], narrow[3]),
+                  "generic", False))
+    return cases
+
+
 def phase_backward(field, aabb, rays, gen, flush, report):
-    """Kernel A' against its plain version at the compacted train step's
-    shape: 16384 rays x 64 consecutive steps of the full-width shell,
-    random output gradients."""
+    """Kernel A' against its plain version on adversarial inputs and at the
+    compacted train step's shape (16384 rays x 64 consecutive steps of the
+    full-width shell, random output gradients) in three layouts, with the
+    reductions it issues counted on the host by its own rules."""
     import torch
     from text2nerf_tpu_torch.ops.kernels import factor_features as ff
 
-    planes, lines, nd = tuple(field.planes), tuple(field.lines), field.nd
-    xn = _chunk_samples(rays, aabb, field, N_RAYS_TRAIN * K_TRAIN, gen, K_TRAIN)
-    n = xn.shape[0]
-    na = sum(p.shape[2] - d for p, d in zip(planes, nd))
-    d_sig = torch.randn(n, generator=gen, device=xn.device)
-    d_app = torch.randn(n, na, generator=gen, device=xn.device)
-    abs_err = 0.0
-    for mode, ds, da in (("fused", d_sig, d_app), ("density", d_sig, None),
-                         ("app", None, d_app)):
-        got = ff.factor_features_backward(xn, planes, lines, nd, ds, da)
-        ref = ff.factor_features_backward_plain(xn, planes, lines, nd, ds, da)
-        torch.cuda.synchronize()
-        err = 0.0
-        for g, r in zip((*got[0], *got[1]), (*ref[0], *ref[1])):
-            scale = float(r.abs().max())
-            if scale > 0:
-                err = max(err, float((g - r).abs().max()) / scale)
+    routes0 = dict(ff.BWD_ROUTES)
+    worst = 0.0
+    for name, planes_c, lines_c, nd_c, x, ds_all, da_all, route, acc in _bwd_cases(
+            rays.device, gen):
+        case_err = 0.0
+        for mode, ds, da in (("fused", ds_all, da_all), ("density", ds_all, None),
+                             ("app", None, da_all)):
+            ref = ff.factor_features_backward_plain(x, planes_c, lines_c, nd_c, ds, da)
+            if acc:
+                base = tuple(tuple(0.5 * t for t in part) for part in ref)
+                out = tuple(tuple(t.clone() for t in part) for part in base)
+                for _ in range(2):
+                    ff.factor_features_backward(x, planes_c, lines_c, nd_c, ds, da, out=out)
+                got = out
+                ref = tuple(tuple(b + 2 * r for b, r in zip(bp, rp)) for bp, rp in zip(base, ref))
             else:
-                _require(float(g.abs().max()) == 0, f"kernel A' {mode}: gradient where none")
-            if mode == "fused":
-                abs_err = max(abs_err, float((g - r).abs().max()))
-        print(f"kernel A' {mode:7s} max_abs_err {err:.3e} of each table's largest "
-              f"(tol {TOL['bwd']:g})", flush=True)
-        _require(err <= TOL["bwd"], f"kernel A' {mode}: {err} > {TOL['bwd']}")
+                got = ff.factor_features_backward(x, planes_c, lines_c, nd_c, ds, da)
+            torch.cuda.synchronize()
+            _require(ff.BWD_LAST_GRID[0] == route,
+                     f"kernel A' {name}: route {ff.BWD_LAST_GRID[0]}, not {route}")
+            err = _bwd_rel_err(got, ref, f"kernel A' {name} {mode}")
+            case_err = max(case_err, err)
+            _require(err <= TOL["bwd"], f"kernel A' {name} {mode}: {err} > {TOL['bwd']}")
+        worst = max(worst, case_err)
+        print(f"kernel A' {name} ({x.shape[0]} samples, {route} route): within "
+              f"{case_err:.3e} of each table's largest in three modes", flush=True)
+    routes = {k: ff.BWD_ROUTES[k] - routes0[k] for k in routes0}
+    _require(all(v > 0 for v in routes.values()), f"a kernel A' route was not checked: {routes}")
+    print(f"kernel A' adversarial cases: worst {worst:.3e} of each table's largest over three "
+          f"modes (tol {TOL['bwd']:g}); launches by route {routes}", flush=True)
 
-    ms = _time_ms(lambda: ff.factor_features_backward(xn, planes, lines, nd, d_sig, d_app),
-                  10, flush)
+    planes, lines, nd = tuple(field.planes), tuple(field.lines), field.nd
+    layouts = _bwd_layouts(field, aabb, rays, gen)
+    n = N_RAYS_TRAIN * K_TRAIN
+    na = sum(p.shape[2] - d for p, d in zip(planes, nd))
+    d_sig = torch.randn(n, generator=gen, device=rays.device)
+    d_app = torch.randn(n, na, generator=gen, device=rays.device)
+    c_total = sum(p.shape[2] for p in planes)
+    table_bytes = sum(t.numel() * 4 for t in (*planes, *lines))
+    bytes_in = n * (12 + 4 + 4 * na)
+    flops = n * c_total * 28
+    abs_err, times, bounds, reductions = 0.0, {}, {}, {}
+    for layout, xn in layouts.items():
+        for mode, ds, da in (("fused", d_sig, d_app), ("density", d_sig, None),
+                             ("app", None, d_app)):
+            got = ff.factor_features_backward(xn, planes, lines, nd, ds, da)
+            ref = ff.factor_features_backward_plain(xn, planes, lines, nd, ds, da)
+            torch.cuda.synchronize()
+            err = _bwd_rel_err(got, ref, f"kernel A' {layout} {mode}")
+            if mode == "fused":
+                grid = ff.BWD_LAST_GRID
+                abs_err = max(abs_err, max(float((g - r).abs().max()) for g, r in
+                                           zip((*got[0], *got[1]), (*ref[0], *ref[1]))))
+            print(f"kernel A' {layout:9s} {mode:7s} max_abs_err {err:.3e} of each table's "
+                  f"largest (tol {TOL['bwd']:g})", flush=True)
+            _require(err <= TOL["bwd"], f"kernel A' {layout} {mode}: {err} > {TOL['bwd']}")
+        del got, ref
+        times[layout] = _time_ms(
+            lambda: ff.factor_features_backward(xn, planes, lines, nd, d_sig, d_app), 10, flush)
+        rows = _unique_row_bytes(xn, field, True, True)
+        bounds[layout] = _bound(bytes_in + rows + table_bytes, flops)
+        red = ff.backward_reductions(xn, planes, lines, nd, d_sig, d_app, *grid)
+        reductions[layout] = red
+        print(f"kernel A' {layout}: {times[layout]:.3f} ms, bound {bounds[layout][0]:.3f} ms by "
+              f"{bounds[layout][1]} ({rows / 1e6:.1f} MB unique rows); {grid[0]} route, "
+              f"{grid[1]} blocks x {grid[2]} threads; reductions issued: {red['plane'] / 1e9:.4f}"
+              f" G float2 (plane) + {red['line'] / 1e9:.4f} G float{red['line_width']} (line) vs "
+              f"{576 * n / 1e9:.4f} G float2 with every row of every sample reduced into the "
+              f"tables", flush=True)
+
+    xn = layouts["coherent"]
     plain = _time_ms(lambda: ff.factor_features_backward_plain(xn, planes, lines, nd, d_sig,
                                                                 d_app), 3, flush)
     # library yardstick: the backward alone of F.grid_sample's features
@@ -363,29 +515,20 @@ def phase_backward(field, aabb, rays, gen, flush, report):
           f"largest", flush=True)
     lib = _time_ms(lambda: torch.autograd.grad((lib_sig, lib_app), (*planes_nchw, *lines_nc1),
                                                (d_sig, d_app), retain_graph=True), 3, flush)
-    del lib_sig, lib_app, lib_grads, planes_nchw, lines_nc1
-    c_total = sum(p.shape[2] for p in planes)
-    table_bytes = sum(t.numel() * 4 for t in (*planes, *lines))
-    rows = _unique_row_bytes(xn, field, True, True)
-    bytes_in = n * (12 + 4 + 4 * na)
-    bytes_b = bytes_in + rows + table_bytes
-    flops = n * c_total * 28
-    bound, by = _bound(bytes_b, flops)
-    # six table rows (four plane corners, two line rows) per axis, one
-    # fp32 add per channel
-    adds = 6 * n * c_total
-    print(f"kernel A' fused fp32: {ms:.3f} ms, plain {plain:.3f} ms, grid_sample backward "
-          f"{lib:.3f} ms, bound {bound:.3f} ms by {by} ({bytes_b / 1e6:.1f} MB: "
-          f"{bytes_in / 1e6:.1f} MB xn and output gradients, {rows / 1e6:.1f} MB unique "
-          f"rows, {table_bytes / 1e6:.1f} MB gradient tables written; {flops / 1e9:.2f} "
-          f"GFLOP) for {n} samples; {adds / 1e9:.3f} G fp32 atomic adds "
-          f"({adds / 2e9:.3f} G float2 reductions)", flush=True)
+    del lib_sig, lib_app, lib_grads, planes_nchw, lines_nc1, ref
+    bound, by = bounds["coherent"]
+    print(f"kernel A' fused fp32, coherent: {times['coherent']:.3f} ms, plain {plain:.3f} ms, "
+          f"grid_sample backward {lib:.3f} ms, bound {bound:.3f} ms by {by} (of which "
+          f"{bytes_in / 1e6:.1f} MB xn and output gradients, {table_bytes / 1e6:.1f} MB "
+          f"gradient tables written; {flops / 1e9:.2f} GFLOP) for {n} samples", flush=True)
     report["factor_features_bwd"] = dict(
         name="factor_features_bwd", route="cuda",
         source="text2nerf_tpu_torch/csrc/factor_features_bwd.cu",
         replaces="text2nerf_tpu/models/tensorf.py:538",
-        max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-        library_ms=lib,
+        max_abs_err=abs_err, ms=times["coherent"], plain_ms=plain, bound_ms=bound, bound_by=by,
+        library_ms=lib, ms_by_layout=times,
+        bound_ms_by_layout={k: v[0] for k, v in bounds.items()},
+        reductions_by_layout=reductions,
     )
 
 
@@ -593,6 +736,7 @@ def phase_train(dev, card, report):
         state, m = one(state)
     torch.cuda.synchronize()
     ff.LAUNCHES = ff.BWD_LAUNCHES = sm.LAUNCHES = 0
+    routes0 = dict(ff.BWD_ROUTES)
     t0 = time.perf_counter()
     mses = []
     for _ in range(TRAIN_STEPS):
@@ -601,7 +745,9 @@ def phase_train(dev, card, report):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"factor_features": ff.LAUNCHES, "factor_features_bwd": ff.BWD_LAUNCHES}
-    print(f"train path launches {launches} (kernel B: {sm.LAUNCHES}, eval only)", flush=True)
+    routes = {k: ff.BWD_ROUTES[k] - routes0[k] for k in routes0}
+    print(f"train path launches {launches} (kernel B: {sm.LAUNCHES}, eval only; kernel A' by "
+          f"route {routes})", flush=True)
     for name, count in launches.items():
         _require(count > 0, f"{name} was not launched on the training path")
         report[name]["launches"] = report[name].get("launches", 0) + count

@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain versions, on the card, and the
-train step on the card against the CPU.
+train step on the card against the CPU.  Kernel A' also on adversarial
+inputs: a run inside one cell, every upper edge, runs that cross rays, a
+ragged n, zero gradients, accumulation, and each of its three routes.
 
 These skip without an NVIDIA GPU.  The module imports no JAX, so on a
 machine with a card and no JAX it runs with
@@ -242,6 +244,66 @@ def test_factor_features_backward_kernel_accumulates(cuda):
     ref = ff.factor_features_backward_plain(xn, planes, lines, nd, d_sig, d_app)
     twice = (tuple(2 * r for r in ref[0]), tuple(2 * r for r in ref[1]))
     assert _rel_err(out, twice) <= BWD_TOL
+
+
+def _bwd_case(case, gen, device):
+    """(field widths, grid, xn, zero-gradient mask or None, route) of an
+    adversarial kernel A' input."""
+    wide = ((16, 16, 16), (48, 48, 48))
+    if case == "one_cell":  # a run of 64 samples inside one cell of every table
+        xn = 0.1 + 1e-3 * torch.rand(64, 3, generator=gen, device=device)
+        return wide, (48, 40, 56), xn, None, "shared"
+    if case == "upper_edges":  # coincident corner and line rows, a run on the corner
+        xn = _edge_samples(4096, gen, device)
+        xn[200:264] = 1.0
+        return wide, (48, 40, 56), xn, None, "shared"
+    if case == "runs_cross_rays":  # rays of 5 samples, n = 32 * 156 + 20
+        return wide, (48, 40, 56), _ray_major(1000, 5, 48, gen, device), None, "shared"
+    if case == "zero_gradients":  # whole samples, and three whole runs
+        xn = _ray_major(128, 64, 48, gen, device)
+        zero = torch.rand(xn.shape[0], generator=gen, device=device) < 0.4
+        zero[2048:2048 + 96] = True
+        return wide, (48, 40, 56), xn, zero, "shared"
+    if case == "global_route":  # a line of 1000 x 64 fp32 is more than a block's shared memory
+        return wide, (24, 20, 1000), _ray_major(64, 64, 1000, gen, device), None, "global"
+    assert case == "generic_route"  # 12-wide tables
+    return ((4, 4, 4), (8, 8, 8)), (21, 17, 30), _ray_major(64, 40, 30, gen, device), None, \
+        "generic"
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("case", ["one_cell", "upper_edges", "runs_cross_rays",
+                                  "zero_gradients", "global_route", "generic_route"])
+def test_factor_features_backward_kernel_adversarial(cuda, case, accumulate):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    widths, reso, xn, zero, route = _bwd_case(case, gen, cuda)
+    cfg = ptf.TensoRFConfig(density_n_comp=widths[0], app_n_comp=widths[1])
+    field = _field(cfg, reso, cuda)
+    planes, lines, nd = tuple(field.planes), tuple(field.lines), field.nd
+    xn = xn.contiguous()
+    n = xn.shape[0]
+    d_sig = torch.randn(n, generator=gen, device=cuda)
+    d_app = torch.randn(n, sum(widths[1]), generator=gen, device=cuda)
+    if zero is not None:
+        d_sig[zero] = 0.0
+        d_app[zero] = 0.0
+        d_app[~zero & (torch.arange(n, device=cuda) % 3 == 0), 48:96] = 0.0  # axis 1 only
+    for ds, da in ((d_sig, d_app), (d_sig, None), (None, d_app)):
+        ref = ff.factor_features_backward_plain(xn, planes, lines, nd, ds, da)
+        if accumulate:
+            base = tuple(tuple(0.5 * t for t in part) for part in ref)
+            got = tuple(tuple(t.clone() for t in part) for part in base)
+            for _ in range(2):
+                ff.factor_features_backward(xn, planes, lines, nd, ds, da, out=got)
+            ref = tuple(tuple(b + 2 * r for b, r in zip(bp, rp)) for bp, rp in zip(base, ref))
+        else:
+            got = ff.factor_features_backward(xn, planes, lines, nd, ds, da)
+        torch.cuda.synchronize()
+        assert ff.BWD_LAST_GRID[0] == route
+        assert _rel_err(got, ref) <= BWD_TOL
+        for g, r in zip((*got[0], *got[1]), (*ref[0], *ref[1])):
+            if float(r.abs().max()) == 0:  # no gradient: exactly none
+                assert float(g.abs().max()) == 0
 
 
 def test_train_step_on_the_card_matches_the_cpu(cuda):

@@ -9,7 +9,8 @@
   Function the field trains through), against ``jax.vjp`` of
   compute_fused_features_packed on pack_params_fused and of the
   density-only and app-only packed features, with samples on the grid's
-  upper edge (clamped corners) and in three orders.  Gradients within
+  upper edge (clamped corners) in three orders, a run of samples inside
+  one cell, and all-zero output gradients mixed in.  Gradients within
   1e-5 of each leaf's largest.
 - ``last_k_live`` on random masks, rows with fewer than k live included.
 - The trainer's step bookkeeping (TrainConfig defaults, the group guard,
@@ -210,17 +211,27 @@ def _jax_grads(params, xn, mode, d_sigma, d_app):
     return jax.grad(f)(params)
 
 
-@pytest.mark.parametrize("order", ["given", "reversed", "shuffled"])
+@pytest.mark.parametrize("case", ["given", "reversed", "shuffled", "one_cell", "zero_rows"])
 @pytest.mark.parametrize("mode", ["fused", "density", "app"])
-def test_kernel_a_backward_plain_matches_jax_grad(fields, mode, order):
+def test_kernel_a_backward_plain_matches_jax_grad(fields, mode, case):
+    # the edge samples in three orders; 64 samples inside one cell of every
+    # plane and line (a whole run of kernel A''s walk adds into the same
+    # rows); all-zero output gradients mixed in (the walk skips those
+    # samples), and samples whose d_sigma alone is zero
     xn = _edge_xn()
-    if order == "reversed":
+    if case == "reversed":
         xn = xn[::-1].copy()
-    elif order == "shuffled":
+    elif case == "shuffled":
         xn = xn[np.random.default_rng(1).permutation(len(xn))]
+    elif case == "one_cell":
+        xn = (0.1 + 1e-3 * np.random.default_rng(3).random((64, 3))).astype(np.float32)
     rng = np.random.default_rng(2)
     d_sigma = rng.standard_normal(len(xn)).astype(np.float32)
     d_app = rng.standard_normal((len(xn), CFG.app_dim)).astype(np.float32)
+    if case == "zero_rows":
+        coin = rng.random(len(xn))
+        d_sigma[coin < 0.4] = 0.0
+        d_app[coin < 0.3] = 0.0
     want = _flatten(_jax_grads(fields, jnp.asarray(xn), mode, jnp.asarray(d_sigma),
                                jnp.asarray(d_app)))
 

@@ -20,26 +20,44 @@
 // output tables are fp32 in the fused layout, zeroed by the launcher
 // (unless the caller accumulates) and then added to with atomics.
 //
-// What bounds it on an H100: bytes.  A sample reads 12 B of coordinates,
-// 4 B of d_sigma and 576 B of d_app_raw (144 fp32 at full width) and the
-// table rows it touches; the outputs are the tables (69 MB at full width)
-// written once.  About 28 flops per channel, axis and sample.  What limits
-// it in practice is the atomics: 6 rows x 64 channels per axis and sample
-// (1152 fp32 adds a sample at full width), served by the L2.
+// What bounds it on an H100: bytes in principle (the ~0.2 ms of reading
+// 1M samples' gradients and writing 69 MB of tables), the L2's atomics in
+// practice.  A first kernel that added each sample's 6 rows x 64 channels
+// per axis straight into the tables (one float2 reduction per row and
+// lane pair, 0.604 G per 1M samples) took ~5 ms, and took it whatever the
+// samples' order: the line tables have only L = 300 rows, so a third of
+// those reductions pile thousands deep onto each line row.
 //
-// Design (a first, simple kernel).  Walk kernel (every axis 64 channels,
-// even density counts, 8-byte aligned tables and gradients, the main
-// path's tables): one warp walks a run of 32 consecutive samples, axis by
-// axis, as kernel A's walk does: lane j computes sample j's geometry once
-// and the warp reads it with shuffles; each lane owns 2 channels, so a
-// row's update is one coalesced 256 B row of float2 reductions
-// (red.global.add.v2.f32 on sm_90).  One atomic per (row, channel pair)
-// per sample: merging consecutive samples' updates to a shared row before
-// the atomic is left to a later redesign.  Generic kernel (other widths):
-// one warp per sample, lanes stride the channels, scalar atomics.
-// fp32 only (the bf16 backward is not ported).  The atomics add in an
-// order that changes from run to run, so the result is held against the
-// plain version (factor_features_backward_plain) to a tolerance.
+// Design.  Walk routes (every axis 64 channels, even density counts,
+// 8-byte aligned tables and gradients, the main path's tables): a
+// persistent grid of as many blocks as fit on the card, each warp walking
+// one contiguous span of samples in runs of 32 (lane j computes sample j's
+// geometry once, the warp reads it by shuffle, so every branch is
+// warp-uniform; each lane owns 2 channels), axis by axis.
+//  - Line rows: on the shared route (the longest line's gradient, L x 64
+//    fp32, fits in one block's shared memory) each block adds into its
+//    own copy of the axis's line gradient with shared atomics and reduces
+//    it into the table once per axis, four channels per float4
+//    reduction; on the global route (a longer line) line rows are reduced
+//    into the table as plane rows are.
+//  - Plane rows: one float2 reduction per corner row and lane pair.
+//    Merging a ray's repeated rows in registers before the reduction
+//    issued 2.9x fewer of them, was faster on neighbouring rays and slower
+//    on a train step's own gradients (PERF.md): the walk is held by its
+//    loads' latency more than by the L2, so instead the next sample's
+//    geometry, gradient and rows are loaded before the current one's
+//    arithmetic.
+//  - A sample whose gradient is zero on every channel of the axis (a
+//    compacted step's padding and past-the-surface members, half of a
+//    train step's samples) is skipped after a warp vote: adding +0
+//    changes no entry of a finite table.
+// Generic route (other widths): one warp per sample, lanes stride the
+// channels, scalar atomics.  fp32 only (the bf16 backward is not ported).
+// The atomics add in an order that changes from run to run, so the result
+// is held against the plain version (factor_features_backward_plain) to a
+// tolerance.
+
+#include <algorithm>
 
 #include "factor_common.cuh"
 
@@ -50,12 +68,30 @@ struct GradTables {
   float* line[3];
 };
 
+// the routes, as the launcher reports them (info[0])
+constexpr int kRouteShared = 1;   // walk, line gradients in shared memory
+constexpr int kRouteGlobal = 2;   // walk, line rows reduced into the table
+constexpr int kRouteGeneric = 3;  // one warp per sample
+// 16 warps a block, two blocks an SM (64 registers a thread; the line
+// gradient, 76.8 KB at L = 300, twice in shared memory)
+constexpr int kWalkThreads = 512;
+constexpr int kWalkWarps = kWalkThreads / 32;
+
 __device__ __forceinline__ void add2(float* addr, float a, float b) {
 #if __CUDACC_VER_MAJOR__ > 12 || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1)
   atomicAdd(reinterpret_cast<float2*>(addr), make_float2(a, b));
 #else
   atomicAdd(addr, a);
   atomicAdd(addr + 1, b);
+#endif
+}
+
+__device__ __forceinline__ void add4(float* addr, float4 v) {
+#if __CUDACC_VER_MAJOR__ > 12 || (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1)
+  atomicAdd(reinterpret_cast<float4*>(addr), v);
+#else
+  add2(addr, v.x, v.y);
+  add2(addr + 2, v.z, v.w);
 #endif
 }
 
@@ -81,70 +117,135 @@ __device__ __forceinline__ void channel_grads(float p00, float p01, float p10, f
   dl[1] = __fmul_rn(dlf, geo.tl);
 }
 
-// One warp walks a run of up to 32 consecutive samples, axis by axis; lane
-// j holds sample j's geometry and d_sigma, handed out by shuffles.  Lanes
-// whose channels the mode does not touch stay idle.
-template <bool SIGMA, bool APP>
-__global__ void __launch_bounds__(256)
+// Walk routes.  Warp g of the grid walks runs [g*R/G, (g+1)*R/G) of the R
+// runs of 32 samples (G warps in all), so a block's samples are
+// contiguous.  SHARED_LINES: dynamic shared memory holds one axis's line
+// gradient, [L][2][32] (lane-major within each half of a row, so a warp's
+// shared atomics hit 32 banks): entry (row, c) at row*64 + (c&1)*32 + c/2.
+// Lanes whose channels the mode does not touch stay idle.
+template <bool SIGMA, bool APP, bool SHARED_LINES>
+__global__ void __launch_bounds__(kWalkThreads, 2)
 factor_features_bwd_walk_kernel(const float* __restrict__ xn, int n, Tables tab, Dims d,
                                 int app_stride, const float* __restrict__ d_sigma,
                                 const float* __restrict__ d_app, GradTables out) {
-  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  extern __shared__ float4 smem4[];
+  float* sline = reinterpret_cast<float*>(smem4);
   const int lane = threadIdx.x & 31;
-  const int64_t base = warp * kWalkRun;
-  if (base >= n) return;
-  const int cnt = static_cast<int>(base + kWalkRun <= n ? kWalkRun : n - base);
   const int ch = 2 * lane;  // this lane's channels: ch, ch + 1 of every axis
-
-  float x[3] = {0.0f, 0.0f, 0.0f};
-  float gs = 0.0f;
-  if (lane < cnt) {
-    x[0] = xn[3 * (base + lane)];
-    x[1] = xn[3 * (base + lane) + 1];
-    x[2] = xn[3 * (base + lane) + 2];
-    if (SIGMA) gs = d_sigma[base + lane];
+  const int64_t runs = (static_cast<int64_t>(n) + kWalkRun - 1) / kWalkRun;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWalkWarps;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kWalkWarps + (threadIdx.x >> 5);
+  const int64_t run_lo = g * runs / warps, run_hi = (g + 1) * runs / warps;
+  if (SHARED_LINES) {
+    const int lmax = max(d.l[0], max(d.l[1], d.l[2]));
+    for (int k = threadIdx.x; k < lmax * (kWalkC / 4); k += kWalkThreads) {
+      smem4[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    __syncthreads();
   }
+
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const int w = d.w[i], nd = d.nd[i];
     const bool dens = ch < nd;  // nd is even: both channels are density or both app
     const bool on = dens ? SIGMA : APP;
-    PackedGeo mine;
-    {
-      AxisGeo g;
-      geometry<false>(x, i, d, g);
-      mine = pack(g);
-    }
     float* dplane = out.plane[i];
     float* dline = out.line[i];
-    for (int j = 0; j < cnt; ++j) {
-      const AxisGeo geo = shuffle_geo(mine, j, w);
-      const float gsig = SIGMA ? __shfl_sync(0xffffffffu, gs, j) : 0.0f;
-      if (!on) continue;
-      float2 gv;
-      if (dens) {
-        gv = make_float2(gsig, gsig);
+    // a line row's two channels of this lane: into the block's copy, or the table
+    const auto line_add = [&](int row, float a, float b) {
+      if (SHARED_LINES) {
+        atomicAdd(sline + row * kWalkC + lane, a);
+        atomicAdd(sline + row * kWalkC + 32 + lane, b);
       } else {
-        gv = __ldg(reinterpret_cast<const float2*>(d_app + (base + j) * app_stride +
-                                                   d.app_off[i] + (ch - nd)));
+        add2(dline + static_cast<int64_t>(row) * kWalkC + ch, a, b);
       }
-      float2 pv[4], lv[2];
-      load_rows(tab.plane[i], tab.line[i], geo, ch, true, pv, lv);
-      float dp0[4], dl0[2], dp1[4], dl1[2];
-      channel_grads(pv[0].x, pv[1].x, pv[2].x, pv[3].x, lv[0].x, lv[1].x, gv.x, geo, dp0, dl0);
-      channel_grads(pv[0].y, pv[1].y, pv[2].y, pv[3].y, lv[0].y, lv[1].y, gv.y, geo, dp1, dl1);
-      const int64_t p = geo.p00;
-      add2(dplane + p * kWalkC + ch, dp0[0], dp1[0]);
-      add2(dplane + (p + geo.dx) * kWalkC + ch, dp0[1], dp1[1]);
-      add2(dplane + (p + geo.dyw) * kWalkC + ch, dp0[2], dp1[2]);
-      add2(dplane + (p + geo.dyw + geo.dx) * kWalkC + ch, dp0[3], dp1[3]);
-      add2(dline + static_cast<int64_t>(geo.l0) * kWalkC + ch, dl0[0], dl1[0]);
-      add2(dline + static_cast<int64_t>(geo.l0 + geo.dl) * kWalkC + ch, dl0[1], dl1[1]);
+    };
+
+    for (int64_t run = run_lo; run < run_hi; ++run) {
+      const int64_t base = run * kWalkRun;
+      const int cnt = static_cast<int>(base + kWalkRun <= n ? kWalkRun : n - base);
+      float x[3] = {0.0f, 0.0f, 0.0f};
+      float gs = 0.0f;
+      if (lane < cnt) {
+        x[0] = xn[3 * (base + lane)];
+        x[1] = xn[3 * (base + lane) + 1];
+        x[2] = xn[3 * (base + lane) + 2];
+        if (SIGMA) gs = d_sigma[base + lane];
+      }
+      PackedGeo mine;
+      {
+        AxisGeo gg;
+        geometry<false>(x, i, d, gg);
+        mine = pack(gg);
+      }
+      // sample j's geometry, gradient and table rows; the next sample's are
+      // loaded before this one's arithmetic (latency, not bandwidth, holds
+      // a warp back)
+      const auto fetch = [&](int j, AxisGeo& geo, float2& gv, float2 (&pv)[4],
+                             float2 (&lv)[2]) {
+        geo = shuffle_geo(mine, j, w);
+        const float gsig = SIGMA ? __shfl_sync(0xffffffffu, gs, j) : 0.0f;
+        gv = make_float2(0.0f, 0.0f);
+        if (on) {
+          gv = dens ? make_float2(gsig, gsig)
+                    : __ldg(reinterpret_cast<const float2*>(d_app + (base + j) * app_stride +
+                                                            d.app_off[i] + (ch - nd)));
+        }
+        load_rows(tab.plane[i], tab.line[i], geo, ch, on, pv, lv);
+      };
+      AxisGeo next_geo;
+      float2 next_gv, next_pv[4], next_lv[2];
+      fetch(0, next_geo, next_gv, next_pv, next_lv);
+      for (int j = 0; j < cnt; ++j) {
+        const AxisGeo geo = next_geo;
+        const float2 gv = next_gv;
+        const float2 pv[4] = {next_pv[0], next_pv[1], next_pv[2], next_pv[3]};
+        const float2 lv[2] = {next_lv[0], next_lv[1]};
+        if (j + 1 < cnt) fetch(j + 1, next_geo, next_gv, next_pv, next_lv);
+        if (!__any_sync(0xffffffffu, gv.x != 0.0f || gv.y != 0.0f)) continue;
+        float dp0[4], dl0[2], dp1[4], dl1[2];
+        channel_grads(pv[0].x, pv[1].x, pv[2].x, pv[3].x, lv[0].x, lv[1].x, gv.x, geo, dp0, dl0);
+        channel_grads(pv[0].y, pv[1].y, pv[2].y, pv[3].y, lv[0].y, lv[1].y, gv.y, geo, dp1, dl1);
+        if (on) {
+          const int64_t p = geo.p00;
+          add2(dplane + p * kWalkC + ch, dp0[0], dp1[0]);
+          add2(dplane + (p + geo.dx) * kWalkC + ch, dp0[1], dp1[1]);
+          add2(dplane + (p + geo.dyw) * kWalkC + ch, dp0[2], dp1[2]);
+          add2(dplane + (p + geo.dyw + geo.dx) * kWalkC + ch, dp0[3], dp1[3]);
+          line_add(geo.l0, dl0[0], dl1[0]);
+          line_add(geo.l0 + geo.dl, dl0[1], dl1[1]);
+        }
+      }
+    }
+
+    if (SHARED_LINES) {
+      // the block's line gradient of this axis into the table, four
+      // channels per reduction; untouched entries stay +0 and are skipped;
+      // each entry is zeroed for the next axis as it is read
+      __syncthreads();
+      const bool vec4 = reinterpret_cast<uintptr_t>(dline) % 16 == 0;
+      for (int k = threadIdx.x; k < d.l[i] * (kWalkC / 4); k += kWalkThreads) {
+        const int row = k / (kWalkC / 4), q = k % (kWalkC / 4);
+        float2* lo = reinterpret_cast<float2*>(sline + row * kWalkC + 2 * q);
+        float2* hi = reinterpret_cast<float2*>(sline + row * kWalkC + 32 + 2 * q);
+        const float2 a = *lo, b = *hi;  // channels (4q, 4q + 2), (4q + 1, 4q + 3)
+        *lo = make_float2(0.0f, 0.0f);
+        *hi = make_float2(0.0f, 0.0f);
+        if (a.x == 0.0f && a.y == 0.0f && b.x == 0.0f && b.y == 0.0f) continue;
+        float* dst = dline + static_cast<int64_t>(row) * kWalkC + 4 * q;
+        if (vec4) {
+          add4(dst, make_float4(a.x, b.x, a.y, b.y));
+        } else {
+          add2(dst, a.x, b.x);
+          add2(dst + 2, a.y, b.y);
+        }
+      }
+      __syncthreads();
     }
   }
 }
 
-// Generic kernel: one warp per sample, lanes stride the channels.
+// Generic route: one warp per sample, lanes stride the channels.
 template <bool SIGMA, bool APP>
 __global__ void factor_features_bwd_kernel(const float* __restrict__ xn, int n, Tables tab,
                                            Dims d, int app_stride,
@@ -181,20 +282,64 @@ __global__ void factor_features_bwd_kernel(const float* __restrict__ xn, int n, 
   }
 }
 
+template <bool SIGMA, bool APP, bool SHARED_LINES>
+cudaError_t launch_walk(const float* xn, int n, const Tables& tab, const Dims& d,
+                        int app_stride, const float* d_sigma, const float* d_app,
+                        const GradTables& out, size_t smem, int sms, cudaStream_t stream,
+                        int* info) {
+  const auto kernel = factor_features_bwd_walk_kernel<SIGMA, APP, SHARED_LINES>;
+  cudaError_t err = cudaSuccess;
+  if (SHARED_LINES) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  }
+  int per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWalkThreads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t runs = (static_cast<int64_t>(n) + kWalkRun - 1) / kWalkRun;
+  const int64_t wanted = (runs + kWalkWarps - 1) / kWalkWarps;
+  const int blocks = static_cast<int>(std::min<int64_t>(static_cast<int64_t>(sms) * per_sm,
+                                                        wanted));
+  factor_features_bwd_walk_kernel<SIGMA, APP, SHARED_LINES><<<blocks, kWalkThreads, smem, stream>>>(
+      xn, n, tab, d, app_stride, d_sigma, d_app, out);
+  info[0] = SHARED_LINES ? kRouteShared : kRouteGlobal;
+  info[1] = blocks;
+  info[2] = kWalkThreads;
+  return cudaGetLastError();
+}
+
 template <bool SIGMA, bool APP>
-void launch(const float* xn, int n, bool walk, const Tables& tab, const Dims& d, int app_stride,
-            const float* d_sigma, const float* d_app, const GradTables& out,
-            cudaStream_t stream) {
-  constexpr int kThreads = 256;  // 8 warps
-  const int64_t warps = walk ? (static_cast<int64_t>(n) + kWalkRun - 1) / kWalkRun : n;
-  const unsigned blocks = static_cast<unsigned>((warps * 32 + kThreads - 1) / kThreads);
-  if (walk) {
-    factor_features_bwd_walk_kernel<SIGMA, APP><<<blocks, kThreads, 0, stream>>>(
-        xn, n, tab, d, app_stride, d_sigma, d_app, out);
-  } else {
+cudaError_t launch(const float* xn, int n, bool walk, const Tables& tab, const Dims& d,
+                   int app_stride, const float* d_sigma, const float* d_app,
+                   const GradTables& out, cudaStream_t stream, int* info) {
+  if (!walk) {
+    constexpr int kThreads = 256;  // 8 warps, one sample each
+    const unsigned blocks = static_cast<unsigned>((static_cast<int64_t>(n) * 32 + kThreads - 1) /
+                                                  kThreads);
     factor_features_bwd_kernel<SIGMA, APP><<<blocks, kThreads, 0, stream>>>(
         xn, n, tab, d, app_stride, d_sigma, d_app, out);
+    info[0] = kRouteGeneric;
+    info[1] = static_cast<int>(blocks);
+    info[2] = kThreads;
+    return cudaGetLastError();
   }
+  int dev = 0, sms = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(float) * kWalkC * std::max(d.l[0], std::max(d.l[1], d.l[2]));
+  if (smem <= static_cast<size_t>(smem_max)) {
+    return launch_walk<SIGMA, APP, true>(xn, n, tab, d, app_stride, d_sigma, d_app, out, smem,
+                                         sms, stream, info);
+  }
+  return launch_walk<SIGMA, APP, false>(xn, n, tab, d, app_stride, d_sigma, d_app, out, 0, sms,
+                                        stream, info);
 }
 
 bool aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
@@ -204,11 +349,14 @@ bool aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
 // dims: 18 ints, h[3] w[3] l[3] c[3] nd[3] app_off[3] (kernel A's layout).
 // d_sigma and/or d_app may be null; at least one is not.  zero != 0 zeroes
 // the six gradient tables first (on the same stream); zero == 0 adds into
-// them.  The walk kernel runs when every axis has 64 channels, an even
+// them.  The walk routes run when every axis has 64 channels, an even
 // density count and a plane of fewer than 2^30 rows, and the tables,
-// gradient tables and d_app are 8-byte aligned with an even app_stride
-// (else the generic kernel, one sample per warp).  Returns the first CUDA
-// error of the memsets and the launch.
+// gradient tables and d_app are 8-byte aligned with an even app_stride:
+// the shared route when the longest line's gradient (L x 64 fp32) fits in
+// a block's shared memory, else the global route.  Otherwise the generic
+// route.  info (3 ints) receives the route (1 shared, 2 global, 3
+// generic), the grid's blocks and the threads per block.  Returns the
+// first CUDA error of the memsets and the launch.
 extern "C" int t2n_factor_features_bwd(const float* xn, int n,
                                        const float* plane0, const float* plane1,
                                        const float* plane2, const float* line0,
@@ -216,7 +364,7 @@ extern "C" int t2n_factor_features_bwd(const float* xn, int n,
                                        int app_stride, const float* d_sigma, const float* d_app,
                                        float* dplane0, float* dplane1, float* dplane2,
                                        float* dline0, float* dline1, float* dline2, int zero,
-                                       void* stream) {
+                                       int* info, void* stream) {
   Dims d;
   for (int i = 0; i < 3; ++i) {
     d.h[i] = dims[i];
@@ -248,11 +396,13 @@ extern "C" int t2n_factor_features_bwd(const float* xn, int n,
            aligned8(tab.line[i]) && aligned8(out.plane[i]) && aligned8(out.line[i]);
   }
   if (sig && app) {
-    launch<true, true>(xn, n, walk, tab, d, app_stride, d_sigma, d_app, out, st);
-  } else if (sig) {
-    launch<true, false>(xn, n, walk, tab, d, app_stride, d_sigma, d_app, out, st);
-  } else {
-    launch<false, true>(xn, n, walk, tab, d, app_stride, d_sigma, d_app, out, st);
+    return static_cast<int>(
+        launch<true, true>(xn, n, walk, tab, d, app_stride, d_sigma, d_app, out, st, info));
   }
-  return static_cast<int>(cudaGetLastError());
+  if (sig) {
+    return static_cast<int>(
+        launch<true, false>(xn, n, walk, tab, d, app_stride, d_sigma, d_app, out, st, info));
+  }
+  return static_cast<int>(
+      launch<false, true>(xn, n, walk, tab, d, app_stride, d_sigma, d_app, out, st, info));
 }
