@@ -14,7 +14,7 @@ Phases (any failure exits nonzero before the last line):
    consecutive steps, fp32 and bf16, three output modes, held bit for bit;
    kernel B: 1M rows; kernel A': adversarial inputs (a run inside one
    cell, every upper edge, runs that cross rays, a ragged n, zero
-   gradients, accumulation, each of its three routes), then 1M samples at
+   gradients, accumulation, both of its routes), then 1M samples at
    the train step's shape, 16384 rays x 64 consecutive steps, in three
    layouts (neighbouring rays, the train sampler's random rays, the
    neighbours shuffled), random output gradients, fp32, held to a
@@ -409,8 +409,8 @@ def _bwd_cases(dev, gen):
     # a line too long for shared memory (L = 1000 x 64 fp32 = 256 KB)
     long = field((24, 20, 1000))
     x = rays(64, 64, 1000)
-    cases.append(("global route (L = 1000)", *long[:3], x, *grads(x.shape[0], long[3]),
-                  "global", False))
+    cases.append(("generic route (L = 1000)", *long[:3], x, *grads(x.shape[0], long[3]),
+                  "generic", False))
     # 12-wide tables
     narrow = field((21, 17, 30), (4, 4, 4), (8, 8, 8))
     x = rays(64, 40, 30)
@@ -419,11 +419,34 @@ def _bwd_cases(dev, gen):
     return cases
 
 
+def _bwd_reductions(xn, lines, nd, d_sig, d_app, blocks):
+    """A host count of the global reductions the shared route issues, by
+    its rules rather than by the card: per axis, one float2 per touched
+    lane pair and corner row of each sample whose gradient is not all zero
+    there; then at most one float4 per group of four channels of each line
+    row a kept sample touches, from each of the grid's blocks.  Returns
+    (plane float2 count, bound on the line float4 count)."""
+    import torch
+    from text2nerf_tpu_torch.ops.fused_gather import _coords
+    from text2nerf_tpu_torch.ops.kernels.factor_features import VEC_MODE
+
+    plane = line = app_off = 0
+    for i, ln in enumerate(lines):
+        length, c = ln.shape
+        keep = (d_sig != 0) | (d_app[:, app_off: app_off + c - nd[i]] != 0).any(1)
+        app_off += c - nd[i]
+        plane += 4 * (c // 2) * int(keep.sum())
+        l0, _ = _coords(xn[keep, VEC_MODE[i]], length)
+        touched = torch.unique(torch.cat([l0, torch.clamp(l0 + 1, max=length - 1)])).numel()
+        line += blocks * touched * (c // 4)
+    return plane, line
+
+
 def phase_backward(field, aabb, rays, gen, flush, report):
     """Kernel A' against its plain version on adversarial inputs and at the
     compacted train step's shape (16384 rays x 64 consecutive steps of the
-    full-width shell, random output gradients) in three layouts, with the
-    reductions it issues counted on the host by its own rules."""
+    full-width shell, random output gradients) in three layouts, with a
+    host count of the reductions it issues."""
     import torch
     from text2nerf_tpu_torch.ops.kernels import factor_features as ff
 
@@ -468,7 +491,7 @@ def phase_backward(field, aabb, rays, gen, flush, report):
     table_bytes = sum(t.numel() * 4 for t in (*planes, *lines))
     bytes_in = n * (12 + 4 + 4 * na)
     flops = n * c_total * 28
-    abs_err, times, bounds, reductions = 0.0, {}, {}, {}
+    abs_err, times, bounds = 0.0, {}, {}
     for layout, xn in layouts.items():
         for mode, ds, da in (("fused", d_sig, d_app), ("density", d_sig, None),
                              ("app", None, d_app)):
@@ -488,14 +511,13 @@ def phase_backward(field, aabb, rays, gen, flush, report):
             lambda: ff.factor_features_backward(xn, planes, lines, nd, d_sig, d_app), 10, flush)
         rows = _unique_row_bytes(xn, field, True, True)
         bounds[layout] = _bound(bytes_in + rows + table_bytes, flops)
-        red = ff.backward_reductions(xn, planes, lines, nd, d_sig, d_app, *grid)
-        reductions[layout] = red
+        plane_red, line_red = _bwd_reductions(xn, lines, nd, d_sig, d_app, grid[1])
         print(f"kernel A' {layout}: {times[layout]:.3f} ms, bound {bounds[layout][0]:.3f} ms by "
               f"{bounds[layout][1]} ({rows / 1e6:.1f} MB unique rows); {grid[0]} route, "
-              f"{grid[1]} blocks x {grid[2]} threads; reductions issued: {red['plane'] / 1e9:.4f}"
-              f" G float2 (plane) + {red['line'] / 1e9:.4f} G float{red['line_width']} (line) vs "
-              f"{576 * n / 1e9:.4f} G float2 with every row of every sample reduced into the "
-              f"tables", flush=True)
+              f"{grid[1]} blocks x {grid[2]} threads; reductions by the host's count of the "
+              f"kernel's rules: {plane_red / 1e9:.4f} G float2 (plane) + at most "
+              f"{line_red / 1e9:.4f} G float4 (line) vs {576 * n / 1e9:.4f} G float2 with "
+              f"every row of every sample reduced into the tables", flush=True)
 
     xn = layouts["coherent"]
     plain = _time_ms(lambda: ff.factor_features_backward_plain(xn, planes, lines, nd, d_sig,
@@ -528,7 +550,6 @@ def phase_backward(field, aabb, rays, gen, flush, report):
         max_abs_err=abs_err, ms=times["coherent"], plain_ms=plain, bound_ms=bound, bound_by=by,
         library_ms=lib, ms_by_layout=times,
         bound_ms_by_layout={k: v[0] for k, v in bounds.items()},
-        reductions_by_layout=reductions,
     )
 
 

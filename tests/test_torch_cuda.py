@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain versions, on the card, and the
 train step on the card against the CPU.  Kernel A' also on adversarial
 inputs: a run inside one cell, every upper edge, runs that cross rays, a
-ragged n, zero gradients, accumulation, and each of its three routes.
+ragged n, zero gradients, accumulation, and both of its routes.
 
 These skip without an NVIDIA GPU.  The module imports no JAX, so on a
 machine with a card and no JAX it runs with
@@ -264,8 +264,8 @@ def _bwd_case(case, gen, device):
         zero = torch.rand(xn.shape[0], generator=gen, device=device) < 0.4
         zero[2048:2048 + 96] = True
         return wide, (48, 40, 56), xn, zero, "shared"
-    if case == "global_route":  # a line of 1000 x 64 fp32 is more than a block's shared memory
-        return wide, (24, 20, 1000), _ray_major(64, 64, 1000, gen, device), None, "global"
+    if case == "long_line":  # a line of 1000 x 64 fp32 is more than a block's shared memory
+        return wide, (24, 20, 1000), _ray_major(64, 64, 1000, gen, device), None, "generic"
     assert case == "generic_route"  # 12-wide tables
     return ((4, 4, 4), (8, 8, 8)), (21, 17, 30), _ray_major(64, 40, 30, gen, device), None, \
         "generic"
@@ -273,7 +273,7 @@ def _bwd_case(case, gen, device):
 
 @pytest.mark.parametrize("accumulate", [False, True])
 @pytest.mark.parametrize("case", ["one_cell", "upper_edges", "runs_cross_rays",
-                                  "zero_gradients", "global_route", "generic_route"])
+                                  "zero_gradients", "long_line", "generic_route"])
 def test_factor_features_backward_kernel_adversarial(cuda, case, accumulate):
     gen = torch.Generator(device=cuda).manual_seed(9)
     widths, reso, xn, zero, route = _bwd_case(case, gen, cuda)

@@ -15,8 +15,7 @@ hold the plain versions against the JAX functions the kernels replace:
   run: kernel B's weight images (K-major, K-permuted, zero-padded, TF32
   hi/lo), a CPU emulation of its 3xTF32 head that reads those images as
   wgmma's descriptors address them (≤ 1e-6 of the plain head at full
-  width); the host count of the reductions kernel A''s walk issues
-  (``backward_reductions``) against a loop over its warps.
+  width).
 
 tests/test_torch_cuda.py holds each CUDA kernel against its plain version
 on the card.
@@ -379,80 +378,3 @@ def test_head_weight_cache_follows_the_weights():
     other = PM.init_mlp(351, generator=torch.Generator().manual_seed(2), device="cpu")
     assert sm._prepared(other, 27, 6) is not edited
     assert sm._prepared(head, 27, 6) is edited
-
-
-# ---- kernel A': the reductions its walk routes issue -------------------------
-
-
-def _walk_reductions_loop(xn, planes, lines, nd, d_sigma, d_app, route, blocks, threads):
-    """Kernel A''s walk, warp by warp and sample by sample: the samples it
-    skips, the rows the others reduce, each block's touched line rows."""
-    from text2nerf_tpu_torch.ops.fused_gather import _coords
-
-    n = xn.shape[0]
-    runs = -(-n // 32)
-    wpb = threads // 32
-    warps = blocks * wpb
-    plane = line = app_off = 0
-    for i in range(3):
-        c = planes[i].shape[2]
-        length = lines[i].shape[0]
-        lo = 0 if d_sigma is not None else nd[i]
-        hi = c if d_app is not None else nd[i]
-        lanes = (hi - lo) // 2
-        l0, _ = _coords(xn[:, ff.VEC_MODE[i]], length)
-        touched = set()
-        for g in range(warps):
-            for s in range(g * runs // warps * 32, min((g + 1) * runs // warps * 32, n)):
-                zero = d_sigma is None or float(d_sigma[s]) == 0
-                if d_app is not None:
-                    zero = zero and not bool(d_app[s, app_off: app_off + c - nd[i]].any())
-                if zero:
-                    continue
-                plane += 4 * lanes
-                la = int(l0[s])
-                if route == "global":
-                    line += 2 * lanes
-                touched.update({(g // wpb, la), (g // wpb, min(la + 1, length - 1))})
-        if route == "shared":
-            line += len(touched) * (-(-hi // 4) - lo // 4)
-        app_off += c - nd[i]
-    return plane, line
-
-
-@pytest.mark.parametrize("mode", ["fused", "density", "app"])
-@pytest.mark.parametrize("route", ["shared", "global"])
-def test_backward_reductions_match_the_walk(mode, route):
-    # the host count of kernel A''s reductions against a loop over its
-    # warps: rays of 7 one-voxel steps (runs cross rays), samples on the
-    # upper edges (coincident line rows), zero gradients on whole samples
-    # and on one axis's app slice, n not a multiple of 32, uneven warp spans
-    cfg = tf.TensoRFConfig(density_n_comp=(16, 16, 16), app_n_comp=(48, 48, 48))
-    with torch.no_grad():
-        field = params_from_jax(_flatten(tf.init_params(jax.random.PRNGKey(0), cfg, GRID)),
-                                cfg, device="cpu")
-    rng = np.random.default_rng(11)
-    o = rng.uniform(-0.8, 0.8, (47, 1, 3))
-    d = rng.standard_normal((47, 1, 3))
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    xn = np.clip(o + d * np.arange(7)[None, :, None] * (2.0 / 19), -1, 1).reshape(-1, 3)
-    xn[:40] = np.clip(xn[:40] * 50, -1, 1)  # pinned to the faces and edges
-    xn = torch.from_numpy(xn.astype(np.float32))
-    n = xn.shape[0]
-    assert n % 32
-    d_sigma = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
-    d_app = torch.from_numpy(rng.standard_normal((n, 144)).astype(np.float32))
-    coin = rng.random(n)
-    d_sigma[coin < 0.3] = 0.0
-    d_app[coin < 0.2] = 0.0
-    d_app[(coin > 0.5) & (coin < 0.7), 48:96] = 0.0
-    ds = None if mode == "app" else d_sigma
-    da = None if mode == "density" else d_app
-    args = (xn, tuple(field.planes), tuple(field.lines), field.nd, ds, da, route, 3, 64)
-    got = ff.backward_reductions(*args)
-    plane, line = _walk_reductions_loop(*args)
-    assert (got["plane"], got["line"]) == (plane, line)
-    assert got["line_width"] == (4 if route == "shared" else 2)
-    # the skipped samples issue nothing
-    lanes = {"fused": 32, "density": 8, "app": 24}[mode]
-    assert 0 < plane < 4 * 3 * n * lanes

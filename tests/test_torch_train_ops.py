@@ -211,13 +211,17 @@ def _jax_grads(params, xn, mode, d_sigma, d_app):
     return jax.grad(f)(params)
 
 
-@pytest.mark.parametrize("case", ["given", "reversed", "shuffled", "one_cell", "zero_rows"])
+@pytest.mark.parametrize("case", ["given", "reversed", "shuffled", "one_cell", "zero_rows",
+                                  "corner_run", "short_rays"])
 @pytest.mark.parametrize("mode", ["fused", "density", "app"])
 def test_kernel_a_backward_plain_matches_jax_grad(fields, mode, case):
     # the edge samples in three orders; 64 samples inside one cell of every
     # plane and line (a whole run of kernel A''s walk adds into the same
     # rows); all-zero output gradients mixed in (the walk skips those
-    # samples), and samples whose d_sigma alone is zero
+    # samples), and samples whose d_sigma alone is zero; a run of 64
+    # samples on the upper corner (every corner and line row coincides);
+    # rays of 5 one-voxel steps, 41 of them (runs cross rays, n not a
+    # multiple of 32)
     xn = _edge_xn()
     if case == "reversed":
         xn = xn[::-1].copy()
@@ -225,6 +229,15 @@ def test_kernel_a_backward_plain_matches_jax_grad(fields, mode, case):
         xn = xn[np.random.default_rng(1).permutation(len(xn))]
     elif case == "one_cell":
         xn = (0.1 + 1e-3 * np.random.default_rng(3).random((64, 3))).astype(np.float32)
+    elif case == "corner_run":
+        xn[200:264] = 1.0
+    elif case == "short_rays":
+        rng = np.random.default_rng(4)
+        o = rng.uniform(-0.8, 0.8, (41, 1, 3))
+        d = rng.standard_normal((41, 1, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        steps = np.arange(5)[None, :, None] * (2.0 / (min(GRID) - 1))
+        xn = np.clip(o + d * steps, -1, 1).reshape(-1, 3).astype(np.float32)
     rng = np.random.default_rng(2)
     d_sigma = rng.standard_normal(len(xn)).astype(np.float32)
     d_app = rng.standard_normal((len(xn), CFG.app_dim)).astype(np.float32)

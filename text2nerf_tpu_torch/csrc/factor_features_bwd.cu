@@ -28,18 +28,18 @@
 // samples' order: the line tables have only L = 300 rows, so a third of
 // those reductions pile thousands deep onto each line row.
 //
-// Design.  Walk routes (every axis 64 channels, even density counts,
+// Design.  Shared route (every axis 64 channels, even density counts,
 // 8-byte aligned tables and gradients, the main path's tables): a
 // persistent grid of as many blocks as fit on the card, each warp walking
 // one contiguous span of samples in runs of 32 (lane j computes sample j's
 // geometry once, the warp reads it by shuffle, so every branch is
 // warp-uniform; each lane owns 2 channels), axis by axis.
-//  - Line rows: on the shared route (the longest line's gradient, L x 64
-//    fp32, fits in one block's shared memory) each block adds into its
-//    own copy of the axis's line gradient with shared atomics and reduces
-//    it into the table once per axis, four channels per float4
-//    reduction; on the global route (a longer line) line rows are reduced
-//    into the table as plane rows are.
+//  - Line rows: each block adds into its own copy of the axis's line
+//    gradient (L x 64 fp32, so the longest line must fit in one block's
+//    shared memory) with shared atomics and reduces it into the table
+//    once per axis, four channels per float4 reduction.  Reducing line
+//    rows straight into the table instead took ~3.5 ms more per 1M
+//    samples (PERF.md): they pile onto 3 x 300 rows.
 //  - Plane rows: one float2 reduction per corner row and lane pair.
 //    Merging a ray's repeated rows in registers before the reduction
 //    issued 2.9x fewer of them, was faster on neighbouring rays and slower
@@ -51,13 +51,16 @@
 //    compacted step's padding and past-the-surface members, half of a
 //    train step's samples) is skipped after a warp vote: adding +0
 //    changes no entry of a finite table.
-// Generic route (other widths): one warp per sample, lanes stride the
-// channels, scalar atomics.  fp32 only (the bf16 backward is not ported).
+// Generic route (other widths, or a line too long for shared memory): one
+// warp per sample, lanes stride the channels, scalar atomics.  fp32 only
+// (the bf16 backward is not ported).
 // The atomics add in an order that changes from run to run, so the result
 // is held against the plain version (factor_features_backward_plain) to a
 // tolerance.
 
 #include <algorithm>
+#include <map>
+#include <mutex>
 
 #include "factor_common.cuh"
 
@@ -70,8 +73,7 @@ struct GradTables {
 
 // the routes, as the launcher reports them (info[0])
 constexpr int kRouteShared = 1;   // walk, line gradients in shared memory
-constexpr int kRouteGlobal = 2;   // walk, line rows reduced into the table
-constexpr int kRouteGeneric = 3;  // one warp per sample
+constexpr int kRouteGeneric = 2;  // one warp per sample
 // 16 warps a block, two blocks an SM (64 registers a thread; the line
 // gradient, 76.8 KB at L = 300, twice in shared memory)
 constexpr int kWalkThreads = 512;
@@ -117,13 +119,13 @@ __device__ __forceinline__ void channel_grads(float p00, float p01, float p10, f
   dl[1] = __fmul_rn(dlf, geo.tl);
 }
 
-// Walk routes.  Warp g of the grid walks runs [g*R/G, (g+1)*R/G) of the R
+// Shared route.  Warp g of the grid walks runs [g*R/G, (g+1)*R/G) of the R
 // runs of 32 samples (G warps in all), so a block's samples are
-// contiguous.  SHARED_LINES: dynamic shared memory holds one axis's line
-// gradient, [L][2][32] (lane-major within each half of a row, so a warp's
-// shared atomics hit 32 banks): entry (row, c) at row*64 + (c&1)*32 + c/2.
+// contiguous.  Dynamic shared memory holds one axis's line gradient,
+// [L][2][32] (lane-major within each half of a row, so a warp's shared
+// atomics hit 32 banks): entry (row, c) at row*64 + (c&1)*32 + c/2.
 // Lanes whose channels the mode does not touch stay idle.
-template <bool SIGMA, bool APP, bool SHARED_LINES>
+template <bool SIGMA, bool APP>
 __global__ void __launch_bounds__(kWalkThreads, 2)
 factor_features_bwd_walk_kernel(const float* __restrict__ xn, int n, Tables tab, Dims d,
                                 int app_stride, const float* __restrict__ d_sigma,
@@ -136,13 +138,11 @@ factor_features_bwd_walk_kernel(const float* __restrict__ xn, int n, Tables tab,
   const int64_t warps = static_cast<int64_t>(gridDim.x) * kWalkWarps;
   const int64_t g = static_cast<int64_t>(blockIdx.x) * kWalkWarps + (threadIdx.x >> 5);
   const int64_t run_lo = g * runs / warps, run_hi = (g + 1) * runs / warps;
-  if (SHARED_LINES) {
-    const int lmax = max(d.l[0], max(d.l[1], d.l[2]));
-    for (int k = threadIdx.x; k < lmax * (kWalkC / 4); k += kWalkThreads) {
-      smem4[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-    __syncthreads();
+  const int lmax = max(d.l[0], max(d.l[1], d.l[2]));
+  for (int k = threadIdx.x; k < lmax * (kWalkC / 4); k += kWalkThreads) {
+    smem4[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
+  __syncthreads();
 
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -151,14 +151,10 @@ factor_features_bwd_walk_kernel(const float* __restrict__ xn, int n, Tables tab,
     const bool on = dens ? SIGMA : APP;
     float* dplane = out.plane[i];
     float* dline = out.line[i];
-    // a line row's two channels of this lane: into the block's copy, or the table
+    // a line row's two channels of this lane, into the block's copy
     const auto line_add = [&](int row, float a, float b) {
-      if (SHARED_LINES) {
-        atomicAdd(sline + row * kWalkC + lane, a);
-        atomicAdd(sline + row * kWalkC + 32 + lane, b);
-      } else {
-        add2(dline + static_cast<int64_t>(row) * kWalkC + ch, a, b);
-      }
+      atomicAdd(sline + row * kWalkC + lane, a);
+      atomicAdd(sline + row * kWalkC + 32 + lane, b);
     };
 
     for (int64_t run = run_lo; run < run_hi; ++run) {
@@ -218,30 +214,28 @@ factor_features_bwd_walk_kernel(const float* __restrict__ xn, int n, Tables tab,
       }
     }
 
-    if (SHARED_LINES) {
-      // the block's line gradient of this axis into the table, four
-      // channels per reduction; untouched entries stay +0 and are skipped;
-      // each entry is zeroed for the next axis as it is read
-      __syncthreads();
-      const bool vec4 = reinterpret_cast<uintptr_t>(dline) % 16 == 0;
-      for (int k = threadIdx.x; k < d.l[i] * (kWalkC / 4); k += kWalkThreads) {
-        const int row = k / (kWalkC / 4), q = k % (kWalkC / 4);
-        float2* lo = reinterpret_cast<float2*>(sline + row * kWalkC + 2 * q);
-        float2* hi = reinterpret_cast<float2*>(sline + row * kWalkC + 32 + 2 * q);
-        const float2 a = *lo, b = *hi;  // channels (4q, 4q + 2), (4q + 1, 4q + 3)
-        *lo = make_float2(0.0f, 0.0f);
-        *hi = make_float2(0.0f, 0.0f);
-        if (a.x == 0.0f && a.y == 0.0f && b.x == 0.0f && b.y == 0.0f) continue;
-        float* dst = dline + static_cast<int64_t>(row) * kWalkC + 4 * q;
-        if (vec4) {
-          add4(dst, make_float4(a.x, b.x, a.y, b.y));
-        } else {
-          add2(dst, a.x, b.x);
-          add2(dst + 2, a.y, b.y);
-        }
+    // the block's line gradient of this axis into the table, four
+    // channels per reduction; untouched entries stay +0 and are skipped;
+    // each entry is zeroed for the next axis as it is read
+    __syncthreads();
+    const bool vec4 = reinterpret_cast<uintptr_t>(dline) % 16 == 0;
+    for (int k = threadIdx.x; k < d.l[i] * (kWalkC / 4); k += kWalkThreads) {
+      const int row = k / (kWalkC / 4), q = k % (kWalkC / 4);
+      float2* lo = reinterpret_cast<float2*>(sline + row * kWalkC + 2 * q);
+      float2* hi = reinterpret_cast<float2*>(sline + row * kWalkC + 32 + 2 * q);
+      const float2 a = *lo, b = *hi;  // channels (4q, 4q + 2), (4q + 1, 4q + 3)
+      *lo = make_float2(0.0f, 0.0f);
+      *hi = make_float2(0.0f, 0.0f);
+      if (a.x == 0.0f && a.y == 0.0f && b.x == 0.0f && b.y == 0.0f) continue;
+      float* dst = dline + static_cast<int64_t>(row) * kWalkC + 4 * q;
+      if (vec4) {
+        add4(dst, make_float4(a.x, b.x, a.y, b.y));
+      } else {
+        add2(dst, a.x, b.x);
+        add2(dst + 2, a.y, b.y);
       }
-      __syncthreads();
     }
+    __syncthreads();
   }
 }
 
@@ -282,40 +276,64 @@ __global__ void factor_features_bwd_kernel(const float* __restrict__ xn, int n, 
   }
 }
 
-template <bool SIGMA, bool APP, bool SHARED_LINES>
-cudaError_t launch_walk(const float* xn, int n, const Tables& tab, const Dims& d,
-                        int app_stride, const float* d_sigma, const float* d_app,
-                        const GradTables& out, size_t smem, int sms, cudaStream_t stream,
-                        int* info) {
-  const auto kernel = factor_features_bwd_walk_kernel<SIGMA, APP, SHARED_LINES>;
-  cudaError_t err = cudaSuccess;
-  if (SHARED_LINES) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  }
-  int per_sm = 0;
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWalkThreads, smem);
-  }
+// The shared route's grid on the current device for smem bytes of line
+// gradient: the SMs, and the blocks that fit on one (0: the line does not
+// fit in shared memory).  The device attributes and the kernel's shared
+// memory limit are set up once per device and mode, the occupancy once per
+// size, so a launch after the first only looks them up.
+template <bool SIGMA, bool APP>
+cudaError_t walk_grid(size_t smem, int* sms, int* per_sm) {
+  struct Device {
+    int sms = 0, smem_max = 0;
+    std::map<size_t, int> per_sm;
+  };
+  static std::mutex mu;
+  static std::map<int, Device> devices;
+  const auto kernel = factor_features_bwd_walk_kernel<SIGMA, APP>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int64_t runs = (static_cast<int64_t>(n) + kWalkRun - 1) / kWalkRun;
-  const int64_t wanted = (runs + kWalkWarps - 1) / kWalkWarps;
-  const int blocks = static_cast<int>(std::min<int64_t>(static_cast<int64_t>(sms) * per_sm,
-                                                        wanted));
-  factor_features_bwd_walk_kernel<SIGMA, APP, SHARED_LINES><<<blocks, kWalkThreads, smem, stream>>>(
-      xn, n, tab, d, app_stride, d_sigma, d_app, out);
-  info[0] = SHARED_LINES ? kRouteShared : kRouteGlobal;
-  info[1] = blocks;
-  info[2] = kWalkThreads;
-  return cudaGetLastError();
+  const std::lock_guard<std::mutex> lock(mu);
+  auto it = devices.find(dev);
+  if (it == devices.end()) {
+    Device info;
+    err = cudaDeviceGetAttribute(&info.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&info.smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 info.smem_max);
+    }
+    if (err != cudaSuccess) return err;
+    it = devices.emplace(dev, info).first;
+  }
+  Device& info = it->second;
+  *sms = info.sms;
+  *per_sm = 0;
+  if (smem > static_cast<size_t>(info.smem_max)) return cudaSuccess;
+  auto fit = info.per_sm.find(smem);
+  if (fit == info.per_sm.end()) {
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kWalkThreads, smem);
+    if (err != cudaSuccess) return err;
+    fit = info.per_sm.emplace(smem, blocks).first;
+  }
+  *per_sm = fit->second;
+  return cudaSuccess;
 }
 
 template <bool SIGMA, bool APP>
 cudaError_t launch(const float* xn, int n, bool walk, const Tables& tab, const Dims& d,
                    int app_stride, const float* d_sigma, const float* d_app,
                    const GradTables& out, cudaStream_t stream, int* info) {
-  if (!walk) {
+  int sms = 0, per_sm = 0;
+  const size_t smem = sizeof(float) * kWalkC * std::max(d.l[0], std::max(d.l[1], d.l[2]));
+  if (walk) {
+    const cudaError_t err = walk_grid<SIGMA, APP>(smem, &sms, &per_sm);
+    if (err != cudaSuccess) return err;
+  }
+  if (per_sm < 1) {
     constexpr int kThreads = 256;  // 8 warps, one sample each
     const unsigned blocks = static_cast<unsigned>((static_cast<int64_t>(n) * 32 + kThreads - 1) /
                                                   kThreads);
@@ -326,20 +344,16 @@ cudaError_t launch(const float* xn, int n, bool walk, const Tables& tab, const D
     info[2] = kThreads;
     return cudaGetLastError();
   }
-  int dev = 0, sms = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(float) * kWalkC * std::max(d.l[0], std::max(d.l[1], d.l[2]));
-  if (smem <= static_cast<size_t>(smem_max)) {
-    return launch_walk<SIGMA, APP, true>(xn, n, tab, d, app_stride, d_sigma, d_app, out, smem,
-                                         sms, stream, info);
-  }
-  return launch_walk<SIGMA, APP, false>(xn, n, tab, d, app_stride, d_sigma, d_app, out, 0, sms,
-                                        stream, info);
+  const int64_t runs = (static_cast<int64_t>(n) + kWalkRun - 1) / kWalkRun;
+  const int64_t wanted = (runs + kWalkWarps - 1) / kWalkWarps;
+  const int blocks = static_cast<int>(std::min<int64_t>(static_cast<int64_t>(sms) * per_sm,
+                                                        wanted));
+  factor_features_bwd_walk_kernel<SIGMA, APP><<<blocks, kWalkThreads, smem, stream>>>(
+      xn, n, tab, d, app_stride, d_sigma, d_app, out);
+  info[0] = kRouteShared;
+  info[1] = blocks;
+  info[2] = kWalkThreads;
+  return cudaGetLastError();
 }
 
 bool aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
@@ -349,13 +363,12 @@ bool aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
 // dims: 18 ints, h[3] w[3] l[3] c[3] nd[3] app_off[3] (kernel A's layout).
 // d_sigma and/or d_app may be null; at least one is not.  zero != 0 zeroes
 // the six gradient tables first (on the same stream); zero == 0 adds into
-// them.  The walk routes run when every axis has 64 channels, an even
-// density count and a plane of fewer than 2^30 rows, and the tables,
-// gradient tables and d_app are 8-byte aligned with an even app_stride:
-// the shared route when the longest line's gradient (L x 64 fp32) fits in
-// a block's shared memory, else the global route.  Otherwise the generic
-// route.  info (3 ints) receives the route (1 shared, 2 global, 3
-// generic), the grid's blocks and the threads per block.  Returns the
+// them.  The shared route runs when every axis has 64 channels, an even
+// density count and a plane of fewer than 2^30 rows, the tables, gradient
+// tables and d_app are 8-byte aligned with an even app_stride, and the
+// longest line's gradient (L x 64 fp32) fits in a block's shared memory;
+// otherwise the generic route.  info (3 ints) receives the route (1
+// shared, 2 generic), the grid's blocks and the threads per block.  Returns the
 // first CUDA error of the memsets and the launch.
 extern "C" int t2n_factor_features_bwd(const float* xn, int n,
                                        const float* plane0, const float* plane1,

@@ -32,16 +32,14 @@ VEC_MODE = (2, 1, 0)
 LAUNCHES = 0
 #: kernel A' launches since the last reset, and the same by output mode
 #: and by route (``csrc/factor_features_bwd.cu``: the walk with line
-#: gradients in shared memory, the walk reducing line rows into the
-#: tables, one warp per sample for other widths)
+#: gradients in shared memory for 64-wide tables whose lines fit there,
+#: one warp per sample for the others)
 BWD_LAUNCHES = 0
 BWD_MODES = {"fused": 0, "density": 0, "app": 0}
-BWD_ROUTES = {"shared": 0, "global": 0, "generic": 0}
+BWD_ROUTES = {"shared": 0, "generic": 0}
 #: (route, blocks, threads per block) of the last kernel A' launch
 BWD_LAST_GRID = None
-_ROUTE_NAMES = {1: "shared", 2: "global", 3: "generic"}
-#: samples a walk route's warp takes per run (kWalkRun in the kernel)
-WALK_RUN = 32
+_ROUTE_NAMES = {1: "shared", 2: "generic"}
 
 
 def factor_features_plain(
@@ -324,55 +322,6 @@ def _lib_backward():
                        vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int, vp, vp]
         fn.restype = ctypes.c_int
     return lib
-
-
-def backward_reductions(xn, planes, lines, nd: Sequence[int], d_sigma, d_app_raw,
-                        route: str, blocks: int, threads: int) -> dict:
-    """The global reductions kernel A' issues on a walk route (``route``
-    "shared" or "global", its grid of ``blocks`` x ``threads``), by the
-    kernel's rules: a sample whose gradient is zero on every channel the
-    mode touches on an axis is skipped on that axis; every other sample
-    reduces its four plane corner rows (one ``float2`` per lane whose
-    channels the mode touches), and on the global route its two line rows
-    the same way; on the shared route each block reduces every line row
-    its samples touched once per axis, one ``float4`` per group of four
-    channels holding one the mode touches (line tables 16-byte aligned).
-    Warp g of the G warps walks runs [g*R/G, (g+1)*R/G) of the R runs of
-    32 samples.  Returns ``{"plane": n, "line": n, "line_width": 2 or 4}``,
-    counts of reduction instructions (fp32 adds are count x width)."""
-    if route not in ("shared", "global"):
-        raise ValueError(f"backward_reductions: {route!r} is not a walk route")
-    n, dev = xn.shape[0], xn.device
-    runs = -(-n // WALK_RUN)
-    warps_per_block = threads // 32
-    warps = blocks * warps_per_block
-    starts = torch.arange(warps + 1, device=dev) * runs // warps
-    run_of = torch.arange(n, device=dev) // WALK_RUN
-    block = (torch.searchsorted(starts, run_of, right=True) - 1) // warps_per_block
-    plane = line = 0
-    app_off = 0
-    for i in range(3):
-        c = planes[i].shape[2]
-        length = lines[i].shape[0]
-        lo = 0 if d_sigma is not None else nd[i]
-        hi = c if d_app_raw is not None else nd[i]
-        keep = torch.zeros(n, dtype=torch.bool, device=dev)
-        if d_sigma is not None:
-            keep |= d_sigma != 0
-        if d_app_raw is not None:
-            keep |= (d_app_raw[:, app_off: app_off + c - nd[i]] != 0).any(1)
-        app_off += c - nd[i]
-        kept = int(keep.sum())
-        lanes = (hi - lo) // 2
-        plane += 4 * kept * lanes
-        if route == "global":
-            line += 2 * kept * lanes
-        else:
-            l0, _ = _coords(xn[keep, VEC_MODE[i]], length)
-            rows = torch.stack([l0, torch.clamp(l0 + 1, max=length - 1)], 1)
-            touched = torch.unique(block[keep][:, None] * length + rows).numel()
-            line += touched * (-(-hi // 4) - lo // 4)
-    return {"plane": plane, "line": line, "line_width": 4 if route == "shared" else 2}
 
 
 class FactorFeatures(torch.autograd.Function):
