@@ -42,7 +42,19 @@ Phases (any failure exits nonzero before the last line):
    inside the window, which ends in a device sync.  mse must fall, and
    kernels A and A' must be launched in that run.  Then 2 steps of the
    dense branch (no mask, R = 32, A' launched in its density-only and
-   app-only modes).
+   app-only modes);
+6. seed fit: trainer.reconstruction at the full model width on the
+   procedural services, the JAX package's benchmark fit (bench.py
+   fit_seed_scene) at 512^2: the seed image and its 8 warped support
+   views, 150^3 -> 300^3 at step 10, the alpha mask and the AABB shrink at
+   step 30, 2 stage-1 epochs of dense steps, 1 stage-3 epoch of compacted
+   steps on the pool-5 stamped mask (K 256 from the first live sample, all
+   shaded), batch 16384.  Each step is timed between device syncs; one
+   dense step runs under torch.profiler.  The milestones must fire at
+   their steps, kernels A, A' (fused in stage 3) and B must be launched,
+   the final eval PSNR must beat the untrained field's by 5 dB, and the
+   final checkpoint, reloaded, must render the seed view at the logged
+   PSNR.
 
 Prints a JSON line of per-kernel numbers, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -52,6 +64,7 @@ text2nerf_tpu_torch package beside it.
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -96,7 +109,20 @@ TOL = {
     # adaptive vs untruncated: the acc-gate lets a saturated ray drop up
     # to acc_tol = 1e-3 of tail, rays past the top rung keep its truncation
     "max_dev": 1e-2,
+    # the seed view rendered from the reloaded final checkpoint vs the
+    # trainer's logged eval (dB): the same field and mask, the adaptive
+    # renderer's base rung chosen afresh
+    "reload_psnr": 0.01,
 }
+SEED_FIT_HW = (512, 512)
+SEED_FIT_EPOCHS = (2, 1)  # n_stage1, n_stage3
+SEED_FIT_VOXELS = (150 ** 3, 27_000_000)  # n_voxel_init, n_voxel_final
+SEED_FIT_UPSAMPLE, SEED_FIT_ALPHA_MASK = 10, 30  # global steps, inside stage 1
+# stage 3's compacted steps: K covering every sample of the march, from the
+# first live one, all of them shaded (one fused pass of kernel A and A'):
+# the trainer's default depth-anchored window collapses a 2-epoch field, the
+# JAX trainer's as the port's (PERF.md, PR 5)
+SEED_FIT_COMPACT = dict(train_compact_k=256, app_k=256, train_depth_cap_band=0)
 
 
 def _require(cond, msg):
@@ -802,6 +828,219 @@ def phase_train(dev, card, report):
             "train_psnr_first": psnr[0], "train_psnr_last": psnr[1]}
 
 
+class _StepProbe:
+    """Wraps ``train_step.make_train_step`` for the seed fit: each step the
+    trainer builds is timed on the host clock between device syncs (the
+    step alone, and end to end from the previous step's end, the sampler
+    and the batch copy included), its kernel launches are counted by kind
+    (dense: no mask; compact: a stamped mask), and one dense step, end to
+    end, runs under torch.profiler for the device's busy share."""
+
+    PROFILED_DENSE = 20  # the dense step profiled, counted from 1 (past the upsample)
+
+    def __init__(self, ts, ff):
+        self.ts, self.ff, self.make0 = ts, ff, ts.make_train_step
+        self.ms = {"dense": [], "compact": []}
+        self.loop_ms = {"dense": [], "compact": []}
+        self.modes = {"dense": {}, "compact": {}}
+        self.routes = {"dense": {}, "compact": {}}
+        self.fwd = {"dense": 0, "compact": 0}
+        self.busy = None
+        self._last_end = None
+        self._prof = None
+
+    def __enter__(self):
+        self.ts.make_train_step = self.make_step
+        return self
+
+    def __exit__(self, *exc):
+        self.ts.make_train_step = self.make0
+        if self._prof is not None:
+            self._prof.stop()
+
+    def make_step(self, mcfg, opt, **kw):
+        import torch
+
+        step = self.make0(mcfg, opt, **kw)
+        ff = self.ff
+
+        def probed(state, aabb, batch, rng=None, tv_decay=None, alpha_mask=None, lr_decay=1.0):
+            kind = "compact" if alpha_mask is not None and kw["compact_k"] > 0 else "dense"
+            modes0, routes0, fwd0 = dict(ff.BWD_MODES), dict(ff.BWD_ROUTES), ff.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, aabb, batch, rng, tv_decay, alpha_mask=alpha_mask,
+                       lr_decay=lr_decay)
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+            self.ms[kind].append((end - t0) * 1e3)
+            if self._last_end is not None:
+                self.loop_ms[kind].append((end - self._last_end) * 1e3)
+            for acc, now, before in ((self.modes[kind], ff.BWD_MODES, modes0),
+                                     (self.routes[kind], ff.BWD_ROUTES, routes0)):
+                for k in now:
+                    acc[k] = acc.get(k, 0) + now[k] - before[k]
+            self.fwd[kind] += ff.LAUNCHES - fwd0
+            n_dense = len(self.ms["dense"])
+            if self._prof is not None:
+                self._prof.stop()
+                self.busy = (_busy_ms(self._prof.events()), (end - self._last_end) * 1e3)
+                self._prof = None
+            elif kind == "dense" and n_dense == self.PROFILED_DENSE - 1:
+                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                self._prof = torch.profiler.profile(activities=acts)
+                self._prof.start()
+            self._last_end = time.perf_counter()
+            return out
+
+        return probed
+
+
+def _busy_ms(events):
+    """Device ms of every kernel, copy and memset the profiler recorded."""
+    from torch.autograd import DeviceType
+
+    return sum(e.time_range.end - e.time_range.start for e in events
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+               and not e.name.startswith(("t2n.", "Optimizer."))) / 1e3
+
+
+def _median(xs):
+    import numpy as np
+
+    return float(np.median(xs)) if xs else float("nan")
+
+
+def phase_seed_fit(dev, card, report, workdir):
+    """The seed fit through trainer.reconstruction at full width (see the
+    module docstring), then the final checkpoint reloaded and its render of
+    the seed view held to the logged PSNR."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch.data import scene_state as ss
+    from text2nerf_tpu_torch.engine import checkpoints as ckpt
+    from text2nerf_tpu_torch.engine import renderer, trainer
+    from text2nerf_tpu_torch.engine import train_step as ts
+    from text2nerf_tpu_torch.models import tensorf as tf
+    from text2nerf_tpu_torch.ops.kernels import factor_features as ff
+    from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
+
+    scene_cfg = ss.SceneConfig(
+        datadir=f"{workdir}/scene", prompt="a beautiful garden with flowers",
+        pose_traj="local_fixed", num_training=1, hw=SEED_FIT_HW,
+    )
+    cfg = trainer.TrainConfig(
+        expname="seed", basedir=f"{workdir}/log", n_stage1=SEED_FIT_EPOCHS[0], n_stage2=0,
+        n_stage3=SEED_FIT_EPOCHS[1], batch_size=N_RAYS_TRAIN,
+        eval_every_epochs=sum(SEED_FIT_EPOCHS), seed=11,
+        n_voxel_init=SEED_FIT_VOXELS[0], n_voxel_final=SEED_FIT_VOXELS[1],
+        upsamp_list=(SEED_FIT_UPSAMPLE,), update_alphamask_list=(SEED_FIT_ALPHA_MASK,),
+        eval_mask_pool=5, **SEED_FIT_COMPACT,
+    )
+    _require(cfg.model == tf.TensoRFConfig(), "the seed fit is not at the full model width")
+    print(f"seed fit: hw {SEED_FIT_HW}, epochs {SEED_FIT_EPOCHS}, grid {SEED_FIT_VOXELS[0]} -> "
+          f"{SEED_FIT_VOXELS[1]} voxels at step {SEED_FIT_UPSAMPLE}, alpha mask and shrink at "
+          f"step {SEED_FIT_ALPHA_MASK}, batch {cfg.batch_size}, eval mask pool "
+          f"{cfg.eval_mask_pool}, stage 3 {SEED_FIT_COMPACT}", flush=True)
+    torch.cuda.synchronize()
+    ff.LAUNCHES = ff.BWD_LAUNCHES = sm.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with _StepProbe(ts, ff) as probe:
+        mcfg, field, aabb, scene, logfolder = trainer.reconstruction(cfg, scene_cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"factor_features": ff.LAUNCHES, "factor_features_bwd": ff.BWD_LAUNCHES,
+                "shading_mlp": sm.LAUNCHES}
+    print(f"seed fit launches {launches}; wall {wall:.3f} s on {card}", flush=True)
+    for name, count in launches.items():
+        _require(count > 0, f"{name} was not launched on the seed fit")
+        report[name]["launches"] = report[name].get("launches", 0) + count
+        report[name].setdefault("launches_by_path", {})["seed_fit"] = count
+
+    rows = [json.loads(line) for line in open(f"{logfolder}/metrics.jsonl")]
+    for row in rows:
+        for k, v in row.items():
+            if k.startswith("phase/"):
+                print(f"  {k} {v:.4f}", flush=True)
+    logged = {k: (row["step"], v) for row in rows for k, v in row.items()
+              if k not in ("step", "t", "eval_psnr") and not k.startswith("phase/")}
+    evals = [(row["step"], row["eval_psnr"]) for row in rows if "eval_psnr" in row]
+    pool, up, shrink = logged["pool_rays"][1], logged.get("upsample_grid"), logged.get("shrink_aabb")
+    print(f"pool {pool} rays, {logged['iters_per_epoch'][1]} steps an epoch; grid "
+          f"{logged['grid'][1]} -> {up} at step {up and up[0]}; aabb {scene.scene_bbox.tolist()} -> "
+          f"{shrink} at step {shrink and shrink[0]}, grid {logged.get('shrink_grid')}; pool after "
+          f"the mask {logged.get('alpha_mask_pool_rays')}", flush=True)
+    _require(up is not None and up[0] == SEED_FIT_UPSAMPLE, f"upsample did not fire: {up}")
+    _require(shrink is not None and shrink[0] == SEED_FIT_ALPHA_MASK, f"shrink did not fire: {shrink}")
+    want_up = tf.n_to_reso(SEED_FIT_VOXELS[1], scene.scene_bbox)
+    _require(tuple(up[1]) == want_up, f"upsampled grid {up[1]} is not n_to_reso's {want_up}")
+    grid = tf.grid_resolution(field)
+    _require(tuple(logged["shrink_grid"][1]) == grid, f"final grid {grid} is not the shrunk one")
+    _require(np.allclose(aabb.cpu().numpy(), np.asarray(shrink[1])), "final aabb is not the shrunk one")
+
+    for kind in ("dense", "compact"):
+        print(f"{kind} steps: {len(probe.ms[kind])}, step alone median "
+              f"{_median(probe.ms[kind]):.2f} ms (min {min(probe.ms[kind], default=0):.2f}), end "
+              f"to end median {_median(probe.loop_ms[kind]):.2f} ms; kernel A launches "
+              f"{probe.fwd[kind]}, A' by mode {probe.modes[kind]}, by route "
+              f"{probe.routes[kind]}", flush=True)
+    _require(probe.modes["compact"].get("fused", 0) > 0,
+             f"stage 3 did not run kernel A' in fused mode: {probe.modes}")
+    _require(probe.modes["dense"].get("density", 0) > 0 and probe.modes["dense"].get("app", 0) > 0,
+             f"stage 1 did not run kernel A' in both dense modes: {probe.modes}")
+    if probe.busy is None:
+        print("profiled dense step: not measured", flush=True)
+    else:
+        busy, wall_step = probe.busy
+        print(f"profiled dense step (end to end): {wall_step:.2f} ms wall, device busy "
+              f"{busy:.2f} ms, idle share {1 - busy / wall_step:.3f}", flush=True)
+
+    # the untrained field the fit started from, upsampled as the fit did
+    h, w = scene.hw
+    z_floor = ss.supervised_z_floor(scene)
+    gt = scene.rgbs_gen_split
+    eval_kw = dict(chunk=cfg.batch_size, app_k=cfg.app_k, white_bg=scene.white_bg,
+                   push_depth=scene_cfg.push_depth, near_far=scene.near_far,
+                   eval_z_min=z_floor, device=dev)
+    _, f0, _, _ = trainer.init_field(cfg, scene, device=dev)
+    f0 = tf.upsample_volume_grid(f0, want_up).requires_grad_(False)
+    psnr0 = renderer.evaluation(
+        f0, torch.as_tensor(scene.scene_bbox, device=dev), scene.rays_gen_split[:1], (h, w),
+        gt_rgbs=gt, n_samples=tf.default_n_samples(want_up, f0.cfg.step_ratio), **eval_kw,
+    )["psnr"][0]
+    del f0
+    _require(len(evals) == 2 and all(np.isfinite(p) for _, p in evals),
+             f"eval PSNRs at the stage-1 boundary and the end: {evals}")
+    final = evals[-1][1]
+    print(f"eval PSNR of the seed view: untrained (upsampled) {psnr0:.4f} dB, stage-1 boundary "
+          f"{evals[0][1]:.4f} dB (step {evals[0][0]}), end {final:.4f} dB (step {evals[1][0]})",
+          flush=True)
+    _require(final >= psnr0 + 5.0, f"final PSNR {final} is not 5 dB above the untrained {psnr0}")
+
+    # the final checkpoint, reloaded, renders the seed view as logged
+    _, f1, aabb1, mask1, loop = ckpt.load_checkpoint(f"{logfolder}/{cfg.expname}_final.npz",
+                                                     device=dev)
+    f1.requires_grad_(False)
+    _require(mask1 is not None and mask1["pool"] == cfg.eval_mask_pool,
+             "the final checkpoint holds no pool-5 mask")
+    res = renderer.evaluation(
+        f1, aabb1, scene.rays_gen_split[:1], (h, w), gt_rgbs=gt,
+        n_samples=logged["n_samples"][1],  # the trainer's, set at the upsample
+        alpha_mask=mask1, compact_k=cfg.eval_compact_k, **eval_kw)
+    reload_psnr = res["psnr"][0]
+    print(f"reloaded checkpoint (step {loop['global_step']}): {reload_psnr:.4f} dB vs logged "
+          f"{final:.4f} dB", flush=True)
+    _require(abs(reload_psnr - final) <= TOL["reload_psnr"],
+             f"reloaded render {reload_psnr} differs from the logged {final}")
+    return {"seed_fit_wall_s": wall, "seed_fit_pool_rays": pool,
+            "seed_fit_psnr_untrained": psnr0, "seed_fit_psnr_stage1": evals[0][1],
+            "seed_fit_psnr_final": final, "seed_fit_psnr_reloaded": reload_psnr,
+            "seed_fit_dense_ms": _median(probe.ms["dense"]),
+            "seed_fit_compact_ms": _median(probe.ms["compact"]),
+            "seed_fit_dense_loop_ms": _median(probe.loop_ms["dense"]),
+            "seed_fit_compact_loop_ms": _median(probe.loop_ms["compact"])}
+
+
 def main():
     import os
 
@@ -840,7 +1079,13 @@ def main():
         for f in os.listdir(workdir):
             os.remove(os.path.join(workdir, f))
     train = phase_train(dev, card, report)
-    print(json.dumps({"rays_per_s": rays_s, "max_dev": max_dev, **train, "card": card}),
+    seed_dir = _build.BUILD_DIR / "seed_fit"
+    shutil.rmtree(seed_dir, ignore_errors=True)
+    try:
+        seed = phase_seed_fit(dev, card, report, str(seed_dir))
+    finally:
+        shutil.rmtree(seed_dir, ignore_errors=True)
+    print(json.dumps({"rays_per_s": rays_s, "max_dev": max_dev, **train, **seed, "card": card}),
           flush=True)
     kernels = [report[k] for k in ("factor_features", "shading_mlp", "factor_features_bwd")]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -409,3 +409,58 @@ def test_cuda_calls_never_reach_the_plain_versions(cuda, monkeypatch):
         _, metrics = step(state, aabb, batch, alpha_mask=m)
         assert bool(torch.isfinite(metrics["mse"]))
     assert ff.BWD_LAUNCHES >= before + 3  # compacted (fused), dense (density, app)
+
+
+def test_native_bilateral_filter_builds_and_runs(cuda):
+    # the seed fit's host filter, built with g++ from the port's own copy
+    # of its source into the package's build directory
+    from pathlib import Path
+
+    from text2nerf_tpu_torch import native
+    from text2nerf_tpu_torch.ops import filters
+    from text2nerf_tpu_torch.ops.kernels import _build
+
+    pkg = Path(filters.__file__).resolve().parents[1]
+    assert native.SOURCE.parent == pkg / "native"
+    rng = np.random.default_rng(0)
+    depth = (2.0 + 0.01 * rng.random((48, 40))).astype(np.float32)
+    depth[10:30, 5:20] += 2.0  # a step: the filter works along its edges
+    img = rng.random((48, 40, 3)).astype(np.float32)
+    out_img, out_depth = filters.sparse_bilateral_filtering(depth, img)
+    assert _build.hashed_path("host_ops", [native.SOURCE], native.GXX_FLAGS).exists()
+    assert out_img.dtype == out_depth.dtype == np.float32
+    assert out_img.shape == img.shape and out_depth.shape == depth.shape
+    changed = np.abs(out_img - img).max(-1) > 0
+    # the step's edges change; an interior patch far from them does not (the
+    # filter replaces the border ring by its neighbours)
+    assert changed[8:32, 3:22].any() and not changed[40:47, 30:39].any()
+    again = filters.sparse_bilateral_filtering(depth, img)
+    assert np.array_equal(again[0], out_img) and np.array_equal(again[1], out_depth)
+
+
+def test_support_warp_on_the_card_matches_the_cpu(cuda):
+    # index_put_(accumulate=True) adds in a run-to-run order on the card:
+    # coverage masks exact, the uint8-rounded image within one level, the
+    # depths within rounding
+    from text2nerf_tpu_torch.data import trajectories as traj
+    from text2nerf_tpu_torch.data.io import depth_process
+    from text2nerf_tpu_torch.ops import splat
+    from text2nerf_tpu_torch.services import fallbacks
+
+    h = w = 64
+    img = fallbacks.procedural_text2img("a card test", hw=(h, w))
+    depth = depth_process(fallbacks.procedural_depth(img))
+    poses = traj.local_fixed_poses(np.eye(4), angle=0.2, range_center=0.2, range_yaw=0.6,
+                                   range_pitch=0.2)
+    intr = PR.default_intrinsics(h, w)
+    outs = []
+    for dev in (cuda, "cpu"):
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+        outs.append([x.cpu() for x in splat.warp_one_to_many(t(img), t(depth), t(poses[0]),
+                                                            t(poses[1:]), intr)])
+    (rgb_g, m_g, d_g), (rgb_c, m_c, d_c) = outs
+    assert torch.equal(m_g, m_c) and 0.3 < float(m_c.float().mean()) < 1.0
+    assert float((rgb_g - rgb_c).abs().max()) <= 1.0 / 255 + 1e-6
+    assert float(((d_g - d_c).abs() / d_c.abs().clamp(min=1e-6)).max()) <= 1e-5

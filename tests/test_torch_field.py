@@ -116,8 +116,10 @@ def test_trajectory_matches_jax(kind):
         got = ptraj.camera_trajectory(40, kind, radius=0.3, pose_ref=ref)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        ptraj.test_trajectory("local_fixed", ref, angle=0.2, trans_range=0.2)
+    # the local trajectories are ported too (slice 5)
+    np.testing.assert_array_equal(
+        ptraj.test_trajectory("local_fixed", ref, angle=0.2, trans_range=0.2),
+        traj.test_trajectory("local_fixed", ref, angle=0.2, trans_range=0.2))
 
 
 def test_metrics_match_jax():

@@ -1,6 +1,7 @@
 """Camera trajectories (port of the part of
-``text2nerf_tpu/data/trajectories.py`` that ``test_trajectory("circle0",
-...)`` reaches).
+``text2nerf_tpu/data/trajectories.py`` that ``training_trajectory`` and
+``test_trajectory`` reach: the local support sets, the global paths and
+the local test spiral).
 
 Host-side numpy.  The camera looks along +z with +y up and +x right; a
 pose is a 4x4 camera-to-world matrix.
@@ -46,6 +47,112 @@ def rot_z(theta):
 def euler_to_rotation(theta):
     """Rz(t2) @ Ry(t1) @ Rx(t0)."""
     return rot_z(theta[2]) @ rot_y(theta[1]) @ rot_x(theta[0])
+
+
+# ---------------------------------------------------------------------------
+# Local pose sets (support views around a basis pose)
+# ---------------------------------------------------------------------------
+
+_DIRS8 = ("R", "UR", "U", "UL", "L", "DL", "D", "DR")
+
+
+def _compass_vectors(range_center, range_yaw, range_pitch, half_vertical=False):
+    v = range_center / 2 if half_vertical else range_center
+    rotvecs = {
+        "R": np.array([0, range_yaw, 0]),
+        "L": np.array([0, -range_yaw, 0]),
+        "U": np.array([range_pitch, 0, 0]),
+        "D": np.array([-range_pitch, 0, 0]),
+        "UR": np.array([range_pitch / 2, range_yaw / 2, 0]),
+        "UL": np.array([range_pitch / 2, -range_yaw / 2, 0]),
+        "DR": np.array([-range_pitch / 2, range_yaw / 2, 0]),
+        "DL": np.array([-range_pitch / 2, -range_yaw / 2, 0]),
+    }
+    posivecs = {
+        "R": np.array([range_center, 0, 0]),
+        "L": np.array([-range_center, 0, 0]),
+        "U": np.array([0, -v, 0]),
+        "D": np.array([0, v, 0]),
+        "UR": np.array([range_center, -v, 0]),
+        "UL": np.array([-range_center, -v, 0]),
+        "DR": np.array([range_center, v, 0]),
+        "DL": np.array([-range_center, v, 0]),
+    }
+    return rotvecs, posivecs
+
+
+def local_fixed_poses(
+    c2w_basis,
+    angle=0.3,
+    range_center=0.2,
+    range_yaw=0.6,
+    range_pitch=0.3,
+    use_rand=False,
+    angle_rand=0.05,
+    posi_rand=0.05,
+    rng=None,
+):
+    """9 poses: the basis and 8 compass directions with yaw/pitch and
+    translation (the default support-pose set)."""
+    rotvecs, posivecs = _compass_vectors(range_center, range_yaw, range_pitch)
+    rng = rng or np.random.default_rng(0)
+    poses = [np.asarray(c2w_basis, dtype=np.float64)]
+    for d in _DIRS8:
+        rot = rotvecs[d] * angle / np.linalg.norm(rotvecs[d])
+        posi = posivecs[d].astype(np.float64)
+        if use_rand:
+            rot = rot + 0.5 * angle_rand * (rng.random(3) * 2 - 1) / 180 * np.pi
+            posi = posi + 0.5 * posi_rand * (rng.random(3) * 2 - 1)
+        c2w = np.eye(4)
+        c2w[:3, :3] = euler_to_rotation(rot) @ c2w_basis[:3, :3]
+        c2w[:3, 3] = posi + c2w_basis[:3, 3]
+        poses.append(c2w)
+    return np.stack(poses).astype(np.float32)
+
+
+def local_orbit_poses(c2w_basis, range_center=0.2):
+    """9 look-at poses orbiting a far pivot."""
+    focal = 6.0
+    up = normalize(c2w_basis[:3, 1])
+    center = c2w_basis[:3, 3]
+    origin = center - focal * c2w_basis[:3, 2]
+    _, posivecs = _compass_vectors(range_center, 0.0, 0.0)
+    poses = [np.asarray(c2w_basis, dtype=np.float64)]
+    for d in _DIRS8:
+        c0 = posivecs[d] + c2w_basis[:3, 3]
+        z = normalize(c0 - origin)
+        c = focal * z + origin
+        poses.append(viewmatrix(z, up, c))
+    return np.stack(poses).astype(np.float32)
+
+
+def r2l_poses(c2w_basis, range_center=0.2, num_frame=None):
+    """Right-to-left sweep: with ``num_frame=None`` 5 poses (basis, R, RR,
+    L, LL), else an out-and-back horizontal sweep of ``num_frame`` poses."""
+    poses = []
+    if num_frame is None:
+        poses.append(np.asarray(c2w_basis, dtype=np.float64))
+        for k in (1.0, 2.0, -1.0, -2.0):
+            c2w = np.eye(4)
+            c2w[:3, :3] = c2w_basis[:3, :3]
+            c2w[:3, 3] = np.array([k * range_center, 0, 0]) + c2w_basis[:3, 3]
+            poses.append(c2w)
+    else:
+        half = int(num_frame / 2)
+        xs = list(np.linspace(2 * range_center, -2 * range_center, half)) + list(
+            np.linspace(-2 * range_center, 2 * range_center, half)
+        )
+        for x in xs:
+            c2w = np.eye(4)
+            c2w[:3, :3] = c2w_basis[:3, :3]
+            c2w[:3, 3] = np.array([x, 0, 0.0]) + c2w_basis[:3, 3]
+            poses.append(c2w)
+    return np.stack(poses).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Global trajectories (training pose paths)
+# ---------------------------------------------------------------------------
 
 
 def camera_trajectory(
@@ -173,17 +280,93 @@ def camera_trajectory(
     return np.stack(poses)
 
 
-def test_trajectory(pose_traj, poses0, angle, trans_range, n_local=120, n_global=360):
-    """Evaluation/video trajectory selection rule.  The local trajectories
-    (``local_*``) are not ported yet."""
-    if pose_traj.startswith("local_"):
-        raise NotImplementedError(
-            f"test_trajectory({pose_traj!r}) is not ported yet"
+def double_circle_poses(c2w, n_views, random_sample=False, rng=None):
+    """Two concentric look-at circles at 15/30 deg half-angle."""
+    rng = rng or np.random.default_rng(0)
+    focal = np.linalg.norm(c2w[:3, 3])
+    if focal <= 0.01:
+        focal = 0.2
+    up = normalize(c2w[:3, 1])
+    center = c2w[:3, 3]
+    origin = center - focal * c2w[:3, 2]
+    n1 = (n_views - 1) // 2
+    n2 = n_views - 1 - n1
+    poses = [np.asarray(c2w, dtype=np.float64)]
+    for angle_h, n in ((15, n1), (30, n2)):
+        alphas = np.linspace(0, 360, n + 1)[:-1]
+        f_delta = (
+            0.05 * focal * (rng.random(n) * 2 - 1) if random_sample else np.zeros(n)
         )
+        r = focal * np.sin(angle_h / 180 * np.pi)
+        b = center - focal * (1 - np.cos(angle_h / 180 * np.pi)) * normalize(
+            c2w[:3, 2]
+        )
+        for i, alpha in enumerate(alphas):
+            a = alpha / 180 * np.pi
+            c = b + r * (normalize(c2w[:3, 0]) * np.cos(a) - up * np.sin(a))
+            z = normalize(c - origin)
+            c = c + f_delta[i] * z
+            poses.append(viewmatrix(z, up, c))
+    return np.stack(poses)
+
+
+def circle_spiral_poses(
+    c2w, n_views=100, n_r=1, angle_h_start=0.2, trans_start=0.1, use_rand=False, rng=None
+):
+    """Forward-shifted spiral: the local test and video path."""
+    rng = rng or np.random.default_rng(0)
+    up = normalize(c2w[:3, 1])
+    center = c2w[:3, 3]
+    center0 = c2w[:3, 3] + 0.1 * normalize(c2w[:3, 2])
+    poses = []
+    alphas = np.linspace(0, 360 * n_r, n_views)
+    posi_rand = 0.02 * (rng.random(3) * 2 - 1) if use_rand else np.zeros(3)
+    for alpha in alphas:
+        a = alpha / 180 * np.pi
+        c = center0 + trans_start * (
+            normalize(c2w[:3, 0]) * np.cos(a) - up * np.sin(a)
+        )
+        z = normalize(
+            normalize(c2w[:3, 2]) + normalize(c - center) * np.sin(angle_h_start)
+        )
+        poses.append(viewmatrix(z, up, c + posi_rand))
+    return np.stack(poses)
+
+
+def test_trajectory(pose_traj, poses0, angle, trans_range, n_local=120, n_global=360):
+    """Evaluation/video trajectory selection rule."""
+    if pose_traj in ("local_fixed", "local_double", "local_circle"):
+        return circle_spiral_poses(
+            poses0, n_views=n_local, n_r=1, angle_h_start=angle - 0.03,
+            trans_start=trans_range,
+        )
+    if pose_traj == "local_r2l":
+        return r2l_poses(poses0, range_center=trans_range, num_frame=n_local)
     if pose_traj == "circle0":
         pose_traj = "circle"
     elif pose_traj.startswith("circle0_"):
         pose_traj = "circle_" + pose_traj.split("_")[-1]
     return camera_trajectory(
         n_global, traj_type=pose_traj, radius=trans_range, pose_ref=poses0
+    )
+
+
+def training_trajectory(pose_traj, num_training, angle, trans_range, pose_ref=None):
+    """Training pose selection rule."""
+    if pose_ref is None:
+        pose_ref = np.eye(4)
+    if pose_traj == "local_fixed":
+        return local_fixed_poses(
+            pose_ref, angle=angle, range_center=trans_range,
+            range_yaw=0.6, range_pitch=0.2,
+        )
+    if pose_traj == "local_double":
+        return double_circle_poses(pose_ref, num_training, random_sample=True)
+    if pose_traj == "local_circle":
+        return local_orbit_poses(pose_ref, range_center=trans_range)
+    if pose_traj == "local_r2l":
+        return r2l_poses(pose_ref, range_center=trans_range, num_frame=None)
+    return camera_trajectory(
+        num_training, traj_type=pose_traj, random_sample=False,
+        radius=trans_range, pose_ref=pose_ref, for_training=True,
     )

@@ -1,8 +1,11 @@
-"""Rendering views and camera paths of a field (port of ``render_view`` and
-``evaluation_path`` from ``text2nerf_tpu/engine/renderer.py``).
+"""Rendering and evaluating views of a field (port of ``render_view``,
+``evaluation``, ``evaluation_path`` and ``write_video`` from
+``text2nerf_tpu/engine/renderer.py``).
 
-With ``save_path`` the frames are written as PNGs (imageio, imported only
-then).  Video writing is not ported yet.
+Frames are written as PNGs through :mod:`..utils.png` (no image library
+needed).  Videos go through imageio (mp4, else GIF) or PIL (MJPEG AVI);
+when neither can be imported, :func:`write_video` raises and names them.
+SSIM and LPIPS are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +18,38 @@ import torch
 from ..device import resolve_device
 from ..ops import rays as ray_ops
 from ..ops import render as render_ops
+from ..utils.png import write_png
 from . import metrics as M
+
+
+def write_video(path: str, frames, fps: int = 30, quality: int = 9) -> str:
+    """Write ``frames`` as an mp4 through imageio, else as an MJPEG AVI
+    (PIL's JPEG encoder), else as an animated GIF through imageio.
+    Returns the path written; raises when no encoder can be imported."""
+    missing = []
+    try:
+        import imageio.v2 as imageio
+    except ImportError as e:
+        imageio = None
+        missing.append(f"imageio (mp4, GIF): {e}")
+    if imageio is not None:
+        try:
+            imageio.mimwrite(path, np.stack(frames), fps=fps, quality=quality)
+            return path
+        except (ValueError, RuntimeError, OSError):  # no ffmpeg backend
+            pass
+    try:
+        from ..utils.mjpeg_avi import write_mjpeg_avi
+
+        return write_mjpeg_avi(os.path.splitext(path)[0] + ".avi", frames, fps=fps,
+                               quality=quality)
+    except ImportError as e:
+        missing.append(f"PIL (MJPEG AVI): {e}")
+    if imageio is not None:
+        gif = os.path.splitext(path)[0] + ".gif"
+        imageio.mimwrite(gif, np.stack(frames), duration=1000.0 / fps)
+        return gif
+    raise RuntimeError(f"no video encoder can be imported for {path}: " + "; ".join(missing))
 
 
 def render_view(
@@ -39,6 +73,58 @@ def render_view(
     return rgb, depth
 
 
+def evaluation(
+    field, aabb, rays_split, hw, *, n_samples, gt_rgbs=None, save_path=None,
+    prefix: str = "", chunk: int = 16384, app_k: int = 64, white_bg: bool = True,
+    ndc: bool = False, compute_extra_metrics: bool = False, video: bool = False,
+    push_depth: float = 2.0, near_far=(0.5, 8.0), alpha_mask=None, compact_k: int = 0,
+    eval_z_min: float = 2.0, n_vis: int = -1, feature_dtype: str = "fp32",
+    k_ladder=render_ops.ADAPTIVE_EVAL_LADDER, device=None,
+):
+    """Render a stack of views (``rays_split`` (V, H*W, 6)), PSNR against
+    ``gt_rgbs`` where given, and optionally PNGs (``save_path/rgbs``,
+    ``save_path/depths``) and videos.
+
+    The depth visualization shifts depth by ``-push_depth + 0.8``; with
+    ``n_vis > 0`` only every ``len(views) // n_vis``-th view is rendered.
+    Features default to fp32: these renders carry the reported PSNR.
+    Returns {'psnr': [...], 'rgb': [uint8 frames], 'depth': [depth-vis
+    frames]}.  ``compute_extra_metrics`` (SSIM, LPIPS) is not ported."""
+    dev = resolve_device(device)
+    if compute_extra_metrics:
+        raise NotImplementedError("SSIM and LPIPS are not ported yet")
+    psnrs, rgb_maps, depth_maps = [], [], []
+    if save_path:
+        os.makedirs(os.path.join(save_path, "rgbs"), exist_ok=True)
+        os.makedirs(os.path.join(save_path, "depths"), exist_ok=True)
+
+    n_views = len(rays_split)
+    interval = 1 if n_vis < 0 else max(n_views // n_vis, 1)
+    for idx in range(0, n_views, interval):
+        rgb, depth = render_view(
+            field, aabb, rays_split[idx], hw, n_samples=n_samples, chunk=chunk,
+            app_k=app_k, white_bg=white_bg, ndc=ndc, alpha_mask=alpha_mask,
+            compact_k=compact_k, eval_z_min=eval_z_min, feature_dtype=feature_dtype,
+            k_ladder=k_ladder, device=dev,
+        )
+        depth_vis, _ = M.visualize_depth(np.maximum(depth - push_depth + 0.8, 0), near_far)
+        if gt_rgbs is not None:
+            gt = np.asarray(gt_rgbs[idx]).reshape(hw[0], hw[1], 3)
+            psnrs.append(M.psnr(rgb, gt))
+        rgb_maps.append((rgb * 255).astype(np.uint8))
+        depth_maps.append(depth_vis)
+        if save_path:
+            write_png(os.path.join(save_path, "rgbs", f"{prefix}{idx:03d}_rgb.png"),
+                      rgb_maps[-1])
+            write_png(os.path.join(save_path, "depths", f"{prefix}{idx:03d}_depth.png"),
+                      depth_vis)
+
+    if video and save_path:
+        write_video(os.path.join(save_path, f"{prefix}video.mp4"), rgb_maps)
+        write_video(os.path.join(save_path, f"{prefix}depthvideo.mp4"), depth_maps)
+    return {"psnr": psnrs, "rgb": rgb_maps, "depth": depth_maps}
+
+
 def evaluation_path(
     field, aabb, c2ws, hw, intrinsic, *, n_samples, save_path=None,
     chunk: int = 8192, app_k: int = 64, white_bg: bool = False, ndc: bool = False,
@@ -48,7 +134,8 @@ def evaluation_path(
 ):
     """Render along a camera path, generating rays per pose.  Pass
     ``alpha_mask`` (and ``compact_k``; -1 is the adaptive renderer) for
-    the mask's culling.  Returns (rgb uint8 frames, depth-vis frames)."""
+    the mask's culling.  With ``save_path``, PNG frames and the two
+    videos.  Returns (rgb uint8 frames, depth-vis frames)."""
     dev = resolve_device(device)
     h, w = hw
     fx, fy, cx, cy = intrinsic
@@ -68,12 +155,11 @@ def evaluation_path(
         rgb_maps.append((rgb * 255).astype(np.uint8))
         depth_maps.append(depth_vis)
         if save_path:
-            import imageio.v2 as imageio
-
             os.makedirs(os.path.join(save_path, "rgbd"), exist_ok=True)
-            imageio.imwrite(os.path.join(save_path, f"{idx:03d}.png"), rgb_maps[-1])
-            imageio.imwrite(
-                os.path.join(save_path, "rgbd", f"{idx:03d}.png"),
-                np.concatenate([rgb_maps[-1], depth_vis], axis=1),
-            )
+            write_png(os.path.join(save_path, f"{idx:03d}.png"), rgb_maps[-1])
+            write_png(os.path.join(save_path, "rgbd", f"{idx:03d}.png"),
+                      np.concatenate([rgb_maps[-1], depth_vis], axis=1))
+    if save_path:
+        write_video(os.path.join(save_path, "video.mp4"), rgb_maps, quality=8)
+        write_video(os.path.join(save_path, "depthvideo.mp4"), depth_maps, quality=8)
     return rgb_maps, depth_maps

@@ -1,25 +1,65 @@
-"""How the trainer builds its train step (the step-building part of
-``text2nerf_tpu/engine/trainer.py``).
+"""The trainer (port of ``text2nerf_tpu/engine/trainer.py``): the stage-1
+seed fit through :func:`reconstruction`, and the render-only entry
+:func:`render_test`.
 
-:class:`TrainConfig` holds the fields the step is built from, with the
-JAX package's defaults; :func:`_resolve_group`, :func:`_initial_loss_weights`
-and :func:`_step_kwargs` turn it into ``make_train_step`` keyword
-arguments exactly as the JAX trainer does.  The progressive
-reconstruction loop, the scene state and the filters are not ported yet.
+:func:`reconstruction` bootstraps the scene (the seed RGBD and its warped
+support set), then trains the field: stage 1 (``n_stage1`` epochs over
+the support pool, dense train steps) and stage 3 (``n_stage3`` more
+epochs, compacted train steps once a stage boundary has built a mask the
+group-strided occupancy test may use).  Inside the epochs the
+coarse-to-fine milestones (``upsamp_list``) resize the grid and the first
+``update_alphamask_list`` milestone shrinks the AABB; every milestone
+refilters the pool through a fresh alpha mask.  Stage boundaries rebuild
+the mask and evaluate the support views and the seed view; the end
+writes the final mask and checkpoint and the optional train, test and
+path renders.
+
+Left out of this slice, each raising ``NotImplementedError`` before any
+work: scene expansion (``n_stage2 > 0`` with more than one trajectory
+view), ``resume`` (scene snapshots), ``checkpoint_backend="orbax"``,
+``ndc_ray`` and the bf16 train step.
+
+The JAX trainer overlaps the first train step's XLA compile with the
+bootstrap in a warm-up thread that swallows its failures.  PyTorch
+compiles nothing ahead of a step (the CUDA kernels are built once per
+checkout, at first launch), so there is nothing to overlap: no thread.
+
+Randomness: the initial field draws from a ``torch.Generator`` seeded
+with ``cfg.seed``; the steps' jitter and background coins from another,
+seeded likewise, on the step's device.  The JAX key stream is not
+reproduced; the samplers (numpy, seeded as in JAX) give the same ids.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Optional, Tuple
 
+import numpy as np
+import torch
+
+from ..data import io as scene_io
+from ..data import scene_state as ss
+from ..data import trajectories as traj
+from ..device import as_tensor, resolve_device
 from ..models import tensorf as tf
+from ..ops import render as render_ops
+from ..services.registry import Services, default_services
+from . import checkpoints as ckpt
+from . import renderer as eval_renderer
 from . import train_step as ts
+from .tracing import MetricsLogger, phase_timer
 
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The train-step fields of the JAX ``TrainConfig`` and their defaults."""
+    """The training-schedule flags, with the JAX package's defaults."""
 
+    expname: str = "exp"
+    basedir: str = "./log"
+    n_stage1: int = 50
+    n_stage2: int = 50
     batch_size: int = 16384
     lr_init: float = 0.02
     lr_basis: float = 1e-3
@@ -29,9 +69,30 @@ class TrainConfig:
     tv_weight_app: float = 0.01
     l1_weight: float = 0.0
     ortho_weight: float = 0.0
+    n_voxel_init: int = 27_000_000
+    n_samples_cap: int = 10 ** 6
     app_k: int = 64
     ndc_ray: bool = False
+    eval_every_epochs: int = 50
+    ckpt: Optional[str] = None
+    render_test: bool = False
+    render_path: bool = False
+    render_train: bool = False
+    n_stage3: int = 10
+    n_vis: int = -1
+    # boundary preview renders of the support views
+    vis_support_views: bool = True
+    progress_refresh_rate: int = 50
+    # L1 weight after the first alpha-mask update
+    l1_weight_rest: float = 0.0
+    add_timestamp: bool = False
     depth_loss_type: str = "mse"
+    # eval renders: -1 the adaptive compacted renderer once a mask exists,
+    # K > 0 a fixed compacted K, 0 dense
+    eval_compact_k: int = -1
+    # pool dilation of the stage-boundary mask; >= 5 licenses the
+    # group-2 strided occupancy test of the compacted train step
+    eval_mask_pool: int = 3
     # R of the dense step (clamped to a divisor of the batch)
     train_microbatch: int = 32
     # R of the compacted step (mask present); 0/None: train_microbatch
@@ -43,7 +104,95 @@ class TrainConfig:
     train_compact_k: int = 64
     # depth-anchored window: band in march steps behind the supervised depth
     train_depth_cap_band: int = 6
+    # stage-3 sampling: 'uniform', or 'tail_deficit' (one view per batch,
+    # drawn by stage3_view_weights)
+    stage3_balance: str = "uniform"
+    stage3_balance_gamma: float = 1.0
     seed: int = 1024
+    model: tf.TensoRFConfig = dataclasses.field(default_factory=tf.TensoRFConfig)
+    # coarse-to-fine: global steps at which the grid grows toward
+    # n_voxel_final (log-spaced voxel counts) and the alpha mask is rebuilt
+    n_voxel_final: int = 27_000_000
+    upsamp_list: Tuple[int, ...] = ()
+    update_alphamask_list: Tuple[int, ...] = ()
+    lr_upsample_reset: bool = True
+    resume_every_epochs: int = 0
+    resume: bool = False
+    checkpoint_backend: str = "npz"
+
+
+def eval_boundary(epoch: int, n_stage1: int, n_stage2: int, eval_every: int) -> bool:
+    """Is the epoch that just finished (0-indexed) an eval boundary: every
+    ``eval_every`` epochs, the end of stage 1, and each stage-2 view
+    boundary strictly past stage 1 (Python's floored modulo would fire
+    the view term mid-stage-1 too)."""
+    e1 = epoch + 1
+    return (
+        e1 % eval_every == 0
+        or (n_stage2 > 0 and e1 > n_stage1 and (e1 - n_stage1) % n_stage2 == 0)
+        or e1 == n_stage1
+    )
+
+
+def _epoch_iters(n_rays: int, batch: int) -> int:
+    return n_rays // batch + int(n_rays % batch > 0)
+
+
+def stage3_view_weights(cfg: TrainConfig, lengths, iters1: int) -> np.ndarray:
+    """Per-view stage-3 sampling weights ∝ (1 / epochs the view's content
+    has been trained when stage 3 starts)^gamma: E_0 = n_stage1 +
+    (V-1)·n_stage2 + n_stage3 for the seed view, E_u = (V-u)·n_stage2 +
+    n_stage3 for generated view u.  ``iters1`` is unused (kept for the
+    JAX signature)."""
+    del iters1
+    lengths = np.asarray(lengths, np.float64)
+    v_n = len(lengths)
+    epochs = np.zeros(v_n)
+    epochs[0] = cfg.n_stage1 + (v_n - 1) * cfg.n_stage2 + cfg.n_stage3
+    for u in range(1, v_n):
+        epochs[u] = (v_n - u) * cfg.n_stage2 + cfg.n_stage3
+    w = np.zeros(v_n)
+    ok = (epochs > 0) & (lengths > 0)
+    w[ok] = (1.0 / epochs[ok]) ** cfg.stage3_balance_gamma
+    if w.sum() <= 0:
+        w[lengths > 0] = 1.0
+    return w / w.sum()
+
+
+def _batch_from_pool(pool, ids, device):
+    rays, rgbs, depths = pool
+    return {
+        "rays": as_tensor(rays[ids], device),
+        "rgb": as_tensor(rgbs[ids], device),
+        "depth": as_tensor(depths[ids], device),
+    }
+
+
+class _WeightedViewSampler:
+    """Stage-3 batch source for stage3_balance='tail_deficit': each batch
+    comes from one view's pool, the view drawn ∝ weights; within a view,
+    permutation sampling.  Batches are tensors on ``device``."""
+
+    def __init__(self, pools, weights, batch: int, seed: int, device=None):
+        self.pools = pools
+        self.weights = np.asarray(weights, np.float64)
+        self.batch = int(batch)
+        self.device = resolve_device(device)
+        self.samplers = [
+            ts.PermutationSampler(len(p[0]), batch, seed + 31 * i)
+            if len(p[0]) >= batch else None
+            for i, p in enumerate(pools)
+        ]
+        self._rng = np.random.default_rng(seed)
+
+    def next_batch(self):
+        v = int(self._rng.choice(len(self.pools), p=self.weights))
+        if self.samplers[v] is not None:
+            ids = self.samplers[v].next_ids()
+        else:
+            # a pool smaller than the batch: draw with replacement
+            ids = self._rng.integers(0, len(self.pools[v][0]), self.batch)
+        return _batch_from_pool(self.pools[v], ids, self.device)
 
 
 def _resolve_group(cfg: TrainConfig, aabb, reso, step_ratio):
@@ -83,3 +232,318 @@ def _step_kwargs(cfg: TrainConfig, *, n_samples, group, block, white_bg, weights
             else None
         ),
     )
+
+
+def stamped_train_mask(eval_mask, pool_new, pool_pre):
+    """The train-compaction mask: ``eval_mask`` with every supervised depth
+    band of the in-flight view's pool and of the replay pool stamped live
+    (tf.stamp_alpha_mask), so compaction never freezes the support where
+    some training ray's own depth says content must grow.  Pools are
+    ``(rays, rgbs, depths)`` tuples or None."""
+    m = eval_mask
+    for pool in (pool_new, pool_pre):
+        if pool is not None and len(pool[0]) > 0:
+            m = tf.stamp_alpha_mask(m, pool[0], pool[2])
+    return m
+
+
+def init_field(cfg: TrainConfig, scene: ss.SceneState, generator=None, device=None):
+    """(model cfg, field, aabb, alpha mask or None): the warm start of
+    ``cfg.ckpt`` when it exists, else a field at ``n_voxel_init`` over the
+    scene box drawn from ``generator`` (a ``torch.Generator`` on
+    ``device`` seeded with ``cfg.seed`` when None)."""
+    dev = resolve_device(device)
+    if cfg.ckpt and os.path.exists(cfg.ckpt):
+        mcfg, field, aabb, alpha_mask, _ = ckpt.load_checkpoint(cfg.ckpt, device=dev)
+        return mcfg, field, aabb, alpha_mask
+    reso = tf.n_to_reso(cfg.n_voxel_init, scene.scene_bbox)
+    gen = generator or torch.Generator(device=dev).manual_seed(cfg.seed)
+    field = tf.init_params(cfg.model, reso, generator=gen, device=dev)
+    return cfg.model, field, as_tensor(scene.scene_bbox, dev), None
+
+
+def _n_training_views(scene_cfg: ss.SceneConfig) -> int:
+    """The trajectory's view count, as the bootstrap will choose it."""
+    existing = scene_io.load_poses(scene_io.scene_paths(scene_cfg.datadir)["cam"])
+    if existing is not None and not scene_cfg.regen_pose:
+        return len(existing)
+    return len(traj.training_trajectory(
+        scene_cfg.pose_traj, scene_cfg.num_training, scene_cfg.angle, scene_cfg.trans_range))
+
+
+def _check_ported(cfg: TrainConfig, scene_cfg: ss.SceneConfig) -> None:
+    if cfg.resume:
+        raise NotImplementedError("resume=True (scene snapshots) is not ported yet")
+    if cfg.checkpoint_backend != "npz":
+        raise NotImplementedError(
+            f"checkpoint_backend={cfg.checkpoint_backend!r}: only 'npz' is ported")
+    if cfg.ndc_ray:
+        raise NotImplementedError("NDC rays are not ported yet")
+    if cfg.train_compute_dtype != "fp32":
+        raise NotImplementedError(
+            f"train_compute_dtype={cfg.train_compute_dtype!r}: the bf16 backward is not "
+            "ported yet")
+    if cfg.n_stage2 > 0 and _n_training_views(scene_cfg) > 1:
+        raise NotImplementedError(
+            "n_stage2 > 0 with more than one trajectory view needs scene expansion, "
+            "which is not ported yet (set n_stage2=0 for the seed fit)")
+
+
+def reconstruction(cfg: TrainConfig, scene_cfg: ss.SceneConfig,
+                   services: Optional[Services] = None, *, device=None):
+    """The seed fit: bootstrap, stage 1, stage 3, final checkpoint (see the
+    module docstring).  Runs on ``device`` (cuda unless asked).  Logs to
+    ``<logfolder>/metrics.jsonl``.  Returns (model_cfg, field, aabb, scene,
+    logfolder)."""
+    dev = resolve_device(device)
+    _check_ported(cfg, scene_cfg)
+    services = services or default_services(hw=scene_cfg.hw)
+    logfolder = os.path.join(
+        cfg.basedir,
+        f"{cfg.expname}_{scene_cfg.prompt.replace(' ', '_')}"
+        f"_{scene_cfg.angle}_{scene_cfg.trans_range}",
+    )
+    if cfg.add_timestamp:
+        import datetime
+
+        logfolder += datetime.datetime.now().strftime("-%Y%m%d-%H%M%S")
+    os.makedirs(logfolder, exist_ok=True)
+    with open(os.path.join(logfolder, "args.txt"), "w") as f:
+        for k, v in {**dataclasses.asdict(cfg), **dataclasses.asdict(scene_cfg)}.items():
+            f.write(f"{k}:{v}\n")
+    log = MetricsLogger(os.path.join(logfolder, "metrics.jsonl"))
+    try:
+        return _seed_fit(cfg, scene_cfg, services, dev, logfolder, log)
+    finally:
+        log.close()
+
+
+def _seed_fit(cfg, scene_cfg, services, dev, logfolder, log):
+    with phase_timer("bootstrap", log, dev):
+        scene = ss.bootstrap_scene(
+            scene_cfg, "train", text2img=services.text2img,
+            estimate_depth=services.estimate_depth, log=log, device=dev,
+        )
+    mcfg, field, aabb, _ = init_field(cfg, scene, device=dev)
+    white_bg = scene.white_bg
+    n_samples = tf.default_n_samples(tf.grid_resolution(field), mcfg.step_ratio,
+                                     cfg.n_samples_cap)
+
+    # rays that miss the box never train
+    keep = render_ops.filter_rays_bbox(aabb, scene.all_rays, device=dev)
+    pool_pre = (scene.all_rays[keep], scene.all_rgbs[keep], scene.all_depth[keep])
+    sampler_pre = ts.PermutationSampler(len(pool_pre[0]), cfg.batch_size, cfg.seed)
+    n_iters_epoch = _epoch_iters(len(pool_pre[0]), cfg.batch_size)
+    n_iters_stage1 = cfg.n_stage1 * n_iters_epoch
+    decay_iters = (
+        cfg.lr_decay_iters if cfg.lr_decay_iters > 0
+        else (n_iters_stage1 if n_iters_stage1 > 0 else 1000)
+    )
+    factor = ts.lr_factor(cfg.lr_decay_target_ratio, decay_iters)
+    log.scalars(0, {"pool_rays": len(pool_pre[0]), "iters_per_epoch": n_iters_epoch,
+                    "grid": list(tf.grid_resolution(field))})
+    weights = _initial_loss_weights(cfg)
+    step_rng = torch.Generator(device=dev).manual_seed(cfg.seed)
+
+    def current_group():
+        return _resolve_group(cfg, aabb.cpu(), tf.grid_resolution(state.field),
+                              mcfg.step_ratio)
+
+    def make_step(opt):
+        group, block = current_group()
+        return ts.make_train_step(
+            mcfg, opt, device=dev,
+            **_step_kwargs(cfg, n_samples=n_samples, group=group, block=block,
+                           white_bg=white_bg, weights=weights),
+        )
+
+    tm_cache = {}
+
+    def train_mask_arg():
+        """The stamped mask for train compaction, or None: compaction off,
+        no mask yet, stage 1 (the seed content is still growing), or a
+        mask whose dilation cannot license the group-strided occupancy
+        test.  Memoized on the identities of the mask, the pool and the
+        aabb (every rebuild or shrink re-stamps)."""
+        if cfg.train_compact_k <= 0 or eval_mask is None or epoch < cfg.n_stage1:
+            return None
+        mkey = (id(eval_mask), id(pool_pre), id(aabb))
+        if mkey not in tm_cache:
+            g, _ = current_group()
+            ok = g == 1 or render_ops.occupancy_stride_safe(state.field, aabb, eval_mask, g)
+            tm_cache.clear()
+            tm_cache[mkey] = stamped_train_mask(eval_mask, None, pool_pre) if ok else None
+        return tm_cache[mkey]
+
+    def render_mask():
+        """The mask for eval renders: only when eval compaction is on."""
+        return eval_mask if cfg.eval_compact_k != 0 else None
+
+    def rebuild_eval_mask():
+        if cfg.eval_compact_k == 0 and cfg.train_compact_k <= 0:
+            return None
+        mask_reso = tuple(min(r, 200) for r in tf.grid_resolution(state.field))
+        mask, _ = tf.update_alpha_mask(state.field, aabb, mask_reso,
+                                       pool=cfg.eval_mask_pool, device=dev)
+        return mask
+
+    z_floor = ss.supervised_z_floor(scene)
+    state, opt = ts.make_train_state(field, cfg.lr_init, cfg.lr_basis, factor,
+                                     runtime_decay=True)
+    step_fn = make_step(opt)
+
+    # no expansion epochs in this slice (_check_ported)
+    n_total = cfg.n_stage1
+    tv_decay = 1.0
+    lr_decay = 1.0  # factor**steps since the last schedule reset
+    eval_mask = None
+    global_step = 0
+    for epoch in range(n_total + cfg.n_stage3):
+        for _ in range(n_iters_epoch):
+            if cfg.upsamp_list and global_step in cfg.upsamp_list:
+                # coarse-to-fine: log-spaced voxel counts toward n_voxel_final
+                n_voxels = int(np.exp(np.linspace(
+                    np.log(cfg.n_voxel_init), np.log(cfg.n_voxel_final),
+                    len(cfg.upsamp_list) + 1,
+                ))[list(cfg.upsamp_list).index(global_step) + 1])
+                reso = tf.n_to_reso(n_voxels, aabb.cpu())
+                field_up = tf.upsample_volume_grid(state.field, reso)
+                n_samples = tf.default_n_samples(reso, mcfg.step_ratio, cfg.n_samples_cap)
+                state, opt = ts.make_train_state(field_up, cfg.lr_init, cfg.lr_basis,
+                                                 factor, runtime_decay=True)
+                # lr_upsample_reset=False continues at the decayed rate
+                lr_decay = 1.0 if cfg.lr_upsample_reset else tv_decay
+                step_fn = make_step(opt)
+                log.scalars(global_step, {"upsample_grid": list(reso),
+                                          "n_samples": n_samples})
+            if cfg.update_alphamask_list and global_step in cfg.update_alphamask_list:
+                mask_reso = tuple(min(r, 200) for r in tf.grid_resolution(state.field))
+                alpha_mask, new_aabb = tf.update_alpha_mask(state.field, aabb, mask_reso,
+                                                            device=dev)
+                if global_step == cfg.update_alphamask_list[0]:
+                    # the first update shrinks the box and resets the optimizer
+                    field_sh, aabb, grid = tf.shrink(state.field, aabb, new_aabb)
+                    state, opt = ts.make_train_state(field_sh, cfg.lr_init, cfg.lr_basis,
+                                                     factor, runtime_decay=True)
+                    lr_decay = 1.0
+                    weights = weights._replace(l1=cfg.l1_weight_rest)
+                    step_fn = make_step(opt)
+                    log.scalars(global_step, {"shrink_aabb": aabb.cpu().tolist(),
+                                              "shrink_grid": list(grid)})
+                # rays that never touch occupied space stop training
+                keep = render_ops.filter_rays_alpha(aabb, pool_pre[0], alpha_mask, device=dev)
+                if keep.any() and not keep.all():
+                    pool_pre = tuple(p[keep] for p in pool_pre)
+                    sampler_pre = ts.PermutationSampler(
+                        len(pool_pre[0]), cfg.batch_size, cfg.seed + global_step)
+                log.scalars(global_step, {"alpha_mask_pool_rays": len(pool_pre[0])})
+            batch = _batch_from_pool(pool_pre, sampler_pre.next_ids(), dev)
+            state, metrics = step_fn(state, aabb, batch, step_rng, tv_decay,
+                                     alpha_mask=train_mask_arg(), lr_decay=lr_decay)
+            tv_decay *= factor
+            lr_decay *= factor
+            global_step += 1
+            if global_step % max(cfg.progress_refresh_rate, 1) == 0:
+                log.scalars(global_step, {m: float(metrics[m])
+                                          for m in ("psnr", "mse", "depth_loss")})
+
+        # --- stage-boundary mask and evals -------------------------------
+        if not eval_boundary(epoch, cfg.n_stage1, cfg.n_stage2, cfg.eval_every_epochs):
+            continue
+        eval_mask = rebuild_eval_mask()
+        with phase_timer(f"eval_epoch{epoch + 1:04d}", log, dev):
+            kw = dict(
+                n_samples=n_samples, prefix=f"epoch{epoch + 1:04d}_", chunk=cfg.batch_size,
+                app_k=cfg.app_k, white_bg=white_bg, ndc=cfg.ndc_ray,
+                push_depth=scene_cfg.push_depth, near_far=scene.near_far,
+                alpha_mask=render_mask(),
+                compact_k=cfg.eval_compact_k if eval_mask is not None else 0,
+                eval_z_min=z_floor, n_vis=cfg.n_vis, device=dev,
+            )
+            if cfg.vis_support_views and len(scene.rays_support_split) > 0:
+                # previews of the support views: no ground truth
+                eval_renderer.evaluation(
+                    state.field, aabb, scene.rays_support_split, scene.hw, gt_rgbs=None,
+                    save_path=os.path.join(logfolder, "imgs_vis_support_view"), **kw)
+            n_gen = scene.rgbs_gen_split.shape[0]
+            if n_gen > 0:
+                res = eval_renderer.evaluation(
+                    state.field, aabb, scene.rays_gen_split[:n_gen], scene.hw,
+                    gt_rgbs=scene.rgbs_gen_split,
+                    save_path=os.path.join(logfolder, "imgs_vis_inpaint_view"), **kw)
+                if res["psnr"]:
+                    log.scalars(global_step, {"eval_psnr": float(np.mean(res["psnr"]))})
+
+    # final mask: saved into the checkpoint and used by the final renders
+    eval_mask = rebuild_eval_mask()
+    final = dict(
+        n_samples=n_samples, white_bg=white_bg, ndc=cfg.ndc_ray, near_far=scene.near_far,
+        alpha_mask=render_mask(),
+        compact_k=cfg.eval_compact_k if eval_mask is not None else 0,
+        eval_z_min=z_floor, device=dev,
+    )
+    ckpt.save_checkpoint(
+        os.path.join(logfolder, f"{cfg.expname}_final.npz"), state.field, aabb,
+        alpha_mask=render_mask(), loop_state={"view_idx": 0, "global_step": global_step},
+    )
+    if cfg.render_train:
+        eval_renderer.evaluation(
+            state.field, aabb, scene.rays_gen_split[: scene.rgbs_gen_split.shape[0]],
+            scene.hw, gt_rgbs=scene.rgbs_gen_split,
+            save_path=os.path.join(logfolder, "imgs_train_all"), chunk=cfg.batch_size,
+            app_k=cfg.app_k, video=True, push_depth=scene_cfg.push_depth,
+            n_vis=cfg.n_vis, **final,
+        )
+    if cfg.render_test or cfg.render_path:
+        test_scene = ss.bootstrap_scene(
+            scene_cfg, "test", text2img=services.text2img,
+            estimate_depth=services.estimate_depth, device=dev,
+        )
+        if cfg.render_test:
+            eval_renderer.evaluation(
+                state.field, aabb, test_scene.rays_gen_split, scene.hw,
+                save_path=os.path.join(logfolder, "imgs_test_all"), chunk=cfg.batch_size,
+                app_k=cfg.app_k, video=True, push_depth=scene_cfg.push_depth,
+                n_vis=cfg.n_vis, **final,
+            )
+        if cfg.render_path:
+            eval_renderer.evaluation_path(
+                state.field, aabb, test_scene.render_path, scene.hw, scene.intrinsic,
+                save_path=os.path.join(logfolder, "imgs_path_all"), **final,
+            )
+    return mcfg, state.field, aabb, scene, logfolder
+
+
+def render_test(cfg: TrainConfig, scene_cfg: ss.SceneConfig, *, device=None):
+    """Render-only entry from the checkpoint ``cfg.ckpt``: the test split
+    (``cfg.render_test``) and the camera path (``cfg.render_path``).  A
+    checkpointed mask routes the renders through the adaptive renderer.
+    The eval z-cull is the reference's constant 2.0 (the JAX package reads
+    a scene-aware floor from a scene snapshot beside the checkpoint;
+    snapshots are not ported).  Returns {'test': ..., 'path': ...}."""
+    dev = resolve_device(device)
+    if not (cfg.ckpt and os.path.exists(cfg.ckpt)):
+        raise FileNotFoundError(f"render_test needs a checkpoint, got ckpt={cfg.ckpt!r}")
+    mcfg, field, aabb, alpha_mask, _ = ckpt.load_checkpoint(cfg.ckpt, device=dev)
+    field.requires_grad_(False)
+    scene = ss.bootstrap_scene(scene_cfg, "test", device=dev)
+    n_samples = tf.default_n_samples(tf.grid_resolution(field), mcfg.step_ratio,
+                                     cfg.n_samples_cap)
+    logfolder = os.path.dirname(cfg.ckpt)
+    kw = dict(n_samples=n_samples, white_bg=scene.white_bg, ndc=cfg.ndc_ray,
+              near_far=scene.near_far, alpha_mask=alpha_mask,
+              compact_k=-1 if alpha_mask is not None else 0, eval_z_min=2.0, device=dev)
+    out = {}
+    if cfg.render_test:
+        out["test"] = eval_renderer.evaluation(
+            field, aabb, scene.rays_gen_split, scene.hw,
+            save_path=os.path.join(logfolder, "imgs_test_all"), chunk=cfg.batch_size,
+            app_k=cfg.app_k, video=True, push_depth=scene_cfg.push_depth,
+            n_vis=cfg.n_vis, **kw,
+        )
+    if cfg.render_path:
+        out["path"] = eval_renderer.evaluation_path(
+            field, aabb, scene.render_path, scene.hw, scene.intrinsic,
+            save_path=os.path.join(logfolder, "imgs_path_all"), **kw,
+        )
+    return out

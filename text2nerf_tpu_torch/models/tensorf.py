@@ -365,3 +365,153 @@ def update_alpha_mask(field: TensoRF, aabb, grid_size, pool: int = 3, *,
             new_aabb[0, a] = coord[occ].min()
             new_aabb[1, a] = coord[occ].max()
     return {"volume": vol, "aabb": aabb, "pool": int(pool)}, new_aabb
+
+
+def _linspace(start, stop, num: int):
+    """``jnp.linspace(start, stop, num)`` in fp32 for 0-d tensors, bit for
+    bit: start·(1 - s) + stop·s with s = iota·fp32(1/(num - 1)) (XLA's
+    division by a constant), the end point set exactly."""
+    if num == 1:
+        return start.reshape(1)
+    s = _linspace01(num, start.device)[:-1]
+    return torch.cat([start * (1 - s) + stop * s, stop.reshape(1)])
+
+
+@torch.no_grad()
+def _stamp_volume(volume, aabb, rays, depth, band_voxels: int, z_samples: int, pool: int):
+    o, d = rays[:, :3], rays[:, 3:6]
+    dz, hz, wz = volume.shape  # [z, y, x]
+    # band half-width in world units: band_voxels of the coarsest mask axis
+    vox = torch.max((aabb[1] - aabb[0]) / torch.tensor([wz, hz, dz], dtype=volume.dtype,
+                                                        device=volume.device))
+    offs = _linspace(-band_voxels * vox, band_voxels * vox, z_samples)
+    pts = o[:, None] + d[:, None] * (depth[:, None] + offs[None, :])[..., None]
+    xn = torch.clamp(normalize_coord(aabb, pts.reshape(-1, 3)), -1.0, 1.0)
+    ix = torch.round((xn[..., 0] + 1) * 0.5 * (wz - 1)).to(torch.int64)
+    iy = torch.round((xn[..., 1] + 1) * 0.5 * (hz - 1)).to(torch.int64)
+    iz = torch.round((xn[..., 2] + 1) * 0.5 * (dz - 1)).to(torch.int64)
+    stamped = torch.zeros(dz * hz * wz, dtype=volume.dtype, device=volume.device)
+    stamped[(iz * hz + iy) * wz + ix] = 1.0  # a max-reduction of 1.0 into zeros
+    # dilate: ±band_voxels covers depth-alignment error across the rays;
+    # the extra pool radius keeps the ±r invariant that licenses strided
+    # occupancy tests
+    k = 2 * (band_voxels + (pool - 1) // 2) + 1
+    stamped = F.max_pool3d(stamped.reshape(1, 1, dz, hz, wz), k, stride=1, padding=k // 2)
+    return torch.maximum(volume, stamped[0, 0])
+
+
+def stamp_alpha_mask(mask, rays, depth, band_voxels: int = 2, z_samples: int = 5,
+                     max_rays: int = 1 << 20):
+    """Mark a ±``band_voxels`` band around each supervised ray's depth point
+    live in the alpha mask (dilated by the mask's pool radius), so train
+    compaction cannot freeze the support where supervised content must
+    grow.
+
+    ``rays`` / ``depth``: a training pool ((N, 6), (N,), host numpy).  An
+    evenly spaced selection of the next power of two rays (at most
+    ``max_rays``) is stamped, as the JAX package selects them.  Returns a
+    new mask dict; the volume stays on its device."""
+    rays, depth = np.asarray(rays), np.asarray(depth)
+    n = rays.shape[0]
+    if n == 0:
+        return mask
+    k = min(1 << max(n - 1, 1).bit_length(), max_rays)
+    sel = np.linspace(0, n - 1, k).astype(np.int64)
+    volume = mask["volume"]
+    dev = volume.device
+    vol = _stamp_volume(
+        volume, torch.as_tensor(mask["aabb"], dtype=torch.float32).to(dev),
+        torch.as_tensor(np.ascontiguousarray(rays[sel], np.float32), device=dev),
+        torch.as_tensor(np.ascontiguousarray(depth[sel], np.float32), device=dev),
+        int(band_voxels), int(z_samples), int(mask.get("pool", 3)),
+    )
+    out = dict(mask)
+    out["volume"] = vol
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Grid resizing (coarse-to-fine) and AABB shrink, on the fused tables
+# ---------------------------------------------------------------------------
+
+
+def _with_tables(field: TensoRF, grid_size, planes, lines) -> TensoRF:
+    """A new field of ``grid_size`` holding ``planes`` / ``lines`` and a
+    copy of ``field``'s basis and head."""
+    new = TensoRF(field.cfg, grid_size, device=field.basis.device, dtype=field.basis.dtype)
+    with torch.no_grad():
+        for dst, src in zip((*new.planes, *new.lines), (*planes, *lines)):
+            dst.copy_(src)
+        new.basis.copy_(field.basis)
+        for k in ("w1", "b1", "w2", "b2", "w3", "b3"):
+            new.mlp[k].copy_(field.mlp[k])
+    return new
+
+
+def _resize_axis(table, axis: int, n_out: int):
+    """Align-corners linear resize of ``table`` along ``axis`` to ``n_out``
+    entries, computed as the JAX package's ``grid_sample_1d`` /
+    ``grid_sample_2d`` compute it: coordinates from ``linspace(-1, 1)``,
+    unnormalized to (u + 1)·0.5·(n - 1), then a lerp of the two rows."""
+    n = table.shape[axis]
+    one = torch.ones((), dtype=torch.float32, device=table.device)
+    f = (_linspace(-one, one, n_out) + 1.0) * 0.5 * (n - 1)
+    i0 = torch.clamp(torch.floor(f).to(torch.int64), 0, n - 1)
+    i1 = torch.clamp(i0 + 1, max=n - 1)
+    t = torch.clamp(f - i0.to(f.dtype), 0.0, 1.0)
+    shape = [1] * table.ndim
+    shape[axis] = n_out
+    t = t.reshape(shape)
+    return (torch.index_select(table, axis, i0) * (1.0 - t)
+            + torch.index_select(table, axis, i1) * t)
+
+
+@torch.no_grad()
+def upsample_volume_grid(field: TensoRF, res_target) -> TensoRF:
+    """Bilinear (planes) and linear (lines) align-corners resize of every
+    factor table to ``res_target`` (x, y, z); a new field.  Each channel
+    is resized alone, so the fused tables give the per-channel values of
+    the JAX package's separate density and app tables; the arithmetic is
+    its grid sampler's, W before H (equal bit for bit at test sizes; at a
+    300-entry axis XLA's linspace rounds some coordinates by an ulp
+    otherwise)."""
+    res = tuple(int(r) for r in res_target)
+    planes, lines = [], []
+    for i in range(3):
+        m0, m1 = MAT_MODE[i]
+        planes.append(_resize_axis(_resize_axis(field.planes[i], 1, res[m0]), 0, res[m1]))
+        lines.append(_resize_axis(field.lines[i], 0, res[VEC_MODE[i]]))
+    return _with_tables(field, res, planes, lines)
+
+
+@torch.no_grad()
+def shrink(field: TensoRF, aabb, new_aabb):
+    """Crop the factor tables to a tighter AABB, snapped to the voxel
+    lattice.  Returns (field, corrected aabb (2, 3) fp32 on the field's
+    device, new grid size)."""
+    aabb = np.asarray(torch.as_tensor(aabb).cpu(), np.float32)
+    new_aabb = np.asarray(torch.as_tensor(new_aabb).cpu(), np.float32)
+    gs = np.asarray(grid_resolution(field))
+    units = (aabb[1] - aabb[0]) / (gs - 1)
+    t_l = np.round(np.round((new_aabb[0] - aabb[0]) / units)).astype(np.int64)
+    b_r = np.round((new_aabb[1] - aabb[0]) / units).astype(np.int64) + 1
+    b_r = np.minimum(b_r, gs)
+
+    planes, lines = [], []
+    for i in range(3):
+        m0, m1 = MAT_MODE[i]
+        v = VEC_MODE[i]
+        lines.append(field.lines[i][t_l[v]: b_r[v]])
+        planes.append(field.planes[i][t_l[m1]: b_r[m1], t_l[m0]: b_r[m0]])
+    new_gs = tuple(int(x) for x in (b_r - t_l))
+
+    t_l_r = t_l / (gs - 1)
+    b_r_r = (b_r - 1) / (gs - 1)
+    correct = np.stack(
+        [
+            (1 - t_l_r) * aabb[0] + t_l_r * aabb[1],
+            (1 - b_r_r) * aabb[0] + b_r_r * aabb[1],
+        ]
+    )
+    out_aabb = torch.tensor(np.asarray(correct, np.float32), device=field.basis.device)
+    return _with_tables(field, new_gs, planes, lines), out_aabb, new_gs

@@ -63,12 +63,41 @@ def dependencies(name: str) -> list:
     return seen
 
 
-def library_path(name: str) -> Path:
+def hashed_path(stem: str, sources, flags) -> Path:
+    """``build/lib<stem>-<hash>.so``, the hash over the sources' names and
+    bytes and the flag list."""
     h = hashlib.sha256()
-    for path in dependencies(name):
+    for path in sources:
         h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
+
+
+def library_path(name: str) -> Path:
+    return hashed_path(name, dependencies(name), NVCC_FLAGS)
+
+
+def build_host_library(stem: str, source: Path, flags) -> Path:
+    """Compile one C++ source with ``g++ <flags>`` into its hashed path
+    unless it is there already; raises with g++'s output on failure."""
+    out = hashed_path(stem, [source], flags)
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {source.name} is built at first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
+    try:
+        proc = subprocess.run([gxx, *flags, "-o", str(tmp), str(source)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {source.name}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if tmp.exists():
+            tmp.unlink()
+    return out
 
 
 def build(names=SOURCES) -> None:

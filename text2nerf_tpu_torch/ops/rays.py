@@ -6,6 +6,7 @@ Pinhole camera looking along +z with image y down: the direction of pixel
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -58,6 +59,30 @@ def rays_from_poses(directions, c2ws):
     return torch.stack(
         [torch.cat(rays_from_pose(directions, c2w), dim=-1) for c2w in c2ws]
     )
+
+
+def rays_split_np(poses, intrinsic, h: int, w: int) -> np.ndarray:
+    """Host-numpy rays of many cameras, (V, H*W, 6) [o | d] float32, the
+    training pools' layout: the math of :func:`ray_directions` and
+    :func:`rays_from_pose` (fp32 normalized directions, rotation in
+    float64)."""
+    fx, fy, cx, cy = (float(x) for x in intrinsic)
+    jj, ii = np.meshgrid(
+        np.arange(h, dtype=np.float32) + 0.5,
+        np.arange(w, dtype=np.float32) + 0.5,
+        indexing="ij",
+    )
+    dirs = np.stack(
+        [(ii - cx) / fx, (jj - cy) / fy, np.ones_like(ii)], axis=-1
+    ).reshape(-1, 3)
+    dirs = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    dirs64 = dirs.astype(np.float64)
+    poses = np.asarray(poses, np.float64).reshape(-1, *np.asarray(poses).shape[-2:])
+    out = np.empty((poses.shape[0], h * w, 6), np.float32)
+    for v in range(poses.shape[0]):
+        out[v, :, 0:3] = poses[v, :3, 3].astype(np.float32)
+        out[v, :, 3:6] = (dirs64 @ poses[v, :3, :3].T).astype(np.float32)
+    return out
 
 
 def default_intrinsics(h: int, w: int):

@@ -14,6 +14,9 @@
 - :func:`render_chunked_adaptive`: the serving renderer; one base-rung
   pass per chunk, then one repacked pass over the rays that need more.
 - :func:`render_chunked`: chunked dispatch over the eval renderers.
+- :func:`filter_rays_bbox` / :func:`filter_rays_alpha`: which rays of a
+  training pool meet the box / the mask's occupied space (host bool
+  arrays, for the trainer's pool filtering).
 
 Factor features go through kernel A (and, in training, its backward
 kernel A') on CUDA tensors, and the eval ``MLP_Fea_noview`` head through
@@ -36,7 +39,7 @@ from ..device import as_tensor, check_on, resolve_device
 from ..models import mlp as mlp_mod
 from ..models import tensorf as tf
 from .kernels import shading_mlp
-from .rays import aabb_slab_entry
+from .rays import aabb_slab_entry, aabb_slab_interval
 
 
 class RenderOutput(NamedTuple):
@@ -792,3 +795,45 @@ def render_chunked(
             out = _map(lambda x: x[: chunk - pad], out)
         outs.append(out)
     return _concat(outs)
+
+
+def _host_bool(t) -> np.ndarray:
+    return t.cpu().numpy().astype(bool)
+
+
+@torch.no_grad()
+def filter_rays_bbox(aabb, rays, *, chunk: int = 1 << 20, device=None) -> np.ndarray:
+    """Which rays (N, 6) intersect the AABB: a host bool array, computed on
+    ``device`` (cuda unless asked) in chunks."""
+    dev = resolve_device(device)
+    aabb = as_tensor(aabb, dev)
+    keep = []
+    for s in range(0, rays.shape[0], chunk):
+        part = as_tensor(rays[s: s + chunk], dev)
+        t_min, t_max = aabb_slab_interval(part[:, :3], part[:, 3:6], aabb)
+        keep.append(_host_bool(t_max > t_min))
+    return np.concatenate(keep) if keep else np.zeros((0,), bool)
+
+
+@torch.no_grad()
+def filter_rays_alpha(aabb, rays, alpha_mask, *, n_samples: int = 128,
+                      chunk: int = 262144, device=None) -> np.ndarray:
+    """Which rays touch occupied space: each ray is sampled uniformly
+    between its AABB entry (clamped to 0) and exit and kept when any
+    in-box sample lands in a live voxel of the (dilated) mask.  A host
+    bool array, computed on ``device`` in chunks."""
+    dev = resolve_device(device)
+    aabb = as_tensor(aabb, dev)
+    ts = tf._linspace01(n_samples, dev)[None, :]
+    keep = []
+    for s in range(0, rays.shape[0], chunk):
+        part = as_tensor(rays[s: s + chunk], dev)
+        rays_o, rays_d = part[:, :3], part[:, 3:6]
+        t_min, t_max = aabb_slab_interval(rays_o, rays_d, aabb)
+        t_min = torch.clamp(t_min, min=0.0)  # only the forward part counts
+        z = t_min[:, None] * (1.0 - ts) + t_max[:, None] * ts
+        pts = rays_o[:, None] + rays_d[:, None] * z[..., None]
+        occ = _nearest_alpha_lookup(alpha_mask, pts.reshape(-1, 3)).reshape(z.shape)
+        hit = _in_aabb(pts, aabb) & (occ > 0) & (t_max > t_min)[:, None]
+        keep.append(_host_bool(torch.any(hit, dim=-1)))
+    return np.concatenate(keep) if keep else np.zeros((0,), bool)
