@@ -49,17 +49,27 @@ Phases (any failure exits nonzero before the last line):
    views, 150^3 -> 300^3 at step 10, the alpha mask and the AABB shrink at
    step 30, 2 stage-1 epochs of dense steps, 1 stage-3 epoch of compacted
    steps on the pool-5 stamped mask (K 256 from the first live sample, all
-   shaded), batch 16384.  Each step is timed between device syncs; one
-   dense step runs under torch.profiler.  The milestones must fire at
-   their steps, kernels A, A' (fused in stage 3) and B must be launched,
-   the final eval PSNR must beat the untrained field's by 5 dB, and the
-   final checkpoint, reloaded, must render the seed view at the logged
-   PSNR.
+   shaded), batch 16384.  Each step is timed between device syncs (so
+   the fit's wall is that of a loop whose steps do not overlap); one
+   dense step runs under torch.profiler for the device's busy time.  The
+   milestones must fire at their steps, kernels A, A' (fused in stage 3)
+   and B must be launched, the final eval PSNR must beat the untrained
+   field's by 5 dB, and the final checkpoint, reloaded, must render the
+   seed view at the logged PSNR.  The inputs of the first launch of each
+   kernel and mode in a dense step on the 300^3 grid, in the first
+   compacted step on the shrunk grid and in the evals after it are
+   captured and held against the plain versions at phase 3's tolerances.
 
 Prints a JSON line of per-kernel numbers, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one GPU and no network.  Exits nonzero without CUDA, or without the
 text2nerf_tpu_torch package beside it.
+
+    python3 chip_smoke.py --seed-fit-variants [NAME ...]
+
+builds the kernels, then runs only the seed fit at 256^2 under each of
+SEED_FIT_VARIANTS' stage-3 compaction settings (all when none is named),
+with no device sync between steps, and prints a line for each.
 """
 
 import dataclasses
@@ -829,71 +839,136 @@ def phase_train(dev, card, report):
 
 
 class _StepProbe:
-    """Wraps ``train_step.make_train_step`` for the seed fit: each step the
-    trainer builds is timed on the host clock between device syncs (the
-    step alone, and end to end from the previous step's end, the sampler
-    and the batch copy included), its kernel launches are counted by kind
-    (dense: no mask; compact: a stamped mask), and one dense step, end to
-    end, runs under torch.profiler for the device's busy share."""
+    """Wraps ``train_step.make_train_step`` for the seed fit and records
+    whether each step the trainer builds ran dense (no mask) or compacted
+    (a stamped mask).  With ``measure`` it also
+    - times each step on the host clock between device syncs (the step
+      alone, and end to end from the previous step's end, the sampler and
+      the batch copy included), so the fit's steps do not overlap;
+    - counts the step's kernel launches by kind;
+    - runs one dense step, end to end, under torch.profiler for the
+      device's busy time;
+    - captures the inputs of the first launch of each kernel and mode in
+      the ``CAPTURED_DENSE``-th dense step (on the upsampled grid), in the
+      first compacted step (on the shrunk grid) and in the evals after it,
+      cloned at launch, for :func:`_hold_seed_fit_kernels`."""
 
-    PROFILED_DENSE = 20  # the dense step profiled, counted from 1 (past the upsample)
+    PROFILED_DENSE = 20  # counted from 1: dense steps 11-30 run on 300^3
+    CAPTURED_DENSE = 15
 
-    def __init__(self, ts, ff):
-        self.ts, self.ff, self.make0 = ts, ff, ts.make_train_step
+    def __init__(self, ts, ff, sm, measure=True):
+        self.ts, self.ff, self.sm, self.measure = ts, ff, sm, measure
+        self.make0 = ts.make_train_step
+        self.launch0 = (ff._launch, ff._launch_backward, sm._launch)
+        self.kinds = []
         self.ms = {"dense": [], "compact": []}
         self.loop_ms = {"dense": [], "compact": []}
         self.modes = {"dense": {}, "compact": {}}
         self.routes = {"dense": {}, "compact": {}}
         self.fwd = {"dense": 0, "compact": 0}
         self.busy = None
+        self.captured = {}  # (where, kernel, mode) -> the launch's inputs
+        self._tag = None  # where launches are captured now, or None
         self._last_end = None
         self._prof = None
 
     def __enter__(self):
         self.ts.make_train_step = self.make_step
+        if self.measure:
+            self.ff._launch, self.ff._launch_backward, self.sm._launch = (
+                self._tap_a, self._tap_a_bwd, self._tap_b)
         return self
 
     def __exit__(self, *exc):
         self.ts.make_train_step = self.make0
+        self.ff._launch, self.ff._launch_backward, self.sm._launch = self.launch0
         if self._prof is not None:
             self._prof.stop()
 
-    def make_step(self, mcfg, opt, **kw):
+    def _capture(self, kernel, mode, **inputs):
         import torch
 
+        def copy(v):
+            if isinstance(v, tuple):
+                return tuple(copy(t) for t in v)
+            if isinstance(v, dict):
+                return {k: copy(t) for k, t in v.items()}
+            return v.detach().clone() if isinstance(v, torch.Tensor) else v
+
+        key = (self._tag, kernel, mode)
+        if self._tag is None or key in self.captured:
+            return
+        with torch.no_grad():
+            self.captured[key] = {k: copy(v) for k, v in inputs.items()}
+
+    def _tap_a(self, xn, planes, lines, nd, sigma, app, bf16):
+        import torch
+
+        mode = "fused" if sigma and app else ("density" if sigma else "app")
+        self._capture("A", f"{mode} {'bf16' if bf16 else 'fp32'}", xn=xn, planes=tuple(planes),
+                      lines=tuple(lines), nd=nd, sigma=sigma, app=app,
+                      dtype=torch.bfloat16 if bf16 else None)
+        return self.launch0[0](xn, planes, lines, nd, sigma, app, bf16)
+
+    def _tap_a_bwd(self, xn, planes, lines, nd, d_sigma, d_app_raw, out):
+        mode = "fused" if d_sigma is not None and d_app_raw is not None else (
+            "density" if d_sigma is not None else "app")
+        self._capture("A'", mode, xn=xn, planes=tuple(planes), lines=tuple(lines), nd=nd,
+                      d_sigma=d_sigma, d_app_raw=d_app_raw)
+        return self.launch0[1](xn, planes, lines, nd, d_sigma, d_app_raw, out)
+
+    def _tap_b(self, mlp, features, fea_pe):
+        weights = {k: mlp[k] for k in ("w1", "b1", "w2", "b2", "w3", "b3")}
+        self._capture("B", "fp32", mlp=weights, features=features, fea_pe=fea_pe)
+        return self.launch0[2](mlp, features, fea_pe)
+
+    def make_step(self, mcfg, opt, **kw):
         step = self.make0(mcfg, opt, **kw)
-        ff = self.ff
 
         def probed(state, aabb, batch, rng=None, tv_decay=None, alpha_mask=None, lr_decay=1.0):
             kind = "compact" if alpha_mask is not None and kw["compact_k"] > 0 else "dense"
-            modes0, routes0, fwd0 = dict(ff.BWD_MODES), dict(ff.BWD_ROUTES), ff.LAUNCHES
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = step(state, aabb, batch, rng, tv_decay, alpha_mask=alpha_mask,
-                       lr_decay=lr_decay)
-            torch.cuda.synchronize()
-            end = time.perf_counter()
-            self.ms[kind].append((end - t0) * 1e3)
-            if self._last_end is not None:
-                self.loop_ms[kind].append((end - self._last_end) * 1e3)
-            for acc, now, before in ((self.modes[kind], ff.BWD_MODES, modes0),
-                                     (self.routes[kind], ff.BWD_ROUTES, routes0)):
-                for k in now:
-                    acc[k] = acc.get(k, 0) + now[k] - before[k]
-            self.fwd[kind] += ff.LAUNCHES - fwd0
-            n_dense = len(self.ms["dense"])
-            if self._prof is not None:
-                self._prof.stop()
-                self.busy = (_busy_ms(self._prof.events()), (end - self._last_end) * 1e3)
-                self._prof = None
-            elif kind == "dense" and n_dense == self.PROFILED_DENSE - 1:
-                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-                self._prof = torch.profiler.profile(activities=acts)
-                self._prof.start()
-            self._last_end = time.perf_counter()
-            return out
+            self.kinds.append(kind)
+            args = (state, aabb, batch, rng, tv_decay)
+            if not self.measure:
+                return step(*args, alpha_mask=alpha_mask, lr_decay=lr_decay)
+            return self._measured(step, kind, args, alpha_mask, lr_decay)
 
         return probed
+
+    def _measured(self, step, kind, args, alpha_mask, lr_decay):
+        import torch
+
+        ff = self.ff
+        n_dense = self.kinds.count("dense")
+        first_compact = kind == "compact" and "compact" not in self.kinds[:-1]
+        captured = (kind == "dense" and n_dense == self.CAPTURED_DENSE) or first_compact
+        self._tag = kind if captured else None
+        modes0, routes0, fwd0 = dict(ff.BWD_MODES), dict(ff.BWD_ROUTES), ff.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args, alpha_mask=alpha_mask, lr_decay=lr_decay)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        # past the first compacted step, the launches outside steps are evals
+        self._tag = "eval" if "compact" in self.kinds else None
+        self.ms[kind].append((end - t0) * 1e3)
+        if self._last_end is not None:
+            self.loop_ms[kind].append((end - self._last_end) * 1e3)
+        for acc, now, before in ((self.modes[kind], ff.BWD_MODES, modes0),
+                                 (self.routes[kind], ff.BWD_ROUTES, routes0)):
+            for k in now:
+                acc[k] = acc.get(k, 0) + now[k] - before[k]
+        self.fwd[kind] += ff.LAUNCHES - fwd0
+        if self._prof is not None:
+            self._prof.stop()
+            self.busy = (_busy_ms(self._prof.events()), (end - self._last_end) * 1e3)
+            self._prof = None
+        elif kind == "dense" and n_dense == self.PROFILED_DENSE - 1:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.start()
+        self._last_end = time.perf_counter()
+        return out
 
 
 def _busy_ms(events):
@@ -911,6 +986,55 @@ def _median(xs):
     return float(np.median(xs)) if xs else float("nan")
 
 
+# the launches of the seed fit that must have been captured and held
+SEED_FIT_HELD = (("dense", "A'", "density"), ("dense", "A'", "app"),
+                 ("compact", "A", "fused fp32"), ("compact", "A'", "fused"),
+                 ("eval", "B", "fp32"))
+
+
+def _hold_seed_fit_kernels(captured, report):
+    """Each launch _StepProbe captured in the seed fit, again through its
+    wrapper and through its plain version, at phase 3's tolerances."""
+    import torch
+    from text2nerf_tpu_torch.ops.kernels import factor_features as ff
+    from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
+
+    names = {"A": "factor_features", "A'": "factor_features_bwd", "B": "shading_mlp"}
+    missing = [k for k in SEED_FIT_HELD if k not in captured]
+    _require(not missing and any(k[:2] == ("dense", "A") for k in captured),
+             f"the seed fit's launches were not captured: {missing}; have {sorted(captured)}")
+    for (where, kernel, mode), c in sorted(captured.items()):
+        if kernel == "A":
+            args = (c["xn"], c["planes"], c["lines"], c["nd"])
+            kw = dict(sigma=c["sigma"], app=c["app"], dtype=c["dtype"])
+            got, ref = ff.factor_features(*args, **kw), ff.factor_features_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = max(float((g - r).abs().max()) for g, r in zip(got, ref) if g is not None)
+            tol, n, what = TOL["bf16" if c["dtype"] else "fp32"], c["xn"].shape[0], "max_abs_err"
+        elif kernel == "A'":
+            args = (c["xn"], c["planes"], c["lines"], c["nd"], c["d_sigma"], c["d_app_raw"])
+            got = ff.factor_features_backward(*args)
+            ref = ff.factor_features_backward_plain(*args)
+            torch.cuda.synchronize()
+            err = _bwd_rel_err(got, ref, f"seed fit {where} kernel A' {mode}")
+            tol, n, what = TOL["bwd"], c["xn"].shape[0], "of each table's largest"
+            mode += f", {ff.BWD_LAST_GRID[0]} route"
+        else:
+            args = (c["mlp"], c["features"], c["fea_pe"])
+            got, ref = sm.shade_fea_noview(*args), sm.shade_fea_noview_plain(*args)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            tol, n, what = TOL["head"], c["features"].shape[0], "max_abs_err"
+        grid = tuple(c["lines"][i].shape[0] for i in (2, 1, 0)) if "lines" in c else None
+        print(f"seed fit {where:7s} kernel {kernel:2s} {mode}: {n} {'rows' if grid is None else 'samples'}"
+              f"{'' if grid is None else f' on grid {grid}'}, {err:.3e} {what} (tol {tol:g})",
+              flush=True)
+        _require(err <= tol, f"seed fit {where} kernel {kernel} {mode}: {err} > {tol}")
+        report[names[kernel]].setdefault("seed_fit_err", {})[f"{where} {mode}"] = err
+        del got, ref
+    torch.cuda.empty_cache()
+
+
 def phase_seed_fit(dev, card, report, workdir):
     """The seed fit through trainer.reconstruction at full width (see the
     module docstring), then the final checkpoint reloaded and its render of
@@ -925,18 +1049,8 @@ def phase_seed_fit(dev, card, report, workdir):
     from text2nerf_tpu_torch.ops.kernels import factor_features as ff
     from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
 
-    scene_cfg = ss.SceneConfig(
-        datadir=f"{workdir}/scene", prompt="a beautiful garden with flowers",
-        pose_traj="local_fixed", num_training=1, hw=SEED_FIT_HW,
-    )
-    cfg = trainer.TrainConfig(
-        expname="seed", basedir=f"{workdir}/log", n_stage1=SEED_FIT_EPOCHS[0], n_stage2=0,
-        n_stage3=SEED_FIT_EPOCHS[1], batch_size=N_RAYS_TRAIN,
-        eval_every_epochs=sum(SEED_FIT_EPOCHS), seed=11,
-        n_voxel_init=SEED_FIT_VOXELS[0], n_voxel_final=SEED_FIT_VOXELS[1],
-        upsamp_list=(SEED_FIT_UPSAMPLE,), update_alphamask_list=(SEED_FIT_ALPHA_MASK,),
-        eval_mask_pool=5, **SEED_FIT_COMPACT,
-    )
+    cfg, scene_cfg = _seed_fit_configs(workdir, SEED_FIT_HW, eval_every_epochs=sum(
+        SEED_FIT_EPOCHS), **SEED_FIT_COMPACT)
     _require(cfg.model == tf.TensoRFConfig(), "the seed fit is not at the full model width")
     print(f"seed fit: hw {SEED_FIT_HW}, epochs {SEED_FIT_EPOCHS}, grid {SEED_FIT_VOXELS[0]} -> "
           f"{SEED_FIT_VOXELS[1]} voxels at step {SEED_FIT_UPSAMPLE}, alpha mask and shrink at "
@@ -945,17 +1059,20 @@ def phase_seed_fit(dev, card, report, workdir):
     torch.cuda.synchronize()
     ff.LAUNCHES = ff.BWD_LAUNCHES = sm.LAUNCHES = 0
     t0 = time.perf_counter()
-    with _StepProbe(ts, ff) as probe:
+    with _StepProbe(ts, ff, sm) as probe:
         mcfg, field, aabb, scene, logfolder = trainer.reconstruction(cfg, scene_cfg, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"factor_features": ff.LAUNCHES, "factor_features_bwd": ff.BWD_LAUNCHES,
                 "shading_mlp": sm.LAUNCHES}
-    print(f"seed fit launches {launches}; wall {wall:.3f} s on {card}", flush=True)
+    print(f"seed fit launches {launches}; wall {wall:.3f} s with a device sync around every "
+          f"step, on {card}", flush=True)
     for name, count in launches.items():
         _require(count > 0, f"{name} was not launched on the seed fit")
         report[name]["launches"] = report[name].get("launches", 0) + count
         report[name].setdefault("launches_by_path", {})["seed_fit"] = count
+    _hold_seed_fit_kernels(probe.captured, report)
+    probe.captured.clear()
 
     rows = [json.loads(line) for line in open(f"{logfolder}/metrics.jsonl")]
     for row in rows:
@@ -988,12 +1105,18 @@ def phase_seed_fit(dev, card, report, workdir):
              f"stage 3 did not run kernel A' in fused mode: {probe.modes}")
     _require(probe.modes["dense"].get("density", 0) > 0 and probe.modes["dense"].get("app", 0) > 0,
              f"stage 1 did not run kernel A' in both dense modes: {probe.modes}")
+    idle = float("nan")
     if probe.busy is None:
         print("profiled dense step: not measured", flush=True)
     else:
-        busy, wall_step = probe.busy
-        print(f"profiled dense step (end to end): {wall_step:.2f} ms wall, device busy "
-              f"{busy:.2f} ms, idle share {1 - busy / wall_step:.3f}", flush=True)
+        # the profiler's own host work slows the step it traces: the idle
+        # share is the device's busy time over an unprofiled step's wall
+        busy, wall_prof = probe.busy
+        wall_step = _median(probe.loop_ms["dense"])
+        idle = 1 - busy / wall_step
+        print(f"dense step: device busy {busy:.2f} ms (one step under torch.profiler, which took "
+              f"{wall_prof:.2f} ms of wall time, {wall_prof - wall_step:.2f} ms over the median) "
+              f"of the median {wall_step:.2f} ms end to end: idle share {idle:.3f}", flush=True)
 
     # the untrained field the fit started from, upsampled as the fit did
     h, w = scene.hw
@@ -1038,14 +1161,93 @@ def phase_seed_fit(dev, card, report, workdir):
             "seed_fit_dense_ms": _median(probe.ms["dense"]),
             "seed_fit_compact_ms": _median(probe.ms["compact"]),
             "seed_fit_dense_loop_ms": _median(probe.loop_ms["dense"]),
-            "seed_fit_compact_loop_ms": _median(probe.loop_ms["compact"])}
+            "seed_fit_compact_loop_ms": _median(probe.loop_ms["compact"]),
+            "seed_fit_dense_idle_share": idle}
 
 
-def main():
+def _seed_fit_configs(workdir, hw, **overrides):
+    """(TrainConfig, SceneConfig) of the JAX benchmark's seed fit (module
+    docstring, phase 6) under ``workdir``, with TrainConfig overrides."""
+    from text2nerf_tpu_torch.data import scene_state as ss
+    from text2nerf_tpu_torch.engine import trainer
+
+    scene_cfg = ss.SceneConfig(
+        datadir=f"{workdir}/scene", prompt="a beautiful garden with flowers",
+        pose_traj="local_fixed", num_training=1, hw=hw,
+    )
+    cfg = trainer.TrainConfig(**{**dict(
+        expname="seed", basedir=f"{workdir}/log", n_stage1=SEED_FIT_EPOCHS[0], n_stage2=0,
+        n_stage3=SEED_FIT_EPOCHS[1], batch_size=N_RAYS_TRAIN, seed=11,
+        n_voxel_init=SEED_FIT_VOXELS[0], n_voxel_final=SEED_FIT_VOXELS[1],
+        upsamp_list=(SEED_FIT_UPSAMPLE,), update_alphamask_list=(SEED_FIT_ALPHA_MASK,),
+        eval_mask_pool=5), **overrides})
+    return cfg, scene_cfg
+
+
+# stage 3's compaction settings tried on the seed fit (TrainConfig overrides)
+SEED_FIT_VARIANTS = {
+    "defaults": {},  # compacted K 64, depth-anchored band 6
+    "stage3_dense": dict(train_compact_k=0),
+    "first_k64": dict(train_depth_cap_band=0),
+    "k256_first": dict(train_compact_k=256, train_depth_cap_band=0),
+    "k256_band6": dict(train_compact_k=256),
+    "smoke": SEED_FIT_COMPACT,
+}
+
+
+def phase_seed_fit_variants(dev, names, hw=(256, 256)):
+    """The seed fit at the JAX benchmark's 256^2 once per variant of stage
+    3's compaction settings, with an eval of the seed view after every
+    epoch and the train metrics logged every step, no device sync between
+    steps.  Prints, per variant: the wall time, the eval PSNRs, the train
+    PSNR of the last dense step and of the first and last compacted ones."""
+    import torch
+    from text2nerf_tpu_torch.engine import trainer
+    from text2nerf_tpu_torch.engine import train_step as ts
+    from text2nerf_tpu_torch.ops.kernels import _build
+    from text2nerf_tpu_torch.ops.kernels import factor_features as ff
+    from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
+
+    for name in names:
+        root = _build.BUILD_DIR / f"seed_fit_{name}"
+        shutil.rmtree(root, ignore_errors=True)
+        cfg, scene_cfg = _seed_fit_configs(
+            str(root), hw, eval_every_epochs=1, progress_refresh_rate=1, vis_support_views=False,
+            **SEED_FIT_VARIANTS[name])
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _StepProbe(ts, ff, sm, measure=False) as probe:
+                logfolder = trainer.reconstruction(cfg, scene_cfg, device=dev)[4]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rows = [json.loads(line) for line in open(f"{logfolder}/metrics.jsonl")]
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        psnr = [r["psnr"] for r in rows if "psnr" in r]
+        evals = [(r["step"], round(r["eval_psnr"], 3)) for r in rows if "eval_psnr" in r]
+        compact = [p for p, k in zip(psnr, probe.kinds) if k == "compact"] or [float("nan")]
+        dense = [p for p, k in zip(psnr, probe.kinds) if k == "dense"]
+        print(f"seed fit variant {name} {SEED_FIT_VARIANTS[name]}: {wall:.1f} s, {len(dense)} "
+              f"dense and {probe.kinds.count('compact')} compacted steps; eval PSNR by step "
+              f"{evals}; train PSNR "
+              f"last dense {dense[-1]:.2f}, compacted first {compact[0]:.2f} last "
+              f"{compact[-1]:.2f}", flush=True)
+
+
+def main(argv):
     import os
 
     import torch
 
+    variants = None
+    if argv:
+        variants = argv[1:] or list(SEED_FIT_VARIANTS)
+        unknown = [n for n in variants if n not in SEED_FIT_VARIANTS]
+        if argv[0] != "--seed-fit-variants" or unknown:
+            print(f"usage: chip_smoke.py [--seed-fit-variants [NAME ...]], NAME in "
+                  f"{list(SEED_FIT_VARIANTS)}", file=sys.stderr)
+            return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1068,6 +1270,9 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "C7512" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    if variants is not None:
+        phase_seed_fit_variants(dev, variants)
+        return 0
 
     report = {}
     phase_kernels(dev, report)
@@ -1096,4 +1301,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

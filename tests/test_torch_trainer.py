@@ -242,6 +242,20 @@ def test_seed_fit_needs_no_imageio_pil_or_cv2(tmp_path, monkeypatch):
         PER.write_video(str(tmp_path / "v.mp4"), [np.zeros((8, 8, 3), np.uint8)] * 2)
 
 
+@pytest.mark.parametrize("flag", ["render_train", "render_test", "render_path"])
+def test_video_runs_without_an_encoder_raise_before_any_work(tmp_path, monkeypatch, flag):
+    for name in ("imageio", "imageio.v2", "PIL", "PIL.Image"):
+        monkeypatch.setitem(sys.modules, name, None)
+    cfg = PT.TrainConfig(basedir=str(tmp_path / "log"), n_stage2=0, **{flag: True})
+    with pytest.raises(RuntimeError, match="no video encoder.*imageio.*PIL"):
+        PT.reconstruction(cfg, _scene(pss.SceneConfig, tmp_path / "d"), device="cpu")
+    assert not os.path.exists(tmp_path / "log") and not os.path.exists(tmp_path / "d")
+    with pytest.raises(RuntimeError, match="no video encoder"):
+        PER.evaluation_path(None, None, np.eye(4)[None], HW, (1.0, 1.0, 1.0, 1.0),
+                            n_samples=8, save_path=str(tmp_path / "path"), device="cpu")
+    assert not os.path.exists(tmp_path / "path")
+
+
 def test_write_video_falls_back_to_mjpeg_avi(tmp_path):
     from text2nerf_tpu.utils.mjpeg_avi import read_mjpeg_avi
 
@@ -256,7 +270,8 @@ def test_write_video_falls_back_to_mjpeg_avi(tmp_path):
 def test_unported_options_raise_before_any_work(tmp_path):
     scene = _scene(pss.SceneConfig, tmp_path / "d")
     for kw, what in ((dict(n_stage2=1), "expansion"), (dict(resume=True), "resume"),
-                     (dict(checkpoint_backend="orbax"), "orbax")):
+                     (dict(checkpoint_backend="orbax"), "orbax"),
+                     (dict(stage3_balance="tail_deficit"), "stage3_balance.*expansion")):
         cfg = PT.TrainConfig(basedir=str(tmp_path / "log"), **kw)
         with pytest.raises(NotImplementedError, match=what):
             PT.reconstruction(cfg, scene, device="cpu")

@@ -22,6 +22,20 @@ from ..utils.png import write_png
 from . import metrics as M
 
 
+def check_video_encoders() -> None:
+    """Raise, naming the encoders, when :func:`write_video` could write
+    nothing: neither imageio nor PIL can be imported.  Callers that will
+    write a video call it before they render."""
+    missing = []
+    for name, use in (("imageio.v2", "mp4, GIF"), ("PIL.Image", "MJPEG AVI")):
+        try:
+            __import__(name)
+            return
+        except ImportError as e:
+            missing.append(f"{name.split('.')[0]} ({use}): {e}")
+    raise RuntimeError("no video encoder can be imported: " + "; ".join(missing))
+
+
 def write_video(path: str, frames, fps: int = 30, quality: int = 9) -> str:
     """Write ``frames`` as an mp4 through imageio, else as an MJPEG AVI
     (PIL's JPEG encoder), else as an animated GIF through imageio.
@@ -93,6 +107,8 @@ def evaluation(
     dev = resolve_device(device)
     if compute_extra_metrics:
         raise NotImplementedError("SSIM and LPIPS are not ported yet")
+    if video and save_path:
+        check_video_encoders()
     psnrs, rgb_maps, depth_maps = [], [], []
     if save_path:
         os.makedirs(os.path.join(save_path, "rgbs"), exist_ok=True)
@@ -135,8 +151,11 @@ def evaluation_path(
     """Render along a camera path, generating rays per pose.  Pass
     ``alpha_mask`` (and ``compact_k``; -1 is the adaptive renderer) for
     the mask's culling.  With ``save_path``, PNG frames and the two
-    videos.  Returns (rgb uint8 frames, depth-vis frames)."""
+    videos (raises before rendering when no video encoder can be
+    imported).  Returns (rgb uint8 frames, depth-vis frames)."""
     dev = resolve_device(device)
+    if save_path:
+        check_video_encoders()
     h, w = hw
     fx, fy, cx, cy = intrinsic
     dirs = ray_ops.ray_directions(h, w, (fx, fy), (cx, cy), device=dev)

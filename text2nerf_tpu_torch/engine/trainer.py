@@ -16,8 +16,11 @@ path renders.
 
 Left out of this slice, each raising ``NotImplementedError`` before any
 work: scene expansion (``n_stage2 > 0`` with more than one trajectory
-view), ``resume`` (scene snapshots), ``checkpoint_backend="orbax"``,
-``ndc_ray`` and the bf16 train step.
+view) and the stage-3 view weighting it feeds (``stage3_balance``),
+``resume`` (scene snapshots), ``checkpoint_backend="orbax"``, ``ndc_ray``
+and the bf16 train step.  A run asked for videos (``render_train``,
+``render_test``, ``render_path``) raises before any work when no video
+encoder can be imported.
 
 The JAX trainer overlaps the first train step's XLA compile with the
 bootstrap in a warm-up thread that swallows its failures.  PyTorch
@@ -105,7 +108,7 @@ class TrainConfig:
     # depth-anchored window: band in march steps behind the supervised depth
     train_depth_cap_band: int = 6
     # stage-3 sampling: 'uniform', or 'tail_deficit' (one view per batch,
-    # drawn by stage3_view_weights)
+    # drawn by stage3_view_weights; only with expansion, not ported yet)
     stage3_balance: str = "uniform"
     stage3_balance_gamma: float = 1.0
     seed: int = 1024
@@ -166,33 +169,6 @@ def _batch_from_pool(pool, ids, device):
         "rgb": as_tensor(rgbs[ids], device),
         "depth": as_tensor(depths[ids], device),
     }
-
-
-class _WeightedViewSampler:
-    """Stage-3 batch source for stage3_balance='tail_deficit': each batch
-    comes from one view's pool, the view drawn ∝ weights; within a view,
-    permutation sampling.  Batches are tensors on ``device``."""
-
-    def __init__(self, pools, weights, batch: int, seed: int, device=None):
-        self.pools = pools
-        self.weights = np.asarray(weights, np.float64)
-        self.batch = int(batch)
-        self.device = resolve_device(device)
-        self.samplers = [
-            ts.PermutationSampler(len(p[0]), batch, seed + 31 * i)
-            if len(p[0]) >= batch else None
-            for i, p in enumerate(pools)
-        ]
-        self._rng = np.random.default_rng(seed)
-
-    def next_batch(self):
-        v = int(self._rng.choice(len(self.pools), p=self.weights))
-        if self.samplers[v] is not None:
-            ids = self.samplers[v].next_ids()
-        else:
-            # a pool smaller than the batch: draw with replacement
-            ids = self._rng.integers(0, len(self.pools[v][0]), self.batch)
-        return _batch_from_pool(self.pools[v], ids, self.device)
 
 
 def _resolve_group(cfg: TrainConfig, aabb, reso, step_ratio):
@@ -283,10 +259,16 @@ def _check_ported(cfg: TrainConfig, scene_cfg: ss.SceneConfig) -> None:
         raise NotImplementedError(
             f"train_compute_dtype={cfg.train_compute_dtype!r}: the bf16 backward is not "
             "ported yet")
+    if cfg.stage3_balance != "uniform":
+        raise NotImplementedError(
+            f"stage3_balance={cfg.stage3_balance!r} weights the views scene expansion "
+            "adds, which is not ported yet")
     if cfg.n_stage2 > 0 and _n_training_views(scene_cfg) > 1:
         raise NotImplementedError(
             "n_stage2 > 0 with more than one trajectory view needs scene expansion, "
             "which is not ported yet (set n_stage2=0 for the seed fit)")
+    if cfg.render_train or cfg.render_test or cfg.render_path:
+        eval_renderer.check_video_encoders()
 
 
 def reconstruction(cfg: TrainConfig, scene_cfg: ss.SceneConfig,
@@ -524,6 +506,8 @@ def render_test(cfg: TrainConfig, scene_cfg: ss.SceneConfig, *, device=None):
     dev = resolve_device(device)
     if not (cfg.ckpt and os.path.exists(cfg.ckpt)):
         raise FileNotFoundError(f"render_test needs a checkpoint, got ckpt={cfg.ckpt!r}")
+    if cfg.render_test or cfg.render_path:
+        eval_renderer.check_video_encoders()
     mcfg, field, aabb, alpha_mask, _ = ckpt.load_checkpoint(cfg.ckpt, device=dev)
     field.requires_grad_(False)
     scene = ss.bootstrap_scene(scene_cfg, "test", device=dev)

@@ -1,11 +1,12 @@
 """Native host kernels (C++ through ctypes), built at first use.
 
 ``host_ops.cpp`` beside this file is the port's own copy of the JAX
-package's host kernels.  It is compiled with ``g++ -O3 -shared -fPIC``
-into ``text2nerf_tpu_torch/build/libhost_ops-<hash>.so`` (the hash covers
-the source and the flags, as for the CUDA kernels).  A build or load
-failure raises: there is no quiet fallback.  Only ``sparse_bilateral`` is
-bound here; the hole fills and the z-buffer splat come with expansion.
+package's sparse bilateral filter (the hole fills and the z-buffer splat
+of the same source serve scene expansion and come with it).  It is
+compiled with ``g++ -O3 -shared -fPIC`` into
+``text2nerf_tpu_torch/build/libhost_ops-<hash>.so`` (the hash covers the
+source and the flags, as for the CUDA kernels).  A build or load failure
+raises: there is no quiet fallback.
 """
 
 from __future__ import annotations

@@ -1,14 +1,8 @@
-// Host-side image kernels for the DIBR pipeline (C runtime, ctypes ABI).
+// Host-side sparse bilateral filter (C runtime, ctypes ABI).
 //
-// The PyTorch port's own copy of the JAX package's native host kernels.
-// Text2NeRF implements these as per-pixel Python loops, the dominant host
-// cost of its scene-expansion step:
-//   * dibr_filter_mask2 (Text2NeRF utils.py:394-409): raster-order
-//     weighted hole filling where newly-filled pixels immediately count as
-//     known for later pixels (order-dependent, so not expressible as a
-//     synchronous vectorized pass).
-//   * dibr_filter_mask (Text2NeRF utils.py:345-391): the two-stage
-//     variant with border extension and an isolated-pixel removal pass.
+// The PyTorch port's own copy of the JAX package's native host kernel for
+// the scene bootstrap's depth and image filtering.  The hole fills and the
+// z-buffer splat of the same source serve scene expansion and come with it.
 //
 // Built with g++ -O3 -shared -fPIC at first use and loaded via ctypes by
 // text2nerf_tpu_torch/native/__init__.py.
@@ -18,139 +12,7 @@
 #include <cmath>
 #include <vector>
 
-namespace {
-
-// 5x5 neighborhood weights (utils.py:347,396)
-const float W5[25] = {
-    1.f, 1.f, 1.5f, 1.f, 1.f,
-    1.f, 1.5f, 3.f, 1.5f, 1.f,
-    1.5f, 3.f, 0.f, 3.f, 1.5f,
-    1.f, 1.5f, 3.f, 1.5f, 1.f,
-    1.f, 1.f, 1.5f, 1.f, 1.f,
-};
-// 3x3 weights for the validity test of the removal pass (utils.py:356)
-const float W3[9] = {1.f, 3.f, 1.f, 3.f, 0.f, 3.f, 1.f, 3.f, 1.f};
-
-inline float weighted_known_fraction_5x5(const float* mask, int h, int w,
-                                         int i, int j) {
-  float sum = 0.f, total = 0.f;
-  for (int di = -2; di <= 2; ++di)
-    for (int dj = -2; dj <= 2; ++dj) {
-      float wgt = W5[(di + 2) * 5 + (dj + 2)];
-      total += wgt;
-      sum += wgt * mask[(i + di) * w + (j + dj)];
-    }
-  return sum / total;
-}
-
-inline float weighted_known_fraction_3x3(const float* mask, int h, int w,
-                                         int i, int j) {
-  float sum = 0.f, total = 0.f;
-  for (int di = -1; di <= 1; ++di)
-    for (int dj = -1; dj <= 1; ++dj) {
-      float wgt = W3[(di + 1) * 3 + (dj + 1)];
-      total += wgt;
-      sum += wgt * mask[(i + di) * w + (j + dj)];
-    }
-  return sum / total;
-}
-
-// mask-weighted 3x3 mean fill of image (and optional depth) at (i, j)
-inline void fill_pixel(float* image, float* depth, const float* mask, int h,
-                       int w, int c, int i, int j) {
-  float msum = 0.f;
-  for (int di = -1; di <= 1; ++di)
-    for (int dj = -1; dj <= 1; ++dj) msum += mask[(i + di) * w + (j + dj)];
-  if (msum <= 0.f) return;
-  for (int cc = 0; cc < c; ++cc) {
-    float acc = 0.f;
-    for (int di = -1; di <= 1; ++di)
-      for (int dj = -1; dj <= 1; ++dj)
-        acc += image[((i + di) * w + (j + dj)) * c + cc] *
-               mask[(i + di) * w + (j + dj)];
-    image[(i * w + j) * c + cc] = acc / msum;
-  }
-  if (depth) {
-    float acc = 0.f;
-    for (int di = -1; di <= 1; ++di)
-      for (int dj = -1; dj <= 1; ++dj)
-        acc += depth[(i + di) * w + (j + dj)] * mask[(i + di) * w + (j + dj)];
-    depth[i * w + j] = acc / msum;
-  }
-}
-
-}  // namespace
-
 extern "C" {
-
-// dibr_filter_mask2 (utils.py:394-409): one raster-order pass; mutates
-// image (H*W*C), mask (H*W) and depth (H*W, may be null) in place.
-void dibr_hole_fill2(float* image, float* mask, float* depth, int h, int w,
-                     int c, float threshold) {
-  for (int i = 2; i < h - 2; ++i)
-    for (int j = 2; j < w - 2; ++j) {
-      if (mask[i * w + j] != 0.f) continue;
-      if (weighted_known_fraction_5x5(mask, h, w, i, j) > threshold) {
-        fill_pixel(image, depth, mask, h, w, c, i, j);
-        mask[i * w + j] = 1.f;
-      }
-    }
-}
-
-// dibr_filter_mask (utils.py:345-391): 5x5 pass (threshold 0.6), 3x3 pass
-// (threshold 0.5), border extension, isolated-pixel removal (<0.45).
-void dibr_hole_fill1(float* image, float* mask, int h, int w, int c,
-                     float fill_value) {
-  for (int i = 2; i < h - 2; ++i)
-    for (int j = 2; j < w - 2; ++j)
-      if (mask[i * w + j] == 0.f &&
-          weighted_known_fraction_5x5(mask, h, w, i, j) > 0.6f) {
-        fill_pixel(image, nullptr, mask, h, w, c, i, j);
-        mask[i * w + j] = 1.f;
-      }
-  for (int i = 1; i < h - 1; ++i)
-    for (int j = 1; j < w - 1; ++j)
-      if (mask[i * w + j] == 0.f &&
-          weighted_known_fraction_3x3(mask, h, w, i, j) > 0.5f) {
-        fill_pixel(image, nullptr, mask, h, w, c, i, j);
-        mask[i * w + j] = 1.f;
-      }
-  // border extension (utils.py:364-383)
-  for (int j = 0; j < w; ++j) {
-    if (mask[j] == 0.f && mask[w + j] > 0.f) {
-      for (int cc = 0; cc < c; ++cc) image[j * c + cc] = image[(w + j) * c + cc];
-      mask[j] = 1.f;
-    }
-    int i = h - 1;
-    if (mask[i * w + j] == 0.f && mask[(i - 1) * w + j] > 0.f) {
-      for (int cc = 0; cc < c; ++cc)
-        image[(i * w + j) * c + cc] = image[((i - 1) * w + j) * c + cc];
-      mask[i * w + j] = 1.f;
-    }
-  }
-  for (int i = 0; i < h; ++i) {
-    if (mask[i * w] == 0.f && mask[i * w + 1] > 0.f) {
-      for (int cc = 0; cc < c; ++cc)
-        image[(i * w) * c + cc] = image[(i * w + 1) * c + cc];
-      mask[i * w] = 1.f;
-    }
-    int j = w - 1;
-    if (mask[i * w + j] == 0.f && mask[i * w + j - 1] > 0.f) {
-      for (int cc = 0; cc < c; ++cc)
-        image[(i * w + j) * c + cc] = image[(i * w + j - 1) * c + cc];
-      mask[i * w + j] = 1.f;
-    }
-  }
-  // isolated-pixel removal (utils.py:384-389)
-  for (int i = 1; i < h - 1; ++i)
-    for (int j = 1; j < w - 1; ++j)
-      if (mask[i * w + j] == 1.f &&
-          weighted_known_fraction_3x3(mask, h, w, i, j) < 0.45f) {
-        for (int cc = 0; cc < c; ++cc)
-          image[(i * w + j) * c + cc] = fill_value;
-        mask[i * w + j] = 0.f;
-      }
-}
 
 // Sparse bilateral filtering (bilateral_filtering.py:5-35 driver +
 // :138-228 discontinuity-median branch), bit-exact to the JAX package's
@@ -301,26 +163,6 @@ void sparse_bilateral(float* depth_io, float* image_io, const float* depth0,
       for (size_t p = 0; p < n; ++p) image_io[p * c + cc] = buf[p];
     }
   }
-}
-
-// Sequential z-buffer point splat (the legacy per-pixel warp path,
-// utils.py:199-213 / scene_util.py:75-89): first writer wins per target
-// pixel, scanning sources in raster order.  xs/ys are rounded target
-// coordinates, zs the target-space depths.
-void zbuffer_point_splat(const int16_t* xs, const int16_t* ys,
-                         const float* zs, const float* src, float* out,
-                         float* points, uint8_t* mask, int h, int w, int c) {
-  for (int i = 0; i < h; ++i)
-    for (int j = 0; j < w; ++j) {
-      int x = xs[i * w + j], y = ys[i * w + j];
-      float z = zs[i * w + j];
-      if (x < 0 || x >= w || y < 0 || y >= h || z <= 0.f) continue;
-      if (mask[y * w + x]) continue;
-      for (int cc = 0; cc < c; ++cc)
-        out[(y * w + x) * c + cc] = src[(i * w + j) * c + cc];
-      if (points) points[y * w + x] = z;
-      mask[y * w + x] = 1;
-    }
 }
 
 }  // extern "C"
