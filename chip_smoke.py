@@ -58,7 +58,23 @@ Phases (any failure exits nonzero before the last line):
    seed view at the logged PSNR.  The inputs of the first launch of each
    kernel and mode in a dense step on the 300^3 grid, in the first
    compacted step on the shrunk grid and in the evals after it are
-   captured and held against the plain versions at phase 3's tolerances.
+   captured and held against the plain versions at phase 3's tolerances;
+7. progressive fit: trainer.reconstruction on a two-view trajectory
+   (circle0_30, a real disocclusion) with phase 6's configuration and
+   n_stage1 2, n_stage2 1, n_stage3 1, on default_services: procedural
+   text2img and depth, diffusion_fill_inpaint, histogram_rank, and the
+   merge net at its production shape (unet_1024, 10 downs, bf16, seeded
+   random init), with ExpansionConfig's defaults (20 candidates, 500
+   merge iterations).  Every phase/expand1_* row must be logged, the
+   DIBR/ tree complete when reconstruction returns, the new view's pool
+   non-empty and sampled by most stage-2 steps; kernels A and B must be
+   launched in the expansion's renders and A' in the first stage-2 step,
+   each held against its plain version on inputs captured there; the
+   seed view's final PSNR must beat the untrained field's by 5 dB.  The
+   expansion's merge call runs again, fp32 with TF32 off and 2
+   iterations, on the card and on the CPU, held within a relative bound.
+   Prints the wall of each expansion sub-phase, ms per merge iteration
+   and per inpaint call, and the fit's wall and step ms.
 
 Prints a JSON line of per-kernel numbers, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -74,6 +90,7 @@ with no device sync between steps, and prints a line for each.
 
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -123,6 +140,10 @@ TOL = {
     # trainer's logged eval (dB): the same field and mask, the adaptive
     # renderer's base rung chosen afresh
     "reload_psnr": 0.01,
+    # the merge net's finetune (fp32, TF32 off) on the card vs the CPU, of
+    # the largest output: conv sums in other orders, and Adam's first steps
+    # move every weight by about lr whatever its gradient's size
+    "merge": 1e-3,
 }
 SEED_FIT_HW = (512, 512)
 SEED_FIT_EPOCHS = (2, 1)  # n_stage1, n_stage3
@@ -869,6 +890,7 @@ class _StepProbe:
         self.busy = None
         self.captured = {}  # (where, kernel, mode) -> the launch's inputs
         self._tag = None  # where launches are captured now, or None
+        self.tag_next = None  # where the next step's launches are captured
         self._last_end = None
         self._prof = None
 
@@ -943,6 +965,8 @@ class _StepProbe:
         first_compact = kind == "compact" and "compact" not in self.kinds[:-1]
         captured = (kind == "dense" and n_dense == self.CAPTURED_DENSE) or first_compact
         self._tag = kind if captured else None
+        if self.tag_next is not None:
+            self._tag, self.tag_next = self.tag_next, None
         modes0, routes0, fwd0 = dict(ff.BWD_MODES), dict(ff.BWD_ROUTES), ff.LAUNCHES
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -992,17 +1016,18 @@ SEED_FIT_HELD = (("dense", "A'", "density"), ("dense", "A'", "app"),
                  ("eval", "B", "fp32"))
 
 
-def _hold_seed_fit_kernels(captured, report):
-    """Each launch _StepProbe captured in the seed fit, again through its
-    wrapper and through its plain version, at phase 3's tolerances."""
+def _hold_seed_fit_kernels(captured, report, held=SEED_FIT_HELD, label="seed fit"):
+    """Each launch _StepProbe captured in a fit (``held`` must be among
+    them), again through its wrapper and through its plain version, at
+    phase 3's tolerances."""
     import torch
     from text2nerf_tpu_torch.ops.kernels import factor_features as ff
     from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
 
     names = {"A": "factor_features", "A'": "factor_features_bwd", "B": "shading_mlp"}
-    missing = [k for k in SEED_FIT_HELD if k not in captured]
-    _require(not missing and any(k[:2] == ("dense", "A") for k in captured),
-             f"the seed fit's launches were not captured: {missing}; have {sorted(captured)}")
+    missing = [k for k in held if k not in captured]
+    _require(not missing, f"the {label}'s launches were not captured: {missing}; have "
+             f"{sorted(captured)}")
     for (where, kernel, mode), c in sorted(captured.items()):
         if kernel == "A":
             args = (c["xn"], c["planes"], c["lines"], c["nd"])
@@ -1016,7 +1041,7 @@ def _hold_seed_fit_kernels(captured, report):
             got = ff.factor_features_backward(*args)
             ref = ff.factor_features_backward_plain(*args)
             torch.cuda.synchronize()
-            err = _bwd_rel_err(got, ref, f"seed fit {where} kernel A' {mode}")
+            err = _bwd_rel_err(got, ref, f"{label} {where} kernel A' {mode}")
             tol, n, what = TOL["bwd"], c["xn"].shape[0], "of each table's largest"
             mode += f", {ff.BWD_LAST_GRID[0]} route"
         else:
@@ -1026,11 +1051,12 @@ def _hold_seed_fit_kernels(captured, report):
             err = float((got - ref).abs().max())
             tol, n, what = TOL["head"], c["features"].shape[0], "max_abs_err"
         grid = tuple(c["lines"][i].shape[0] for i in (2, 1, 0)) if "lines" in c else None
-        print(f"seed fit {where:7s} kernel {kernel:2s} {mode}: {n} {'rows' if grid is None else 'samples'}"
+        print(f"{label} {where:7s} kernel {kernel:2s} {mode}: {n} {'rows' if grid is None else 'samples'}"
               f"{'' if grid is None else f' on grid {grid}'}, {err:.3e} {what} (tol {tol:g})",
               flush=True)
-        _require(err <= tol, f"seed fit {where} kernel {kernel} {mode}: {err} > {tol}")
-        report[names[kernel]].setdefault("seed_fit_err", {})[f"{where} {mode}"] = err
+        _require(err <= tol, f"{label} {where} kernel {kernel} {mode}: {err} > {tol}")
+        report[names[kernel]].setdefault(f"{label.replace(' ', '_')}_err", {})[
+            f"{where} {mode}"] = err
         del got, ref
     torch.cuda.empty_cache()
 
@@ -1071,6 +1097,8 @@ def phase_seed_fit(dev, card, report, workdir):
         _require(count > 0, f"{name} was not launched on the seed fit")
         report[name]["launches"] = report[name].get("launches", 0) + count
         report[name].setdefault("launches_by_path", {})["seed_fit"] = count
+    _require(any(k[:2] == ("dense", "A") for k in probe.captured),
+             f"no dense kernel A launch was captured: {sorted(probe.captured)}")
     _hold_seed_fit_kernels(probe.captured, report)
     probe.captured.clear()
 
@@ -1165,16 +1193,16 @@ def phase_seed_fit(dev, card, report, workdir):
             "seed_fit_dense_idle_share": idle}
 
 
-def _seed_fit_configs(workdir, hw, **overrides):
+def _seed_fit_configs(workdir, hw, scene=None, **overrides):
     """(TrainConfig, SceneConfig) of the JAX benchmark's seed fit (module
-    docstring, phase 6) under ``workdir``, with TrainConfig overrides."""
+    docstring, phase 6) under ``workdir``, with SceneConfig (``scene``)
+    and TrainConfig overrides."""
     from text2nerf_tpu_torch.data import scene_state as ss
     from text2nerf_tpu_torch.engine import trainer
 
-    scene_cfg = ss.SceneConfig(
+    scene_cfg = ss.SceneConfig(**{**dict(
         datadir=f"{workdir}/scene", prompt="a beautiful garden with flowers",
-        pose_traj="local_fixed", num_training=1, hw=hw,
-    )
+        pose_traj="local_fixed", num_training=1, hw=hw), **(scene or {})})
     cfg = trainer.TrainConfig(**{**dict(
         expname="seed", basedir=f"{workdir}/log", n_stage1=SEED_FIT_EPOCHS[0], n_stage2=0,
         n_stage3=SEED_FIT_EPOCHS[1], batch_size=N_RAYS_TRAIN, seed=11,
@@ -1182,6 +1210,233 @@ def _seed_fit_configs(workdir, hw, **overrides):
         upsamp_list=(SEED_FIT_UPSAMPLE,), update_alphamask_list=(SEED_FIT_ALPHA_MASK,),
         eval_mask_pool=5), **overrides})
     return cfg, scene_cfg
+
+
+# phase 7: the progressive fit (stage 1, one expansion, stage 2, stage 3)
+PROGRESSIVE_EPOCHS = (2, 1, 1)  # n_stage1, n_stage2, n_stage3
+PROGRESSIVE_SCENE = dict(pose_traj="circle0_30", num_training=2)
+# every sub-phase expand_scene logs for view 1, and the view's DIBR tree
+EXPAND_PHASES = ("render_filter_known", "dibr_warp", "dibr_holefill", "render_target",
+                 "inpaint_rank", "depth_align", "merge_finetune", "filter_new",
+                 "support_pool")
+N_CANDIDATES = 20  # ExpansionConfig's default
+DIBR_FILES = sorted(["warped/00001.png", "mask/00001.png", "mask_inv/00001.png",
+                     "rendered/00001_ori.png", "rgbs/00001.png",
+                     "depth/00001_depth_finetuning2.png", "depth/00001_new.png"]
+                    + [f"rgbs/00001_{i:03d}.png" for i in range(N_CANDIDATES)])
+# the launches held: B and every mode of A that ran in the expansion's
+# renders, every mode of A' that ran in the first stage-2 step, and the
+# compacted step's fused A and A' in the first compacted step
+PROGRESSIVE_HELD = (("expand", "B", "fp32"), ("compact", "A", "fused fp32"),
+                    ("compact", "A'", "fused"))
+MERGE_CHECK_ITERS = 2
+
+
+class _Timed:
+    """Wraps a callable, keeping the wall clock of each call (ms), the
+    device synchronized around it; ``keep`` keeps the first call's
+    arguments."""
+
+    def __init__(self, fn, keep=False):
+        self.fn, self.keep, self.ms, self.args = fn, keep, [], None
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        if self.keep and self.args is None:
+            self.args = (args, kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def _merge_card_vs_cpu(dev, merge, args, kw):
+    """The expansion's own merge call again, fp32 with TF32 off and
+    MERGE_CHECK_ITERS iterations, at its net's size on the card and on
+    the CPU from the same init: (max |difference| over the largest |output|,
+    card ms, CPU ms)."""
+    import torch
+    from text2nerf_tpu_torch.services.merge import DepthMergeService
+
+    kw = dict(kw, iters=MERGE_CHECK_ITERS)
+    outs, ms = [], []
+    for device in (dev, "cpu"):
+        svc = DepthMergeService(net_size=merge.net_size, num_downs=merge.num_downs,
+                                seed=merge.seed, compute_dtype=torch.float32, device=device)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            t0 = time.perf_counter()
+            outs.append(svc.run_finetune(*args, **kw))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    import numpy as np
+
+    return float(np.abs(outs[0] - outs[1]).max() / np.abs(outs[1]).max()), ms[0], ms[1]
+
+
+def phase_progressive_fit(dev, card, report, workdir):
+    """The progressive fit through trainer.reconstruction (module
+    docstring, phase 7)."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch.engine import checkpoints as ckpt
+    from text2nerf_tpu_torch.engine import expansion, renderer, trainer
+    from text2nerf_tpu_torch.engine import train_step as ts
+    from text2nerf_tpu_torch.models import tensorf as tf
+    from text2nerf_tpu_torch.ops.kernels import factor_features as ff
+    from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
+    from text2nerf_tpu_torch.services.registry import default_services
+    from text2nerf_tpu_torch.utils.png import read_png
+
+    n1, n2, n3 = PROGRESSIVE_EPOCHS
+    cfg, scene_cfg = _seed_fit_configs(
+        workdir, SEED_FIT_HW, scene=PROGRESSIVE_SCENE, n_stage1=n1, n_stage2=n2, n_stage3=n3,
+        eval_every_epochs=sum(PROGRESSIVE_EPOCHS), **SEED_FIT_COMPACT)
+    services = default_services(hw=scene_cfg.hw, device=dev)
+    ex = expansion.ExpansionConfig(prompt=scene_cfg.prompt, push_depth=scene_cfg.push_depth,
+                                   trans_range=scene_cfg.trans_range)
+    _require(ex.n_candidates == N_CANDIDATES, "the expansion does not run its defaults")
+    merge = services.merge
+    _require((merge.net_size, merge.num_downs, merge.compute_dtype)
+             == (1024, 10, torch.bfloat16), "the merge net is not unet_1024 in bf16")
+    print(f"progressive fit: hw {SEED_FIT_HW}, {scene_cfg.pose_traj} x {scene_cfg.num_training} "
+          f"views, epochs {PROGRESSIVE_EPOCHS}, the seed fit's grid and milestones, stage 2 and 3 "
+          f"{SEED_FIT_COMPACT}; expansion {ex}; merge net {merge.net_size}/{merge.num_downs} "
+          f"bf16", flush=True)
+
+    services.inpaint = _Timed(services.inpaint)
+    merge.run_finetune = _Timed(merge.run_finetune, keep=True)
+    expand0, batch0 = expansion.expand_scene, trainer._batch_from_pool
+    drawn = []  # the pool size of every batch the trainer drew
+
+    def batch_from_pool(pool, ids, device):
+        drawn.append(len(pool[0]))
+        return batch0(pool, ids, device)
+
+    with _StepProbe(ts, ff, sm) as probe:
+        def expand(*args, **kw):
+            launches = (ff.LAUNCHES, sm.LAUNCHES)
+            probe._tag = "expand"
+            try:
+                return expand0(*args, **kw)
+            finally:
+                probe._tag, probe.tag_next = None, "stage2"
+                probe.expand_launches = (ff.LAUNCHES - launches[0], sm.LAUNCHES - launches[1])
+
+        expansion.expand_scene, trainer._batch_from_pool = expand, batch_from_pool
+        try:
+            torch.cuda.synchronize()
+            ff.LAUNCHES = ff.BWD_LAUNCHES = sm.LAUNCHES = 0
+            t0 = time.perf_counter()
+            mcfg, field, aabb, scene, logfolder = trainer.reconstruction(
+                cfg, scene_cfg, services, ex, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            expansion.expand_scene, trainer._batch_from_pool = expand0, batch0
+    launches = {"factor_features": ff.LAUNCHES, "factor_features_bwd": ff.BWD_LAUNCHES,
+                "shading_mlp": sm.LAUNCHES}
+    print(f"progressive fit launches {launches}, in the expansion's renders A "
+          f"{probe.expand_launches[0]} and B {probe.expand_launches[1]}; wall {wall:.3f} s "
+          f"with a device sync around every step, on {card}", flush=True)
+    for name, count in launches.items():
+        _require(count > 0, f"{name} was not launched on the progressive fit")
+        report[name]["launches"] = report[name].get("launches", 0) + count
+        report[name].setdefault("launches_by_path", {})["progressive_fit"] = count
+    _require(min(probe.expand_launches) > 0
+             and any(k[:2] == ("expand", "A") for k in probe.captured),
+             f"kernels A and B did not run in the expansion: {sorted(probe.captured)}")
+    _require(any(k[:2] == ("stage2", "A'") for k in probe.captured),
+             f"kernel A' did not run in the first stage-2 step: {sorted(probe.captured)}")
+    _hold_seed_fit_kernels(probe.captured, report, PROGRESSIVE_HELD, "progressive fit")
+    probe.captured.clear()
+
+    rows = [json.loads(line) for line in open(f"{logfolder}/metrics.jsonl")]
+    phases = {k[len("phase/"):-2]: v for row in rows for k, v in row.items()
+              if k.startswith("phase/")}
+    missing = [p for p in ("expand_view_1", *(f"expand1_{p}" for p in EXPAND_PHASES))
+               if p not in phases]
+    _require(not missing, f"expansion phases not logged: {missing}")
+    for name in ("expand_view_1", *(f"expand1_{p}" for p in EXPAND_PHASES)):
+        print(f"  phase/{name}_s {phases[name]:.4f}", flush=True)
+    dibr = f"{logfolder}/DIBR"
+    files = sorted(os.path.relpath(os.path.join(d, f), dibr)
+                   for d, _, fs in os.walk(dibr) for f in fs)
+    _require(files == DIBR_FILES, f"DIBR tree {files} is not {DIBR_FILES}")
+    mask = read_png(f"{dibr}/mask/00001.png")
+    _require(mask.shape == tuple(SEED_FIT_HW) and 0 < int((mask == 0).sum()) < mask.size,
+             "the warped mask has no holes to inpaint")
+
+    boundary = next(r for r in rows if "pool_new_rays" in r)
+    n_new = boundary["pool_new_rays"]
+    n_steps2 = boundary["iters_per_epoch"] * n2
+    kinds = probe.kinds
+    stage2 = drawn[boundary["step"]:boundary["step"] + n_steps2]
+    from_new = sum(1 for n in stage2 if n == n_new)
+    print(f"new view: pool {n_new} rays (replay {boundary['pool_replay_rays']}), stage 2 "
+          f"{n_steps2} steps at step {boundary['step']}, {from_new} of them from the new pool; "
+          f"steps {len(kinds)}: {kinds.count('dense')} dense, {kinds.count('compact')} "
+          f"compacted", flush=True)
+    _require(n_new > 0 and len(scene.updates["00001"][0]) == n_new, "the new view's pool is empty")
+    _require(from_new >= n_steps2 // 2, f"stage 2 drew {from_new} of {n_steps2} batches from the "
+             "new view's pool")
+
+    for kind in ("dense", "compact"):
+        print(f"{kind} steps: {len(probe.ms[kind])}, step alone median "
+              f"{_median(probe.ms[kind]):.2f} ms, end to end median "
+              f"{_median(probe.loop_ms[kind]):.2f} ms; A' by mode {probe.modes[kind]}",
+              flush=True)
+    inpaint_ms, merge_ms = services.inpaint.ms, merge.run_finetune.ms
+    print(f"inpaint: {len(inpaint_ms)} calls, {_median(inpaint_ms):.2f} ms median; merge "
+          f"finetune: {ex.merge_iters} iterations in {merge_ms[0]:.1f} ms, "
+          f"{merge_ms[0] / ex.merge_iters:.3f} ms per iteration", flush=True)
+
+    # the untrained field the fit started from, upsampled as the fit did
+    want_up = tf.n_to_reso(SEED_FIT_VOXELS[1], scene.scene_bbox)
+    eval_kw = dict(chunk=cfg.batch_size, app_k=cfg.app_k, white_bg=scene.white_bg,
+                   push_depth=scene_cfg.push_depth, near_far=scene.near_far, device=dev)
+    _, f0, _, _ = trainer.init_field(cfg, scene, device=dev)
+    f0 = tf.upsample_volume_grid(f0, want_up).requires_grad_(False)
+    from text2nerf_tpu_torch.data import scene_state as ss
+
+    z_floor = ss.supervised_z_floor(scene)
+    psnr0 = renderer.evaluation(
+        f0, torch.as_tensor(scene.scene_bbox, device=dev), scene.rays_gen_split[:1],
+        scene.hw, gt_rgbs=scene.rgbs_gen_split, eval_z_min=z_floor,
+        n_samples=tf.default_n_samples(want_up, f0.cfg.step_ratio), **eval_kw)["psnr"][0]
+    del f0
+    _, f1, aabb1, mask1, loop = ckpt.load_checkpoint(f"{logfolder}/{cfg.expname}_final.npz",
+                                                     device=dev)
+    f1.requires_grad_(False)
+    n_samples = next(r["n_samples"] for r in rows if "n_samples" in r)
+    psnr = renderer.evaluation(
+        f1, aabb1, scene.rays_gen_split[:2], scene.hw, gt_rgbs=scene.rgbs_gen_split,
+        n_samples=n_samples, alpha_mask=mask1, compact_k=cfg.eval_compact_k,
+        eval_z_min=z_floor, **eval_kw)["psnr"]
+    evals = [(r["step"], r["eval_psnr"]) for r in rows if "eval_psnr" in r]
+    print(f"eval PSNR: seed view untrained (upsampled) {psnr0:.4f} dB, final {psnr[0]:.4f} dB; "
+          f"generated view final {psnr[1]:.4f} dB; logged means by step {evals} (step "
+          f"{loop['global_step']}, view {loop['view_idx']})", flush=True)
+    _require(loop["view_idx"] == 1 and all(np.isfinite(psnr)), f"final state {loop}, {psnr}")
+    _require(psnr[0] >= psnr0 + 5.0, f"seed view PSNR {psnr[0]} is not 5 dB above {psnr0}")
+
+    # the merge net on the card against the CPU, on the expansion's inputs
+    err, ms_card, ms_cpu = _merge_card_vs_cpu(dev, merge, *merge.run_finetune.args)
+    print(f"merge finetune card vs CPU ({MERGE_CHECK_ITERS} iterations, fp32, TF32 off, "
+          f"{merge.net_size}/{merge.num_downs}): max |diff| {err:.3e} of the largest output "
+          f"(tol {TOL['merge']:g}); {ms_card:.0f} ms on the card, {ms_cpu:.0f} ms on the CPU",
+          flush=True)
+    _require(err <= TOL["merge"], f"merge finetune card vs CPU: {err} > {TOL['merge']}")
+    return {"progressive_wall_s": wall, "progressive_pool_new_rays": n_new,
+            "progressive_expand_s": phases["expand_view_1"],
+            "progressive_merge_ms_per_iter": merge_ms[0] / ex.merge_iters,
+            "progressive_inpaint_ms": _median(inpaint_ms),
+            "progressive_psnr_seed_untrained": psnr0, "progressive_psnr_seed": psnr[0],
+            "progressive_psnr_generated": psnr[1],
+            "progressive_compact_ms": _median(probe.ms["compact"]),
+            "progressive_dense_ms": _median(probe.ms["dense"]),
+            "progressive_merge_card_vs_cpu": err}
 
 
 # stage 3's compaction settings tried on the seed fit (TrainConfig overrides)
@@ -1236,7 +1491,6 @@ def phase_seed_fit_variants(dev, names, hw=(256, 256)):
 
 
 def main(argv):
-    import os
 
     import torch
 
@@ -1290,8 +1544,14 @@ def main(argv):
         seed = phase_seed_fit(dev, card, report, str(seed_dir))
     finally:
         shutil.rmtree(seed_dir, ignore_errors=True)
-    print(json.dumps({"rays_per_s": rays_s, "max_dev": max_dev, **train, **seed, "card": card}),
-          flush=True)
+    prog_dir = _build.BUILD_DIR / "progressive_fit"
+    shutil.rmtree(prog_dir, ignore_errors=True)
+    try:
+        prog = phase_progressive_fit(dev, card, report, str(prog_dir))
+    finally:
+        shutil.rmtree(prog_dir, ignore_errors=True)
+    print(json.dumps({"rays_per_s": rays_s, "max_dev": max_dev, **train, **seed, **prog,
+                      "card": card}), flush=True)
     kernels = [report[k] for k in ("factor_features", "shading_mlp", "factor_features_bwd")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -174,7 +174,11 @@ def test_procedural_services_match_jax(tmp_path):
     (tmp_path / "leres").mkdir()
     with pytest.raises(NotImplementedError, match="leres"):
         preg.default_services(weights_dir=str(tmp_path))
-    assert preg.default_services(weights_dir=str(tmp_path / "empty")).inpaint is None
+    svc = preg.default_services(weights_dir=str(tmp_path / "empty"), device="cpu")
+    assert svc.inpaint.func is pfb.diffusion_fill_inpaint and svc.rank is pfb.histogram_rank
+    assert svc.resolution == {"text2img": "fallback", "inpaint": "fallback",
+                              "depth": "fallback", "rank": "fallback", "merge": "init"}
+    assert (svc.merge.net_size, svc.merge.num_downs) == (1024, 10)
 
 
 @pytest.mark.parametrize("pose_traj", ["local_fixed", "local_double", "local_circle",

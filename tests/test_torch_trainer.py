@@ -25,12 +25,19 @@ brackets):
   so a rounding-level gradient difference moves a parameter further than
   the gradient moved);
 - render_test from each final checkpoint: uint8 frames within one level
-  (equal).
+  (equal); and from one checkpoint with a scene snapshot beside it (the
+  JAX package's save_scene_snapshot): equal frames, culled at the
+  snapshot's supervised z-floor.
+
+Videos where neither imageio nor PIL can be imported: uncompressed RGB
+AVIs, parsed here and equal to the frames bit for bit.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
+import shutil
 import sys
 import threading
 
@@ -50,10 +57,12 @@ from text2nerf_tpu.models import tensorf as tf
 from text2nerf_tpu.services import fallbacks as jfb
 from text2nerf_tpu.services.registry import Services
 from text2nerf_tpu_torch.data import scene_state as pss
+from text2nerf_tpu_torch.engine import expansion as PE
 from text2nerf_tpu_torch.engine import renderer as PER
 from text2nerf_tpu_torch.engine import train_step as PTS
 from text2nerf_tpu_torch.engine import trainer as PT
 from text2nerf_tpu_torch.models import tensorf as ptf
+from text2nerf_tpu_torch.utils.png import read_png
 
 torch.set_num_threads(2)
 
@@ -225,6 +234,47 @@ def test_render_test_matches_jax_from_the_final_checkpoints(fits):
     assert os.listdir(os.path.join(pres[4], "imgs_test_all", "rgbs"))
 
 
+def read_rgb_avi(path):
+    """The frames of an uncompressed RGB AVI, parsed here from the RIFF
+    layout: (frames (N, H, W, 3) uint8, fps)."""
+    import struct
+
+    data = open(path, "rb").read()
+    assert data[:4] == b"RIFF" and data[8:12] == b"AVI "
+    assert struct.unpack("<I", data[4:8])[0] + 8 == len(data)
+    a = data.find(b"avih") + 8
+    usec, _, _, flags, n, _, streams, _, w, h = struct.unpack("<10I", data[a:a + 40])
+    assert streams == 1 and flags & 0x10
+    s = data.find(b"strh") + 8
+    assert data[s:s + 8] == b"vidsDIB "
+    f = data.find(b"strf") + 8
+    size, fw, fh, planes, bits, comp = struct.unpack("<IiiHHI", data[f:f + 20])
+    assert (size, fw, fh, planes, bits, comp) == (40, w, h, 1, 24, 0)
+    stride = (3 * w + 3) & ~3
+    frames, pos = [], data.find(b"movi") + 4
+    while data[pos:pos + 4] == b"00db":
+        length = struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        assert length == stride * h
+        rows = np.frombuffer(data, np.uint8, length, pos + 8).reshape(h, stride)
+        frames.append(rows[::-1, : 3 * w].reshape(h, w, 3)[..., ::-1])
+        pos += 8 + length + length % 2
+    assert len(frames) == n and data[pos:pos + 4] == b"idx1"
+    return np.stack(frames), round(1e6 / usec)
+
+
+@pytest.mark.parametrize("w", [24, 13])  # a row of 39 bytes is padded to 40
+def test_uncompressed_avi_reads_back_bit_equal(tmp_path, monkeypatch, w):
+    for name in ("imageio", "imageio.v2", "PIL", "PIL.Image", "cv2"):
+        monkeypatch.setitem(sys.modules, name, None)
+    frames = [np.random.default_rng(i).integers(0, 256, (7, w, 3), dtype=np.uint8)
+              for i in range(3)]
+    path = PER.write_video(str(tmp_path / "v.mp4"), frames, fps=12)
+    assert path == str(tmp_path / "v.avi")
+    back, fps = read_rgb_avi(path)
+    np.testing.assert_array_equal(back, np.stack(frames))
+    assert fps == 12
+
+
 def test_seed_fit_needs_no_imageio_pil_or_cv2(tmp_path, monkeypatch):
     for name in ("imageio", "imageio.v2", "PIL", "PIL.Image", "cv2"):
         monkeypatch.setitem(sys.modules, name, None)
@@ -238,22 +288,31 @@ def test_seed_fit_needs_no_imageio_pil_or_cv2(tmp_path, monkeypatch):
     # a second bootstrap reads the seed image and depth back from its PNGs
     again = pss.bootstrap_scene(_scene(pss.SceneConfig, tmp_path / "d"), device="cpu")
     np.testing.assert_array_equal(again.all_rays, scene.all_rays)
-    with pytest.raises(RuntimeError, match="imageio.*PIL"):
-        PER.write_video(str(tmp_path / "v.mp4"), [np.zeros((8, 8, 3), np.uint8)] * 2)
+    # videos: an uncompressed AVI of the same frames
+    frames = [np.zeros((8, 8, 3), np.uint8), np.full((8, 8, 3), 200, np.uint8)]
+    back, _ = read_rgb_avi(PER.write_video(str(tmp_path / "v.mp4"), frames))
+    np.testing.assert_array_equal(back, np.stack(frames))
 
 
 @pytest.mark.parametrize("flag", ["render_train", "render_test", "render_path"])
 def test_video_runs_without_an_encoder_raise_before_any_work(tmp_path, monkeypatch, flag):
+    # without imageio and PIL such runs raised before any work; now their
+    # videos are uncompressed AVIs of the frames the run also writes as PNGs
     for name in ("imageio", "imageio.v2", "PIL", "PIL.Image"):
         monkeypatch.setitem(sys.modules, name, None)
-    cfg = PT.TrainConfig(basedir=str(tmp_path / "log"), n_stage2=0, **{flag: True})
-    with pytest.raises(RuntimeError, match="no video encoder.*imageio.*PIL"):
-        PT.reconstruction(cfg, _scene(pss.SceneConfig, tmp_path / "d"), device="cpu")
-    assert not os.path.exists(tmp_path / "log") and not os.path.exists(tmp_path / "d")
-    with pytest.raises(RuntimeError, match="no video encoder"):
-        PER.evaluation_path(None, None, np.eye(4)[None], HW, (1.0, 1.0, 1.0, 1.0),
-                            n_samples=8, save_path=str(tmp_path / "path"), device="cpu")
-    assert not os.path.exists(tmp_path / "path")
+    cfg = PT.TrainConfig(expname="v", basedir=str(tmp_path / "log"),
+                         model=ptf.TensoRFConfig(**MODEL), n_vis=2, **{flag: True},
+                         **dict(SCHEDULE, n_stage1=1, n_stage3=0, batch_size=2048,
+                                upsamp_list=(), update_alphamask_list=()))
+    logfolder = PT.reconstruction(cfg, _scene(pss.SceneConfig, tmp_path / "d", (16, 16)),
+                                  device="cpu")[4]
+    folder = os.path.join(logfolder, {"render_train": "imgs_train_all",
+                                      "render_test": "imgs_test_all",
+                                      "render_path": "imgs_path_all"}[flag])
+    frames, _ = read_rgb_avi(os.path.join(folder, "video.avi"))
+    first = os.path.join(folder, "000.png" if flag == "render_path" else "rgbs/000_rgb.png")
+    np.testing.assert_array_equal(frames[0], read_png(first))
+    assert read_rgb_avi(os.path.join(folder, "depthvideo.avi"))[0].shape == frames.shape
 
 
 def test_write_video_falls_back_to_mjpeg_avi(tmp_path):
@@ -269,13 +328,54 @@ def test_write_video_falls_back_to_mjpeg_avi(tmp_path):
 
 def test_unported_options_raise_before_any_work(tmp_path):
     scene = _scene(pss.SceneConfig, tmp_path / "d")
-    for kw, what in ((dict(n_stage2=1), "expansion"), (dict(resume=True), "resume"),
+    for kw, what in ((dict(resume=True), "resume"),
                      (dict(checkpoint_backend="orbax"), "orbax"),
-                     (dict(stage3_balance="tail_deficit"), "stage3_balance.*expansion")):
+                     (dict(train_compute_dtype="bf16"), "bf16")):
         cfg = PT.TrainConfig(basedir=str(tmp_path / "log"), **kw)
         with pytest.raises(NotImplementedError, match=what):
             PT.reconstruction(cfg, scene, device="cpu")
+    known = PE.ExpansionConfig(prompt="p", update_known_views=True)
+    with pytest.raises(NotImplementedError, match="update_known_views"):
+        PT.reconstruction(PT.TrainConfig(basedir=str(tmp_path / "log")), scene,
+                          expansion_cfg=known, device="cpu")
     assert not os.path.exists(tmp_path / "log") and not os.path.exists(tmp_path / "d")
+
+
+def test_render_test_reads_the_snapshot_z_floor(fits):
+    """With a scene_snapshot.npz beside the checkpoint (written by the JAX
+    package's save_scene_snapshot), render_test culls at its supervised
+    z-floor, as the JAX package does: equal uint8 frames, and not those of
+    the constant 2.0 cull."""
+    root, jres, _, _, _, _ = fits
+    folder = root / "snap"
+    folder.mkdir()
+    ckpt = str(folder / "f.npz")
+    # the slab of test_torch_scene.py, reaching down to z = 0.8
+    reso = (16, 16, 16)
+    params = slab_params(reso)
+    zs = np.linspace(-8, 8, reso[2])
+    line = np.where((zs > 0.8) & (zs < 6.0), 3.0, 0.0).astype(np.float32)
+    params["density_lines"] = (jnp.asarray(np.repeat(line[:, None], 2, -1)),
+                               *params["density_lines"][1:])
+    JC.save_checkpoint(ckpt, tf.TensoRFConfig(**MODEL), params,
+                       jnp.asarray([[-8.0] * 3, [8.0] * 3]))
+    scene = jres[3]
+    # supervised depths that reach below z = 2 (the floor drops to ~0.9)
+    low = dataclasses.replace(scene, depth_gen_split=scene.depth_gen_split * 0.35)
+    floor = ss.supervised_z_floor(low)
+    assert 0.05 < floor < 1.5
+    common = dict(ckpt=ckpt, render_test=True, n_vis=3, batch_size=256, app_k=8)
+    before = PT.render_test(PT.TrainConfig(**common), _scene(pss.SceneConfig, root / "jd"),
+                            device="cpu")["test"]
+    ss.save_scene_snapshot(str(folder / "scene_snapshot.npz"), low)
+    assert pss.supervised_z_floor(pss.load_scene_snapshot(str(folder / "scene_snapshot.npz"))) \
+        == floor
+    want = JT.render_test(JT.TrainConfig(**common), _scene(ss.SceneConfig, root / "jd"))["test"]
+    got = PT.render_test(PT.TrainConfig(**common), _scene(pss.SceneConfig, root / "jd"),
+                         device="cpu")["test"]
+    for g, w in zip(got["rgb"], want["rgb"]):
+        np.testing.assert_array_equal(g, w)
+    assert any(not np.array_equal(g, b) for g, b in zip(got["rgb"], before["rgb"]))
 
 
 def main() -> None:

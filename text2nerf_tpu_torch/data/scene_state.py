@@ -1,5 +1,6 @@
 """Scene state (port of ``text2nerf_tpu/data/scene_state.py``: the ray
-pools, the scene bootstrap and the scene-aware eval z-floor).
+pools, the scene bootstrap, the scene-aware eval z-floor, the read side
+of scene snapshots and the append of a generated view).
 
 The scene is an explicit state object of numpy arrays; the bootstrap
 returns it.  The generative priors (text2img, depth estimation) are
@@ -324,3 +325,51 @@ def supervised_z_floor(
     if not np.isfinite(z_min):
         return ceiling
     return max(floor, min(ceiling, z_min - margin))
+
+
+def load_scene_snapshot(path: str) -> SceneState:
+    """The scene a ``scene_snapshot.npz`` holds: the generated views'
+    images, depths and inpaint masks, their poses and the support poses,
+    with every view's rays recomputed.  No ray pool is rebuilt (the JAX
+    package's ``n_views_pools=0``): enough for :func:`supervised_z_floor`
+    and for renders, not for resuming a fit."""
+    data = np.load(path)
+    h, w = (int(x) for x in data["hw"])
+    intrinsic = tuple(float(x) for x in data["intrinsic"])
+    poses = data["poses_gen"]
+    return SceneState(
+        hw=(h, w), intrinsic=intrinsic,
+        scene_bbox=data["scene_bbox"],
+        near_far=tuple(float(x) for x in data["near_far"]),
+        white_bg=bool(data["white_bg"]),
+        poses_gen=poses, poses_support=data["poses_support"],
+        all_rays=np.zeros((0, 6), np.float32),
+        all_rgbs=np.zeros((0, 3), np.float32),
+        all_depth=np.zeros((0,), np.float32),
+        rays_gen_split=test_ray_split(poses, intrinsic, h, w),
+        rgbs_gen_split=data["rgbs_gen_split"],
+        depth_gen_split=data["depth_gen_split"],
+        masks_gen_split=data["masks_gen_split"],
+        rays_support_split=test_ray_split(data["poses_support"], intrinsic, h, w),
+    )
+
+
+def append_generated_view(
+    state: SceneState, img: np.ndarray, depth: np.ndarray, inpaint_mask: np.ndarray
+) -> SceneState:
+    """A new scene with one more completed RGBD view (its image, depth and
+    inpaint mask appended to the generation splits); the pools dict is
+    copied, so the caller's scene keeps its own."""
+    return dataclasses.replace(
+        state,
+        rgbs_gen_split=np.concatenate(
+            [state.rgbs_gen_split, np.asarray(img, np.float32)[None]], 0
+        ),
+        depth_gen_split=np.concatenate(
+            [state.depth_gen_split, np.asarray(depth, np.float32)[None]], 0
+        ),
+        masks_gen_split=np.concatenate(
+            [state.masks_gen_split, np.asarray(inpaint_mask, np.float32)[None]], 0
+        ),
+        updates=dict(state.updates),
+    )

@@ -2,10 +2,10 @@
 ``evaluation``, ``evaluation_path`` and ``write_video`` from
 ``text2nerf_tpu/engine/renderer.py``).
 
-Frames are written as PNGs through :mod:`..utils.png` (no image library
-needed).  Videos go through imageio (mp4, else GIF) or PIL (MJPEG AVI);
-when neither can be imported, :func:`write_video` raises and names them.
-SSIM and LPIPS are not ported yet.
+Frames are written as PNGs through :mod:`..utils.png` and videos, where
+neither imageio nor PIL can be imported, as uncompressed AVIs
+(:mod:`..utils.mjpeg_avi`): no image library is needed.  SSIM and LPIPS
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,52 +18,31 @@ import torch
 from ..device import resolve_device
 from ..ops import rays as ray_ops
 from ..ops import render as render_ops
+from ..utils.mjpeg_avi import write_mjpeg_avi, write_rgb_avi
 from ..utils.png import write_png
 from . import metrics as M
 
 
-def check_video_encoders() -> None:
-    """Raise, naming the encoders, when :func:`write_video` could write
-    nothing: neither imageio nor PIL can be imported.  Callers that will
-    write a video call it before they render."""
-    missing = []
-    for name, use in (("imageio.v2", "mp4, GIF"), ("PIL.Image", "MJPEG AVI")):
-        try:
-            __import__(name)
-            return
-        except ImportError as e:
-            missing.append(f"{name.split('.')[0]} ({use}): {e}")
-    raise RuntimeError("no video encoder can be imported: " + "; ".join(missing))
-
-
 def write_video(path: str, frames, fps: int = 30, quality: int = 9) -> str:
-    """Write ``frames`` as an mp4 through imageio, else as an MJPEG AVI
-    (PIL's JPEG encoder), else as an animated GIF through imageio.
-    Returns the path written; raises when no encoder can be imported."""
-    missing = []
+    """Write ``frames`` ((H, W, 3) uint8) as an mp4 through imageio, else
+    as an MJPEG AVI (PIL's JPEG encoder), else as an uncompressed RGB AVI
+    (numpy only, so a video is written on any machine).  Returns the path
+    written."""
     try:
         import imageio.v2 as imageio
-    except ImportError as e:
+    except ImportError:
         imageio = None
-        missing.append(f"imageio (mp4, GIF): {e}")
     if imageio is not None:
         try:
             imageio.mimwrite(path, np.stack(frames), fps=fps, quality=quality)
             return path
         except (ValueError, RuntimeError, OSError):  # no ffmpeg backend
             pass
+    avi = os.path.splitext(path)[0] + ".avi"
     try:
-        from ..utils.mjpeg_avi import write_mjpeg_avi
-
-        return write_mjpeg_avi(os.path.splitext(path)[0] + ".avi", frames, fps=fps,
-                               quality=quality)
-    except ImportError as e:
-        missing.append(f"PIL (MJPEG AVI): {e}")
-    if imageio is not None:
-        gif = os.path.splitext(path)[0] + ".gif"
-        imageio.mimwrite(gif, np.stack(frames), duration=1000.0 / fps)
-        return gif
-    raise RuntimeError(f"no video encoder can be imported for {path}: " + "; ".join(missing))
+        return write_mjpeg_avi(avi, frames, fps=fps, quality=quality)
+    except ImportError:  # no PIL
+        return write_rgb_avi(avi, frames, fps=fps)
 
 
 def render_view(
@@ -107,8 +86,6 @@ def evaluation(
     dev = resolve_device(device)
     if compute_extra_metrics:
         raise NotImplementedError("SSIM and LPIPS are not ported yet")
-    if video and save_path:
-        check_video_encoders()
     psnrs, rgb_maps, depth_maps = [], [], []
     if save_path:
         os.makedirs(os.path.join(save_path, "rgbs"), exist_ok=True)
@@ -151,11 +128,8 @@ def evaluation_path(
     """Render along a camera path, generating rays per pose.  Pass
     ``alpha_mask`` (and ``compact_k``; -1 is the adaptive renderer) for
     the mask's culling.  With ``save_path``, PNG frames and the two
-    videos (raises before rendering when no video encoder can be
-    imported).  Returns (rgb uint8 frames, depth-vis frames)."""
+    videos.  Returns (rgb uint8 frames, depth-vis frames)."""
     dev = resolve_device(device)
-    if save_path:
-        check_video_encoders()
     h, w = hw
     fx, fy, cx, cy = intrinsic
     dirs = ray_ops.ray_directions(h, w, (fx, fy), (cx, cy), device=dev)

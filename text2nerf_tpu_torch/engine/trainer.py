@@ -1,26 +1,37 @@
-"""The trainer (port of ``text2nerf_tpu/engine/trainer.py``): the stage-1
-seed fit through :func:`reconstruction`, and the render-only entry
+"""The trainer (port of ``text2nerf_tpu/engine/trainer.py``): the
+progressive fit :func:`reconstruction` and the render-only entry
 :func:`render_test`.
 
 :func:`reconstruction` bootstraps the scene (the seed RGBD and its warped
-support set), then trains the field: stage 1 (``n_stage1`` epochs over
-the support pool, dense train steps) and stage 3 (``n_stage3`` more
-epochs, compacted train steps once a stage boundary has built a mask the
-group-strided occupancy test may use).  Inside the epochs the
+support set), then trains the field in three stages:
+
+- stage 1: ``n_stage1`` epochs over the seed's support pool, dense train
+  steps;
+- stage 2: for each later trajectory view, expand the scene
+  (:func:`.expansion.expand_scene` on the current field), reset the
+  optimizer and the LR schedule, then ``n_stage2`` epochs drawing four
+  batches of five from the new view's pool and one from the replay pool
+  of the earlier views;
+- stage 3: ``n_stage3`` epochs over every view's pool, uniformly or
+  (``stage3_balance="tail_deficit"``) one view a batch, drawn by
+  :func:`stage3_view_weights`.
+
+Past stage 1 the steps are compacted once a stage boundary has built a
+mask the group-strided occupancy test may use, the mask stamped with the
+supervised depths of the new and the replay pools.  Inside the epochs the
 coarse-to-fine milestones (``upsamp_list``) resize the grid and the first
 ``update_alphamask_list`` milestone shrinks the AABB; every milestone
-refilters the pool through a fresh alpha mask.  Stage boundaries rebuild
-the mask and evaluate the support views and the seed view; the end
-writes the final mask and checkpoint and the optional train, test and
-path renders.
+refilters the pools through a fresh alpha mask.  Stage boundaries rebuild
+the mask and evaluate the support views and the generated views, culling
+at the scene's supervised z-floor; the end writes the final mask and
+checkpoint and the optional train, test and path renders (videos as
+uncompressed AVIs where no encoder package is installed), and waits for
+the expansion's artifact writes.
 
-Left out of this slice, each raising ``NotImplementedError`` before any
-work: scene expansion (``n_stage2 > 0`` with more than one trajectory
-view) and the stage-3 view weighting it feeds (``stage3_balance``),
-``resume`` (scene snapshots), ``checkpoint_backend="orbax"``, ``ndc_ray``
-and the bf16 train step.  A run asked for videos (``render_train``,
-``render_test``, ``render_path``) raises before any work when no video
-encoder can be imported.
+Left out, each raising ``NotImplementedError`` before any work:
+``resume`` (writing scene snapshots and resuming from them; render_test
+reads a snapshot's z-floor), ``update_known_views`` of the expansion,
+``checkpoint_backend="orbax"``, ``ndc_ray`` and the bf16 train step.
 
 The JAX trainer overlaps the first train step's XLA compile with the
 bootstrap in a warm-up thread that swallows its failures.  PyTorch
@@ -30,7 +41,8 @@ checkout, at first launch), so there is nothing to overlap: no thread.
 Randomness: the initial field draws from a ``torch.Generator`` seeded
 with ``cfg.seed``; the steps' jitter and background coins from another,
 seeded likewise, on the step's device.  The JAX key stream is not
-reproduced; the samplers (numpy, seeded as in JAX) give the same ids.
+reproduced; the samplers and the expansion's services (numpy, seeded as
+in JAX) give the same ids and candidates.
 """
 
 from __future__ import annotations
@@ -42,14 +54,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..data import io as scene_io
 from ..data import scene_state as ss
-from ..data import trajectories as traj
 from ..device import as_tensor, resolve_device
 from ..models import tensorf as tf
 from ..ops import render as render_ops
 from ..services.registry import Services, default_services
 from . import checkpoints as ckpt
+from . import expansion as exp
+from . import io_async
 from . import renderer as eval_renderer
 from . import train_step as ts
 from .tracing import MetricsLogger, phase_timer
@@ -108,7 +120,7 @@ class TrainConfig:
     # depth-anchored window: band in march steps behind the supervised depth
     train_depth_cap_band: int = 6
     # stage-3 sampling: 'uniform', or 'tail_deficit' (one view per batch,
-    # drawn by stage3_view_weights; only with expansion, not ported yet)
+    # drawn by stage3_view_weights)
     stage3_balance: str = "uniform"
     stage3_balance_gamma: float = 1.0
     seed: int = 1024
@@ -169,6 +181,33 @@ def _batch_from_pool(pool, ids, device):
         "rgb": as_tensor(rgbs[ids], device),
         "depth": as_tensor(depths[ids], device),
     }
+
+
+class _WeightedViewSampler:
+    """Stage-3 batch source for ``stage3_balance="tail_deficit"``: each
+    batch comes from one view's pool, the view drawn ∝ ``weights``;
+    within a view, permutation sampling (a pool smaller than a batch is
+    drawn with replacement)."""
+
+    def __init__(self, pools, weights, batch: int, seed: int, device):
+        self.pools = pools
+        self.weights = np.asarray(weights, np.float64)
+        self.batch = int(batch)
+        self.device = device
+        self.samplers = [
+            ts.PermutationSampler(len(p[0]), batch, seed + 31 * i)
+            if len(p[0]) >= batch else None
+            for i, p in enumerate(pools)
+        ]
+        self._rng = np.random.default_rng(seed)
+
+    def next_batch(self):
+        v = int(self._rng.choice(len(self.pools), p=self.weights))
+        if self.samplers[v] is not None:
+            ids = self.samplers[v].next_ids()
+        else:
+            ids = self._rng.integers(0, len(self.pools[v][0]), self.batch)
+        return _batch_from_pool(self.pools[v], ids, self.device)
 
 
 def _resolve_group(cfg: TrainConfig, aabb, reso, step_ratio):
@@ -238,16 +277,7 @@ def init_field(cfg: TrainConfig, scene: ss.SceneState, generator=None, device=No
     return cfg.model, field, as_tensor(scene.scene_bbox, dev), None
 
 
-def _n_training_views(scene_cfg: ss.SceneConfig) -> int:
-    """The trajectory's view count, as the bootstrap will choose it."""
-    existing = scene_io.load_poses(scene_io.scene_paths(scene_cfg.datadir)["cam"])
-    if existing is not None and not scene_cfg.regen_pose:
-        return len(existing)
-    return len(traj.training_trajectory(
-        scene_cfg.pose_traj, scene_cfg.num_training, scene_cfg.angle, scene_cfg.trans_range))
-
-
-def _check_ported(cfg: TrainConfig, scene_cfg: ss.SceneConfig) -> None:
+def _check_ported(cfg: TrainConfig, expansion_cfg: exp.ExpansionConfig) -> None:
     if cfg.resume:
         raise NotImplementedError("resume=True (scene snapshots) is not ported yet")
     if cfg.checkpoint_backend != "npz":
@@ -259,27 +289,26 @@ def _check_ported(cfg: TrainConfig, scene_cfg: ss.SceneConfig) -> None:
         raise NotImplementedError(
             f"train_compute_dtype={cfg.train_compute_dtype!r}: the bf16 backward is not "
             "ported yet")
-    if cfg.stage3_balance != "uniform":
+    if expansion_cfg.update_known_views:
         raise NotImplementedError(
-            f"stage3_balance={cfg.stage3_balance!r} weights the views scene expansion "
-            "adds, which is not ported yet")
-    if cfg.n_stage2 > 0 and _n_training_views(scene_cfg) > 1:
-        raise NotImplementedError(
-            "n_stage2 > 0 with more than one trajectory view needs scene expansion, "
-            "which is not ported yet (set n_stage2=0 for the seed fit)")
-    if cfg.render_train or cfg.render_test or cfg.render_path:
-        eval_renderer.check_video_encoders()
+            "update_known_views=True (the expansion's warp back into the known views) is "
+            "not ported yet")
 
 
 def reconstruction(cfg: TrainConfig, scene_cfg: ss.SceneConfig,
-                   services: Optional[Services] = None, *, device=None):
-    """The seed fit: bootstrap, stage 1, stage 3, final checkpoint (see the
-    module docstring).  Runs on ``device`` (cuda unless asked).  Logs to
-    ``<logfolder>/metrics.jsonl``.  Returns (model_cfg, field, aabb, scene,
-    logfolder)."""
+                   services: Optional[Services] = None,
+                   expansion_cfg: Optional[exp.ExpansionConfig] = None, *, device=None):
+    """The progressive fit (see the module docstring).  Runs on ``device``
+    (cuda unless asked); the default services run there too.  Logs to
+    ``<logfolder>/metrics.jsonl``.  Returns (model_cfg, field, aabb,
+    scene, logfolder)."""
     dev = resolve_device(device)
-    _check_ported(cfg, scene_cfg)
-    services = services or default_services(hw=scene_cfg.hw)
+    expansion_cfg = expansion_cfg or exp.ExpansionConfig(
+        prompt=scene_cfg.prompt, push_depth=scene_cfg.push_depth,
+        trans_range=scene_cfg.trans_range,
+    )
+    _check_ported(cfg, expansion_cfg)
+    services = services or default_services(hw=scene_cfg.hw, device=dev)
     logfolder = os.path.join(
         cfg.basedir,
         f"{cfg.expname}_{scene_cfg.prompt.replace(' ', '_')}"
@@ -295,12 +324,15 @@ def reconstruction(cfg: TrainConfig, scene_cfg: ss.SceneConfig,
             f.write(f"{k}:{v}\n")
     log = MetricsLogger(os.path.join(logfolder, "metrics.jsonl"))
     try:
-        return _seed_fit(cfg, scene_cfg, services, dev, logfolder, log)
+        out = _fit(cfg, scene_cfg, services, expansion_cfg, dev, logfolder, log)
     finally:
         log.close()
+    # the expansion's artifact writes of this run, on disk before it returns
+    io_async.flush(logfolder)
+    return out
 
 
-def _seed_fit(cfg, scene_cfg, services, dev, logfolder, log):
+def _fit(cfg, scene_cfg, services, expansion_cfg, dev, logfolder, log):
     with phase_timer("bootstrap", log, dev):
         scene = ss.bootstrap_scene(
             scene_cfg, "train", text2img=services.text2img,
@@ -315,14 +347,14 @@ def _seed_fit(cfg, scene_cfg, services, dev, logfolder, log):
     keep = render_ops.filter_rays_bbox(aabb, scene.all_rays, device=dev)
     pool_pre = (scene.all_rays[keep], scene.all_rgbs[keep], scene.all_depth[keep])
     sampler_pre = ts.PermutationSampler(len(pool_pre[0]), cfg.batch_size, cfg.seed)
-    n_iters_epoch = _epoch_iters(len(pool_pre[0]), cfg.batch_size)
-    n_iters_stage1 = cfg.n_stage1 * n_iters_epoch
+    n_iters_epoch1 = _epoch_iters(len(pool_pre[0]), cfg.batch_size)
+    n_iters_stage1 = cfg.n_stage1 * n_iters_epoch1
     decay_iters = (
         cfg.lr_decay_iters if cfg.lr_decay_iters > 0
         else (n_iters_stage1 if n_iters_stage1 > 0 else 1000)
     )
     factor = ts.lr_factor(cfg.lr_decay_target_ratio, decay_iters)
-    log.scalars(0, {"pool_rays": len(pool_pre[0]), "iters_per_epoch": n_iters_epoch,
+    log.scalars(0, {"pool_rays": len(pool_pre[0]), "iters_per_epoch": n_iters_epoch1,
                     "grid": list(tf.grid_resolution(field))})
     weights = _initial_loss_weights(cfg)
     step_rng = torch.Generator(device=dev).manual_seed(cfg.seed)
@@ -345,20 +377,21 @@ def _seed_fit(cfg, scene_cfg, services, dev, logfolder, log):
         """The stamped mask for train compaction, or None: compaction off,
         no mask yet, stage 1 (the seed content is still growing), or a
         mask whose dilation cannot license the group-strided occupancy
-        test.  Memoized on the identities of the mask, the pool and the
-        aabb (every rebuild or shrink re-stamps)."""
+        test.  Memoized on the identities of the mask, the pools and the
+        aabb (every rebuild, pool change or shrink re-stamps)."""
         if cfg.train_compact_k <= 0 or eval_mask is None or epoch < cfg.n_stage1:
             return None
-        mkey = (id(eval_mask), id(pool_pre), id(aabb))
+        mkey = (id(eval_mask), id(pool_new), id(pool_pre), id(aabb))
         if mkey not in tm_cache:
             g, _ = current_group()
             ok = g == 1 or render_ops.occupancy_stride_safe(state.field, aabb, eval_mask, g)
             tm_cache.clear()
-            tm_cache[mkey] = stamped_train_mask(eval_mask, None, pool_pre) if ok else None
+            tm_cache[mkey] = stamped_train_mask(eval_mask, pool_new, pool_pre) if ok else None
         return tm_cache[mkey]
 
     def render_mask():
-        """The mask for eval renders: only when eval compaction is on."""
+        """The mask for eval and expansion renders: only when eval
+        compaction is on."""
         return eval_mask if cfg.eval_compact_k != 0 else None
 
     def rebuild_eval_mask():
@@ -369,19 +402,90 @@ def _seed_fit(cfg, scene_cfg, services, dev, logfolder, log):
                                        pool=cfg.eval_mask_pool, device=dev)
         return mask
 
-    z_floor = ss.supervised_z_floor(scene)
+    zf_cache = {}
+
+    def eval_z_floor():
+        """The scene's supervised z-floor, recomputed as views are added."""
+        k = scene.rgbs_gen_split.shape[0]
+        if k not in zf_cache:
+            zf_cache[k] = ss.supervised_z_floor(scene)
+        return zf_cache[k]
+
+    def build_stage3_sampler(n_views_done: int, seed: int):
+        if cfg.stage3_balance != "tail_deficit":
+            return None
+        pools = [scene.updates["%05d" % v] for v in range(n_views_done)]
+        w = stage3_view_weights(cfg, [len(p[0]) for p in pools], n_iters_epoch1)
+        log.scalars(0, {"stage3_weight_view%d" % v: float(w[v]) for v in range(len(w))})
+        return _WeightedViewSampler(pools, w, cfg.batch_size, seed, dev)
+
     state, opt = ts.make_train_state(field, cfg.lr_init, cfg.lr_basis, factor,
                                      runtime_decay=True)
     step_fn = make_step(opt)
 
-    # no expansion epochs in this slice (_check_ported)
-    n_total = cfg.n_stage1
+    n_views = scene.poses_gen.shape[0]
+    # n_stage2 = 0: the seed fit alone, no expansion
+    n_total = cfg.n_stage1 + cfg.n_stage2 * (n_views - 1)
     tv_decay = 1.0
     lr_decay = 1.0  # factor**steps since the last schedule reset
+    view_idx = 0
     eval_mask = None
+    pool_new = sampler_new = sampler_s3 = None
+    n_iters_epoch = n_iters_epoch1
     global_step = 0
     for epoch in range(n_total + cfg.n_stage3):
-        for _ in range(n_iters_epoch):
+        # --- stage boundary: expand the scene by one view -----------------
+        if (cfg.n_stage2 > 0 and epoch >= cfg.n_stage1
+                and (epoch - cfg.n_stage1) % cfg.n_stage2 == 0 and epoch < n_total):
+            view_idx = (epoch - cfg.n_stage1) // cfg.n_stage2 + 1
+            # the field just fitted the earlier views: a fresh mask for the
+            # expansion's renders and the next evals
+            eval_mask = rebuild_eval_mask()
+            with phase_timer(f"expand_view_{view_idx}", log, dev):
+                scene = exp.expand_scene(
+                    view_idx, state.field, scene, services, expansion_cfg, logfolder,
+                    n_samples=n_samples, white_bg=white_bg, seed=cfg.seed + view_idx,
+                    alpha_mask=render_mask(), compact_k=cfg.eval_compact_k,
+                    eval_z_min=eval_z_floor(), log=log, device=dev,
+                )
+            # the replay pool: every earlier view's pool
+            prev = [scene.updates["%05d" % v] for v in range(view_idx)]
+            pool_pre = tuple(np.concatenate(x, 0) for x in zip(*prev))
+            sampler_pre = ts.PermutationSampler(len(pool_pre[0]), cfg.batch_size,
+                                                cfg.seed + epoch)
+            pool_new = scene.updates["%05d" % view_idx]
+            sampler_new = (
+                ts.PermutationSampler(len(pool_new[0]), cfg.batch_size, cfg.seed + epoch + 1)
+                if len(pool_new[0]) > 0 else None
+            )
+            n_iters_epoch = _epoch_iters(len(pool_new[0]), cfg.batch_size) + n_iters_epoch1
+            # optimizer and schedule reset
+            decay_iters = n_iters_epoch * cfg.n_stage2
+            factor = ts.lr_factor(cfg.lr_decay_target_ratio, decay_iters)
+            state, opt = ts.make_train_state(state.field, cfg.lr_init, cfg.lr_basis, factor,
+                                             runtime_decay=True)
+            step_fn = make_step(opt)
+            lr_decay = 1.0
+            log.scalars(global_step, {"view": view_idx, "pool_new_rays": len(pool_new[0]),
+                                      "pool_replay_rays": len(pool_pre[0]),
+                                      "iters_per_epoch": n_iters_epoch})
+        elif epoch == n_total and pool_new is not None:
+            # stage 3: fold the last view's pool into the replay pool
+            pool_pre = tuple(np.concatenate([a, b], 0) for a, b in zip(pool_pre, pool_new))
+            sampler_pre = ts.PermutationSampler(len(pool_pre[0]), cfg.batch_size,
+                                                cfg.seed + epoch)
+            pool_new = None
+            sampler_s3 = build_stage3_sampler(n_views, cfg.seed + epoch + 7)
+            n_iters_epoch = _epoch_iters(len(pool_pre[0]), cfg.batch_size)
+            decay_iters = n_iters_epoch * max(cfg.n_stage3, 1)
+            factor = ts.lr_factor(cfg.lr_decay_target_ratio, decay_iters)
+            state, opt = ts.make_train_state(state.field, cfg.lr_init, cfg.lr_basis, factor,
+                                             runtime_decay=True)
+            step_fn = make_step(opt)
+            lr_decay = 1.0
+
+        # --- epoch -----------------------------------------------------------
+        for it in range(n_iters_epoch):
             if cfg.upsamp_list and global_step in cfg.upsamp_list:
                 # coarse-to-fine: log-spaced voxel counts toward n_voxel_final
                 n_voxels = int(np.exp(np.linspace(
@@ -418,8 +522,22 @@ def _seed_fit(cfg, scene_cfg, services, dev, logfolder, log):
                     pool_pre = tuple(p[keep] for p in pool_pre)
                     sampler_pre = ts.PermutationSampler(
                         len(pool_pre[0]), cfg.batch_size, cfg.seed + global_step)
+                if pool_new is not None:
+                    keep = render_ops.filter_rays_alpha(aabb, pool_new[0], alpha_mask,
+                                                        device=dev)
+                    if keep.any() and not keep.all():
+                        pool_new = tuple(p[keep] for p in pool_new)
+                        sampler_new = ts.PermutationSampler(
+                            len(pool_new[0]), cfg.batch_size, cfg.seed + global_step + 1)
                 log.scalars(global_step, {"alpha_mask_pool_rays": len(pool_pre[0])})
-            batch = _batch_from_pool(pool_pre, sampler_pre.next_ids(), dev)
+            # four batches of five from the new view, one from the replay pool
+            if view_idx == 0 or it % 5 == 0 or epoch >= n_total or sampler_new is None:
+                if sampler_s3 is not None and epoch >= n_total:
+                    batch = sampler_s3.next_batch()
+                else:
+                    batch = _batch_from_pool(pool_pre, sampler_pre.next_ids(), dev)
+            else:
+                batch = _batch_from_pool(pool_new, sampler_new.next_ids(), dev)
             state, metrics = step_fn(state, aabb, batch, step_rng, tv_decay,
                                      alpha_mask=train_mask_arg(), lr_decay=lr_decay)
             tv_decay *= factor
@@ -440,7 +558,7 @@ def _seed_fit(cfg, scene_cfg, services, dev, logfolder, log):
                 push_depth=scene_cfg.push_depth, near_far=scene.near_far,
                 alpha_mask=render_mask(),
                 compact_k=cfg.eval_compact_k if eval_mask is not None else 0,
-                eval_z_min=z_floor, n_vis=cfg.n_vis, device=dev,
+                eval_z_min=eval_z_floor(), n_vis=cfg.n_vis, device=dev,
             )
             if cfg.vis_support_views and len(scene.rays_support_split) > 0:
                 # previews of the support views: no ground truth
@@ -462,11 +580,12 @@ def _seed_fit(cfg, scene_cfg, services, dev, logfolder, log):
         n_samples=n_samples, white_bg=white_bg, ndc=cfg.ndc_ray, near_far=scene.near_far,
         alpha_mask=render_mask(),
         compact_k=cfg.eval_compact_k if eval_mask is not None else 0,
-        eval_z_min=z_floor, device=dev,
+        eval_z_min=eval_z_floor(), device=dev,
     )
     ckpt.save_checkpoint(
         os.path.join(logfolder, f"{cfg.expname}_final.npz"), state.field, aabb,
-        alpha_mask=render_mask(), loop_state={"view_idx": 0, "global_step": global_step},
+        alpha_mask=render_mask(),
+        loop_state={"view_idx": view_idx, "global_step": global_step},
     )
     if cfg.render_train:
         eval_renderer.evaluation(
@@ -500,23 +619,25 @@ def render_test(cfg: TrainConfig, scene_cfg: ss.SceneConfig, *, device=None):
     """Render-only entry from the checkpoint ``cfg.ckpt``: the test split
     (``cfg.render_test``) and the camera path (``cfg.render_path``).  A
     checkpointed mask routes the renders through the adaptive renderer.
-    The eval z-cull is the reference's constant 2.0 (the JAX package reads
-    a scene-aware floor from a scene snapshot beside the checkpoint;
-    snapshots are not ported).  Returns {'test': ..., 'path': ...}."""
+    The eval z-cull is the supervised z-floor of the ``scene_snapshot.npz``
+    beside the checkpoint when there is one, else the reference's
+    constant 2.0.  Returns {'test': ..., 'path': ...}."""
     dev = resolve_device(device)
     if not (cfg.ckpt and os.path.exists(cfg.ckpt)):
         raise FileNotFoundError(f"render_test needs a checkpoint, got ckpt={cfg.ckpt!r}")
-    if cfg.render_test or cfg.render_path:
-        eval_renderer.check_video_encoders()
     mcfg, field, aabb, alpha_mask, _ = ckpt.load_checkpoint(cfg.ckpt, device=dev)
     field.requires_grad_(False)
     scene = ss.bootstrap_scene(scene_cfg, "test", device=dev)
     n_samples = tf.default_n_samples(tf.grid_resolution(field), mcfg.step_ratio,
                                      cfg.n_samples_cap)
     logfolder = os.path.dirname(cfg.ckpt)
+    z_floor = 2.0
+    snap = os.path.join(logfolder, "scene_snapshot.npz")
+    if os.path.exists(snap):
+        z_floor = ss.supervised_z_floor(ss.load_scene_snapshot(snap))
     kw = dict(n_samples=n_samples, white_bg=scene.white_bg, ndc=cfg.ndc_ray,
               near_far=scene.near_far, alpha_mask=alpha_mask,
-              compact_k=-1 if alpha_mask is not None else 0, eval_z_min=2.0, device=dev)
+              compact_k=-1 if alpha_mask is not None else 0, eval_z_min=z_floor, device=dev)
     out = {}
     if cfg.render_test:
         out["test"] = eval_renderer.evaluation(

@@ -1,9 +1,9 @@
 """Native host kernels (C++ through ctypes), built at first use.
 
 ``host_ops.cpp`` beside this file is the port's own copy of the JAX
-package's sparse bilateral filter (the hole fills and the z-buffer splat
-of the same source serve scene expansion and come with it).  It is
-compiled with ``g++ -O3 -shared -fPIC`` into
+package's sparse bilateral filter and of its raster-order hole fill
+``dibr_hole_fill2`` (no module calls the other hole fill or the z-buffer
+splat of the same source, so they are not copied).  It is compiled with ``g++ -O3 -shared -fPIC`` into
 ``text2nerf_tpu_torch/build/libhost_ops-<hash>.so`` (the hash covers the
 source and the flags, as for the CUDA kernels).  A build or load failure
 raises: there is no quiet fallback.
@@ -37,6 +37,11 @@ def load() -> ctypes.CDLL:
             i32p, ctypes.c_int, ctypes.c_float,
         ]
         lib.sparse_bilateral.restype = None
+        lib.dibr_hole_fill2.argtypes = [
+            f32p, f32p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float,
+        ]
+        lib.dibr_hole_fill2.restype = None
         _LIB = lib
     return _LIB
 
@@ -65,3 +70,24 @@ def sparse_bilateral(depth, image, filter_size, depth_threshold: float, mask=Non
         h, w, img.shape[-1], fs, len(fs), ctypes.c_float(depth_threshold),
     )
     return img, d
+
+
+def hole_fill2(image, mask, depth=None, threshold: float = 0.65):
+    """The reference's raster-order hole fill (``dibr_filter_mask2``) of a
+    warped view: ``image`` (H, W, C), its coverage ``mask`` (H, W) and
+    optionally its ``depth`` (H, W).  Returns float32 copies (image, mask[,
+    depth]); the inputs are not modified."""
+    lib = load()
+    img = np.array(image, np.float32, order="C")
+    m = np.array(mask, np.float32, order="C")
+    if img.ndim != 3 or m.shape != img.shape[:2]:
+        raise ValueError(f"need image (H, W, C) and mask (H, W), got {img.shape} and {m.shape}")
+    h, w, c = img.shape
+    d = None
+    if depth is not None:
+        d = np.array(depth, np.float32, order="C")
+        if d.shape != (h, w):
+            raise ValueError(f"depth {d.shape} is not the mask's {m.shape}")
+    lib.dibr_hole_fill2(img, m, None if d is None else d.ctypes.data_as(ctypes.c_void_p),
+                        h, w, c, ctypes.c_float(threshold))
+    return (img, m) if d is None else (img, m, d)

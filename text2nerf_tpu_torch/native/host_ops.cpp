@@ -1,8 +1,12 @@
-// Host-side sparse bilateral filter (C runtime, ctypes ABI).
+// Host-side image kernels (C runtime, ctypes ABI).
 //
-// The PyTorch port's own copy of the JAX package's native host kernel for
-// the scene bootstrap's depth and image filtering.  The hole fills and the
-// z-buffer splat of the same source serve scene expansion and come with it.
+// The PyTorch port's own copy of the JAX package's native host kernels:
+//   * sparse_bilateral: the depth and image filtering of the scene
+//     bootstrap and of every expansion view;
+//   * dibr_hole_fill2: the raster-order hole fill of a DIBR-warped view
+//     (dibr_filter_mask2, utils.py:394-409), where a pixel filled early
+//     counts as known for the pixels after it (order-dependent, so it is
+//     sequential host code, not a vectorized device pass).
 //
 // Built with g++ -O3 -shared -fPIC at first use and loaded via ctypes by
 // text2nerf_tpu_torch/native/__init__.py.
@@ -163,6 +167,73 @@ void sparse_bilateral(float* depth_io, float* image_io, const float* depth0,
       for (size_t p = 0; p < n; ++p) image_io[p * c + cc] = buf[p];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// dibr_filter_mask2 (utils.py:394-409): one raster-order pass of weighted
+// hole filling.
+namespace {
+
+// 5x5 neighborhood weights (utils.py:396)
+const float W5[25] = {
+    1.f, 1.f, 1.5f, 1.f, 1.f,
+    1.f, 1.5f, 3.f, 1.5f, 1.f,
+    1.5f, 3.f, 0.f, 3.f, 1.5f,
+    1.f, 1.5f, 3.f, 1.5f, 1.f,
+    1.f, 1.f, 1.5f, 1.f, 1.f,
+};
+
+inline float weighted_known_fraction_5x5(const float* mask, int w, int i, int j) {
+  float sum = 0.f, total = 0.f;
+  for (int di = -2; di <= 2; ++di)
+    for (int dj = -2; dj <= 2; ++dj) {
+      float wgt = W5[(di + 2) * 5 + (dj + 2)];
+      total += wgt;
+      sum += wgt * mask[(i + di) * w + (j + dj)];
+    }
+  return sum / total;
+}
+
+// mask-weighted 3x3 mean fill of image (and optional depth) at (i, j)
+inline void fill_pixel(float* image, float* depth, const float* mask, int w,
+                       int c, int i, int j) {
+  float msum = 0.f;
+  for (int di = -1; di <= 1; ++di)
+    for (int dj = -1; dj <= 1; ++dj) msum += mask[(i + di) * w + (j + dj)];
+  if (msum <= 0.f) return;
+  for (int cc = 0; cc < c; ++cc) {
+    float acc = 0.f;
+    for (int di = -1; di <= 1; ++di)
+      for (int dj = -1; dj <= 1; ++dj)
+        acc += image[((i + di) * w + (j + dj)) * c + cc] *
+               mask[(i + di) * w + (j + dj)];
+    image[(i * w + j) * c + cc] = acc / msum;
+  }
+  if (depth) {
+    float acc = 0.f;
+    for (int di = -1; di <= 1; ++di)
+      for (int dj = -1; dj <= 1; ++dj)
+        acc += depth[(i + di) * w + (j + dj)] * mask[(i + di) * w + (j + dj)];
+    depth[i * w + j] = acc / msum;
+  }
+}
+
+}  // namespace
+
+// Mutates image (H*W*C), mask (H*W) and depth (H*W, may be null) in place:
+// each empty pixel two or more from the border whose weighted known
+// fraction exceeds `threshold` takes the mask-weighted 3x3 mean and
+// becomes known.
+void dibr_hole_fill2(float* image, float* mask, float* depth, int h, int w,
+                     int c, float threshold) {
+  for (int i = 2; i < h - 2; ++i)
+    for (int j = 2; j < w - 2; ++j) {
+      if (mask[i * w + j] != 0.f) continue;
+      if (weighted_known_fraction_5x5(mask, w, i, j) > threshold) {
+        fill_pixel(image, depth, mask, w, c, i, j);
+        mask[i * w + j] = 1.f;
+      }
+    }
 }
 
 }  // extern "C"

@@ -1,5 +1,7 @@
-"""Forward warping of RGBD views by bilinear splatting (port of the
-support-set warp of ``text2nerf_tpu/ops/splat.py``).
+"""Forward warping of RGBD views by bilinear splatting (port of
+``text2nerf_tpu/ops/splat.py``: the one-to-many warps of the support
+sets, with and without the coverage of a masked region, and the
+many-to-one merge of the known views into a new one).
 
 Unproject each pixel with its depth, move it into the target camera,
 reproject, and scatter-add it into the 4 bilinear neighbours of its
@@ -159,3 +161,66 @@ def warp_one_to_many(rgb01, depth, pose_src, poses_tar, intrinsic, mask=None):
         masks.append(m2.to(torch.int32))
         depths.append(wdepth)
     return torch.stack(rgbs), torch.stack(masks), torch.stack(depths)
+
+
+@torch.no_grad()
+def warp_one_to_many_with_mask(rgb01, depth, pose_src, poses_tar, intrinsic, extra_mask):
+    """One RGBD view (tensors on one device) warped to many target poses,
+    plus, per target, the coverage of the content under ``extra_mask``
+    (H, W), sharing the reprojection: the support-pool warp of a generated
+    view, whose pool keeps only what its inpainted region covers.  The
+    coverage depends only on the gated splat weights, so it equals
+    ``warp_one_to_many(..., mask=extra_mask)``'s mask.  Returns (rgbs01
+    (V, H, W, 3), masks (V, H, W) int32, depths (V, H, W), masks_extra
+    (V, H, W) int32)."""
+    dev = depth.device
+    k = intrinsic_from_tuple(intrinsic, dev)
+    frame = quantize_u8(rgb01)
+    h, w = depth.shape
+    ones = torch.ones((h, w), dtype=torch.float32, device=dev)
+    extra = extra_mask.to(torch.float32)
+    w2c_src = torch.linalg.inv(pose_src)
+    rgbs, masks, depths, extras = [], [], [], []
+    for pose_tar in poses_tar:
+        trans = transform_points(depth, w2c_src, torch.linalg.inv(pose_tar), k, k)
+        z = trans[..., 2]
+        pos = trans[..., :2] / z[..., None]
+        warped, m2 = bilinear_splat(frame, ones, z, pos, is_image=True)
+        wdepth, _ = bilinear_splat(z[..., None], ones, z, pos)
+        _, m_extra = bilinear_splat(extra[..., None], extra, z, pos)
+        mf = m2.to(torch.float32)[..., None]
+        rgbs.append((warped * mf + 255.0 * (1.0 - mf)) / 255.0)
+        masks.append(m2.to(torch.int32))
+        depths.append(wdepth[..., 0])
+        extras.append(m_extra.to(torch.int32))
+    return torch.stack(rgbs), torch.stack(masks), torch.stack(depths), torch.stack(extras)
+
+
+@torch.no_grad()
+def warp_many_to_one(rgbs01, depths, poses, pose_tar, intrinsic):
+    """Several RGBD views (V, H, W, 3) / (V, H, W) at ``poses`` (V, 4, 4)
+    merged into the view at ``pose_tar``, first view first: a pixel an
+    earlier view covers is its own, later views fill only what is still
+    empty.  Each contribution is truncated to uint8 levels, as the
+    reference accumulates in uint8.  Returns (mask (H, W) int32, rgb01
+    (H, W, 3) with a white background, depth (H, W))."""
+    dev = depths.device
+    k = intrinsic_from_tuple(intrinsic, dev)
+    w2c_tar = torch.linalg.inv(pose_tar)
+    _, h, w = depths.shape
+    ones = torch.ones((h, w), dtype=torch.float32, device=dev)
+    out_img = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+    out_depth = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    mask_final = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    for v in range(depths.shape[0]):
+        warped, m2, wdepth, _ = forward_warp(
+            quantize_u8(rgbs01[v]), ones, depths[v], torch.linalg.inv(poses[v]), w2c_tar,
+            k, k,
+        )
+        m2f = m2.to(torch.float32)
+        mask_new = m2f * (1.0 - torch.clamp(mask_final, max=1.0))
+        out_img = out_img * mask_final[..., None] + torch.floor(warped) * mask_new[..., None]
+        out_depth = out_depth * mask_final + wdepth * mask_new
+        mask_final = torch.clamp(mask_final + m2f, max=1.0)
+    out_img = out_img * mask_final[..., None] + 255.0 * (1.0 - mask_final[..., None])
+    return mask_final.to(torch.int32), out_img / 255.0, out_depth

@@ -1,19 +1,23 @@
 """Procedural stand-ins for the generative services (port of
-``procedural_text2img`` and ``procedural_depth`` from
-``text2nerf_tpu/services/fallbacks.py``, numpy only).
+``text2nerf_tpu/services/fallbacks.py``).
 
 - :func:`procedural_text2img`: a seed image from the prompt's hash.
 - :func:`procedural_depth`: 16-bit depth counts in the LeReS convention
   ``counts = (depth - push) * 12000``.
-
-The inpainting and ranking stand-ins come with scene expansion.
+- :func:`diffusion_fill_inpaint`: hole filling by an iterated masked
+  blur on the device, plus per-candidate texture noise (numpy).
+- :func:`histogram_rank`: candidates ranked by color statistics.
 """
 
 from __future__ import annotations
 
 import hashlib
+from typing import List, Sequence
 
 import numpy as np
+import torch
+
+from ..device import resolve_device
 
 
 def _prompt_seed(prompt: str) -> int:
@@ -118,3 +122,90 @@ def procedural_depth(image: np.ndarray, push_depth: float = 2.0) -> np.ndarray:
     depth_rel = 0.5 + 3.5 * (0.7 * y + 0.3 * smooth)  # ~[0.5, 4.5]
     counts = depth_rel * 12000.0
     return counts.astype(np.float64)
+
+
+# the 3x3 binomial kernel of the fill's blur
+_BINOMIAL = np.array([[1, 2, 1], [2, 4, 2], [1, 2, 1]], np.float32) / 16.0
+_FILL_ITERS = 256
+
+
+def _blur(x, k):
+    """Each plane of ``x`` (P, H, W) convolved with the 3x3 ``k`` under
+    zero "SAME" padding (a depthwise conv2d)."""
+    p = x.shape[0]
+    return torch.nn.functional.conv2d(x[None], k.expand(p, 1, 3, 3), padding=1, groups=p)[0]
+
+
+@torch.no_grad()
+def _masked_fill(img, known):
+    """Holes (``known`` == 0) of ``img`` (H, W, 3) filled by 256 rounds of
+    a blur of the known-weighted colours and of the weights, normalized,
+    with the known pixels put back after each round."""
+    k = torch.as_tensor(_BINOMIAL, device=img.device)[None, None]
+    img_c = img.permute(2, 0, 1)
+    w = known[None]
+    vals = img_c * w
+    for _ in range(_FILL_ITERS):
+        b = _blur(torch.cat([vals, w]), k)
+        vals, w2 = b[:3], b[3:]
+        vals = vals / torch.clamp(w2, min=1e-8)
+        vals = vals * (1 - known) + img_c * known
+        w = torch.maximum(w2, known[None])
+        vals = vals * w
+    return (vals / torch.clamp(w, min=1e-8)).permute(1, 2, 0)
+
+
+def diffusion_fill_inpaint(
+    image: np.ndarray,
+    mask_holes: np.ndarray,
+    prompt: str = "",
+    negative_prompt: str = "",
+    guidance_scale: float = 7.5,
+    num_images: int = 5,
+    seed: int = 0,
+    device=None,
+) -> List[np.ndarray]:
+    """Fill the ``mask_holes > 0.5`` pixels of ``image`` (H, W, 3) in [0,
+    1] by iterated masked diffusion of the surrounding content (on
+    ``device``, cuda unless asked), then add per-candidate texture noise
+    (numpy, seeded with ``seed`` and the prompt) inside the holes.
+    Returns ``num_images`` float32 candidates in [0, 1], the contract of
+    a diffusion inpainter; ``negative_prompt`` and ``guidance_scale`` are
+    accepted for that contract and unused."""
+    dev = resolve_device(device)
+    img = np.asarray(image, np.float32)
+    holes = np.asarray(mask_holes, np.float32)
+    if holes.ndim == 3:
+        holes = holes[..., 0]
+    holes = (holes > 0.5).astype(np.float32)
+    known = torch.as_tensor(1.0 - holes, device=dev)
+    # TF32 off: the blur's sums stay fp32 on every device
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        base = _masked_fill(torch.as_tensor(img, device=dev), known).cpu().numpy()
+    outs = []
+    rng = np.random.default_rng(seed + _prompt_seed(prompt))
+    for _ in range(num_images):
+        tex = _value_noise(rng, img.shape[0], img.shape[1], octaves=(16, 32, 64))
+        cand = base + (tex[..., None] - 0.5) * 0.08 * holes[..., None]
+        outs.append(np.clip(cand, 0.0, 1.0).astype(np.float32))
+    return outs
+
+
+def histogram_rank(candidates: Sequence[np.ndarray], reference: np.ndarray):
+    """Scores of inpainting candidates (higher is better): minus the
+    chi-square distance of their 32-bin per-channel color histograms to
+    the seed view's (the stand-in for CLIP's cosine ranking)."""
+    def hist(img):
+        hs = [
+            np.histogram(img[..., c], bins=32, range=(0, 1), density=True)[0]
+            for c in range(3)
+        ]
+        return np.concatenate(hs) + 1e-6
+
+    ref_h = hist(np.asarray(reference))
+    scores = []
+    for cand in candidates:
+        ch = hist(np.asarray(cand))
+        chi2 = np.sum((ch - ref_h) ** 2 / (ch + ref_h))
+        scores.append(-float(chi2))
+    return np.asarray(scores)

@@ -1,13 +1,15 @@
-"""MJPEG-in-AVI video writer (the port's copy of the JAX package's
-``utils/mjpeg_avi.py``).
+"""AVI video writers (the port's copy of the JAX package's
+``utils/mjpeg_avi.py``, plus an uncompressed stream).
 
-AVI 1.0 with an 'MJPG' stream needs only a RIFF container around
-per-frame JPEGs, which PIL encodes: a video with a real frame rate where
-no ffmpeg is installed.
+AVI 1.0 needs only a RIFF container around per-frame payloads:
+- :func:`write_mjpeg_avi`: an 'MJPG' stream of JPEGs, which PIL encodes;
+- :func:`write_rgb_avi`: an uncompressed 'DIB ' stream (BI_RGB, 24-bit
+  bottom-up BGR rows padded to 4 bytes), numpy only: a video with a real
+  frame rate where no image library is installed.
 
 Layout (all little-endian):
   RIFF('AVI ' LIST('hdrl' avih LIST('strl' strh strf)) LIST('movi'
-  00dc... ) idx1)
+  00dc|00db ...) idx1)
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 
 _AVIF_HASINDEX = 0x10
 _AVIIF_KEYFRAME = 0x10
+_BI_RGB = 0
 
 
 def _chunk(fourcc: bytes, payload: bytes) -> bytes:
@@ -38,21 +41,19 @@ def _encode_jpeg(frame: np.ndarray, quality: int) -> bytes:
     return buf.getvalue()
 
 
-def write_mjpeg_avi(path: str, frames, fps: int = 30, quality: int = 9):
-    """Write ``frames`` (iterable of (H, W, 3) uint8) as an MJPEG AVI.
-
-    ``quality`` follows imageio's 0-10 scale (the evaluations pass 9)
-    and maps to JPEG quality ``min(95, quality * 10)``.
-    """
+def _frames_u8(frames):
     frames = [np.ascontiguousarray(f, np.uint8) for f in frames]
     if not frames:
         raise ValueError("no frames")
-    h, w = frames[0].shape[:2]
-    jq = max(1, min(95, int(round(quality * 10))))
-    jpegs = [_encode_jpeg(f, jq) for f in frames]
-    n = len(jpegs)
-    max_size = max(len(j) for j in jpegs)
+    return frames
 
+
+def _write_avi(path, payloads, w, h, fps, handler, compression, chunk_id, image_size):
+    """The RIFF container around ``payloads`` (one bytes object a frame):
+    one video stream of ``handler`` frames stored as ``chunk_id`` chunks,
+    with a keyframe index."""
+    n = len(payloads)
+    max_size = max(len(p) for p in payloads)
     avih = struct.pack(
         "<14I",
         int(1e6 / max(fps, 1)),            # dwMicroSecPerFrame
@@ -65,7 +66,7 @@ def write_mjpeg_avi(path: str, frames, fps: int = 30, quality: int = 9):
         0, 0, 0, 0,                        # dwReserved
     )
     strh = (
-        b"vids" + b"MJPG"
+        b"vids" + handler
         + struct.pack(
             "<IHHIIIIIIII",
             0, 0, 0,                       # flags, priority, language
@@ -80,7 +81,7 @@ def write_mjpeg_avi(path: str, frames, fps: int = 30, quality: int = 9):
     )
     strf = struct.pack(
         "<IiiHH4sIiiII",
-        40, w, h, 1, 24, b"MJPG", w * h * 3, 0, 0, 0, 0,
+        40, w, h, 1, 24, compression, image_size, 0, 0, 0, 0,
     )
     hdrl = _list(
         b"hdrl",
@@ -92,11 +93,11 @@ def write_mjpeg_avi(path: str, frames, fps: int = 30, quality: int = 9):
     # memcpy on a 600-frame render video
     movi_parts, index_parts = [], []
     offset = 4  # idx1 offsets count from the 'movi' fourcc
-    for j in jpegs:
+    for p in payloads:
         index_parts.append(
-            b"00dc" + struct.pack("<III", _AVIIF_KEYFRAME, offset, len(j))
+            chunk_id + struct.pack("<III", _AVIIF_KEYFRAME, offset, len(p))
         )
-        chunk = _chunk(b"00dc", j)
+        chunk = _chunk(chunk_id, p)
         movi_parts.append(chunk)
         offset += len(chunk)
     movi = _list(b"movi", b"".join(movi_parts))
@@ -106,3 +107,38 @@ def write_mjpeg_avi(path: str, frames, fps: int = 30, quality: int = 9):
     with open(path, "wb") as f:
         f.write(b"RIFF" + struct.pack("<I", len(riff_payload)) + riff_payload)
     return path
+
+
+def write_mjpeg_avi(path: str, frames, fps: int = 30, quality: int = 9):
+    """Write ``frames`` (iterable of (H, W, 3) uint8) as an MJPEG AVI.
+
+    ``quality`` follows imageio's 0-10 scale (the evaluations pass 9)
+    and maps to JPEG quality ``min(95, quality * 10)``.
+    """
+    frames = _frames_u8(frames)
+    h, w = frames[0].shape[:2]
+    jq = max(1, min(95, int(round(quality * 10))))
+    jpegs = [_encode_jpeg(f, jq) for f in frames]
+    return _write_avi(path, jpegs, w, h, fps, b"MJPG", b"MJPG", b"00dc", w * h * 3)
+
+
+def _dib_rows(frame: np.ndarray) -> bytes:
+    """One (H, W, 3) uint8 RGB frame as a BI_RGB bitmap: rows bottom-up,
+    BGR, each padded with zeros to a multiple of 4 bytes."""
+    h, w = frame.shape[:2]
+    stride = (3 * w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, : 3 * w] = frame[::-1, :, ::-1].reshape(h, 3 * w)
+    return rows.tobytes()
+
+
+def write_rgb_avi(path: str, frames, fps: int = 30):
+    """Write ``frames`` (iterable of (H, W, 3) uint8) as an uncompressed
+    RGB AVI: every frame's pixels stored as they are."""
+    frames = _frames_u8(frames)
+    h, w = frames[0].shape[:2]
+    if any(f.shape != (h, w, 3) for f in frames):
+        raise ValueError("frames must all be (H, W, 3) of one size")
+    bitmaps = [_dib_rows(f) for f in frames]
+    return _write_avi(path, bitmaps, w, h, fps, b"DIB ", struct.pack("<I", _BI_RGB),
+                      b"00db", len(bitmaps[0]))
