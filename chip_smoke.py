@@ -61,7 +61,7 @@ Phases (any failure exits nonzero before the last line):
    captured and held against the plain versions at phase 3's tolerances;
 7. progressive fit: trainer.reconstruction on a two-view trajectory
    (circle0_30, a real disocclusion) with phase 6's configuration and
-   n_stage1 2, n_stage2 1, n_stage3 1, on default_services: procedural
+   n_stage1 1, n_stage2 1, n_stage3 1, on default_services: procedural
    text2img and depth, diffusion_fill_inpaint, histogram_rank, and the
    merge net at its production shape (unet_1024, 10 downs, bf16, seeded
    random init), with ExpansionConfig's defaults (20 candidates, 500
@@ -74,7 +74,24 @@ Phases (any failure exits nonzero before the last line):
    expansion's merge call runs again, fp32 with TF32 off and 2
    iterations, on the card and on the CPU, held within a relative bound.
    Prints the wall of each expansion sub-phase, ms per merge iteration
-   and per inpaint call, and the fit's wall and step ms.
+   and per inpaint call, and the fit's wall and step ms;
+8. generative fit: phase 7's fit on default_services(weights_dir) whose stable-diffusion-2-1-base/,
+   stable-diffusion-2-inpainting/ and clip-vit-base-patch32/ exist and hold
+   no checkpoint: the SD 2 UNets, the VAE, the OpenCLIP-H text tower and
+   the CLIP ViT-B/32 ranker at their published widths and seeded random
+   init, bf16 compute.  The services must resolve "real"; the seed image
+   come from 50 Euler evaluations of the 4-channel UNet at batch 2; the
+   expansion make 4 inpaint calls of 5 candidates, each 51 PNDM
+   evaluations of the 9-channel UNet at batch 10; every candidate be a
+   finite 512x512x3 image in [0, 1] and the chosen one the argmax of the
+   CLIP scores; every phase/expand1_* row be logged and kernels A, A' and
+   B launched (held as in phase 7); the seed view's final PSNR beat the
+   untrained field's.  Then ms per UNet evaluation (batch 10 and 2), per
+   VAE encode and decode, the UNet's FLOPs from its shapes and its share
+   of the bf16 peak, one inpaint call under torch.profiler (busy share,
+   attention / convolution / GroupNorm / linear shares), and one forward
+   of the full-width inpainting UNet (batch 2) and of CLIP ViT-B/32 on the
+   card and the CPU (fp32, TF32 off), held within a relative bound.
 
 Prints a JSON line of per-kernel numbers, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -144,6 +161,13 @@ TOL = {
     # the largest output: conv sums in other orders, and Adam's first steps
     # move every weight by about lr whatever its gradient's size
     "merge": 1e-3,
+    # one evaluation of the full-width inpainting UNet (fp32, TF32 off) and
+    # one CLIP ViT-B/32 forward, card vs CPU, of the largest output: ~20
+    # resnets and 16 transformers (12 layers for CLIP) of conv and matmul
+    # sums in other orders, through GroupNorms that renormalize each
+    # block's error
+    "unet": 1e-3,
+    "clip": 1e-4,
 }
 SEED_FIT_HW = (512, 512)
 SEED_FIT_EPOCHS = (2, 1)  # n_stage1, n_stage3
@@ -1213,7 +1237,7 @@ def _seed_fit_configs(workdir, hw, scene=None, **overrides):
 
 
 # phase 7: the progressive fit (stage 1, one expansion, stage 2, stage 3)
-PROGRESSIVE_EPOCHS = (2, 1, 1)  # n_stage1, n_stage2, n_stage3
+PROGRESSIVE_EPOCHS = (1, 1, 1)  # n_stage1, n_stage2, n_stage3 of phases 7 and 8
 PROGRESSIVE_SCENE = dict(pose_traj="circle0_30", num_training=2)
 # every sub-phase expand_scene logs for view 1, and the view's DIBR tree
 EXPAND_PHASES = ("render_filter_known", "dibr_warp", "dibr_holefill", "render_target",
@@ -1275,38 +1299,38 @@ def _merge_card_vs_cpu(dev, merge, args, kw):
     return float(np.abs(outs[0] - outs[1]).max() / np.abs(outs[1]).max()), ms[0], ms[1]
 
 
-def phase_progressive_fit(dev, card, report, workdir):
-    """The progressive fit through trainer.reconstruction (module
-    docstring, phase 7)."""
+def _progressive_fit(dev, card, report, workdir, services, epochs, label, margin_db):
+    """trainer.reconstruction on the two-view trajectory with ``services``
+    and phase 6's configuration at ``epochs`` (n_stage1, n_stage2,
+    n_stage3), the kernel counts set to 0 just before and read just after,
+    then the checks phases 7 and 8 share (module docstring).  Returns the
+    fit's records."""
     import numpy as np
     import torch
+    from text2nerf_tpu_torch.data import scene_state as ss
     from text2nerf_tpu_torch.engine import checkpoints as ckpt
     from text2nerf_tpu_torch.engine import expansion, renderer, trainer
     from text2nerf_tpu_torch.engine import train_step as ts
     from text2nerf_tpu_torch.models import tensorf as tf
     from text2nerf_tpu_torch.ops.kernels import factor_features as ff
     from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
-    from text2nerf_tpu_torch.services.registry import default_services
     from text2nerf_tpu_torch.utils.png import read_png
 
-    n1, n2, n3 = PROGRESSIVE_EPOCHS
+    n1, n2, n3 = epochs
     cfg, scene_cfg = _seed_fit_configs(
         workdir, SEED_FIT_HW, scene=PROGRESSIVE_SCENE, n_stage1=n1, n_stage2=n2, n_stage3=n3,
-        eval_every_epochs=sum(PROGRESSIVE_EPOCHS), **SEED_FIT_COMPACT)
-    services = default_services(hw=scene_cfg.hw, device=dev)
+        eval_every_epochs=sum(epochs), **SEED_FIT_COMPACT)
     ex = expansion.ExpansionConfig(prompt=scene_cfg.prompt, push_depth=scene_cfg.push_depth,
                                    trans_range=scene_cfg.trans_range)
     _require(ex.n_candidates == N_CANDIDATES, "the expansion does not run its defaults")
     merge = services.merge
     _require((merge.net_size, merge.num_downs, merge.compute_dtype)
              == (1024, 10, torch.bfloat16), "the merge net is not unet_1024 in bf16")
-    print(f"progressive fit: hw {SEED_FIT_HW}, {scene_cfg.pose_traj} x {scene_cfg.num_training} "
-          f"views, epochs {PROGRESSIVE_EPOCHS}, the seed fit's grid and milestones, stage 2 and 3 "
+    print(f"{label}: hw {SEED_FIT_HW}, {scene_cfg.pose_traj} x {scene_cfg.num_training} views, "
+          f"epochs {epochs}, the seed fit's grid and milestones, stage 2 and 3 "
           f"{SEED_FIT_COMPACT}; expansion {ex}; merge net {merge.net_size}/{merge.num_downs} "
-          f"bf16", flush=True)
+          f"bf16; services {services.resolution}", flush=True)
 
-    services.inpaint = _Timed(services.inpaint)
-    merge.run_finetune = _Timed(merge.run_finetune, keep=True)
     expand0, batch0 = expansion.expand_scene, trainer._batch_from_pool
     drawn = []  # the pool size of every batch the trainer drew
 
@@ -1337,28 +1361,29 @@ def phase_progressive_fit(dev, card, report, workdir):
             expansion.expand_scene, trainer._batch_from_pool = expand0, batch0
     launches = {"factor_features": ff.LAUNCHES, "factor_features_bwd": ff.BWD_LAUNCHES,
                 "shading_mlp": sm.LAUNCHES}
-    print(f"progressive fit launches {launches}, in the expansion's renders A "
+    path = label.replace(" ", "_")
+    print(f"{label} launches {launches}, in the expansion's renders A "
           f"{probe.expand_launches[0]} and B {probe.expand_launches[1]}; wall {wall:.3f} s "
           f"with a device sync around every step, on {card}", flush=True)
     for name, count in launches.items():
-        _require(count > 0, f"{name} was not launched on the progressive fit")
+        _require(count > 0, f"{name} was not launched on the {label}")
         report[name]["launches"] = report[name].get("launches", 0) + count
-        report[name].setdefault("launches_by_path", {})["progressive_fit"] = count
+        report[name].setdefault("launches_by_path", {})[path] = count
     _require(min(probe.expand_launches) > 0
              and any(k[:2] == ("expand", "A") for k in probe.captured),
              f"kernels A and B did not run in the expansion: {sorted(probe.captured)}")
     _require(any(k[:2] == ("stage2", "A'") for k in probe.captured),
              f"kernel A' did not run in the first stage-2 step: {sorted(probe.captured)}")
-    _hold_seed_fit_kernels(probe.captured, report, PROGRESSIVE_HELD, "progressive fit")
+    _hold_seed_fit_kernels(probe.captured, report, PROGRESSIVE_HELD, label)
     probe.captured.clear()
 
     rows = [json.loads(line) for line in open(f"{logfolder}/metrics.jsonl")]
     phases = {k[len("phase/"):-2]: v for row in rows for k, v in row.items()
               if k.startswith("phase/")}
-    missing = [p for p in ("expand_view_1", *(f"expand1_{p}" for p in EXPAND_PHASES))
-               if p not in phases]
+    names = ("expand_view_1", *(f"expand1_{p}" for p in EXPAND_PHASES))
+    missing = [p for p in names if p not in phases]
     _require(not missing, f"expansion phases not logged: {missing}")
-    for name in ("expand_view_1", *(f"expand1_{p}" for p in EXPAND_PHASES)):
+    for name in names:
         print(f"  phase/{name}_s {phases[name]:.4f}", flush=True)
     dibr = f"{logfolder}/DIBR"
     files = sorted(os.path.relpath(os.path.join(d, f), dibr)
@@ -1381,16 +1406,11 @@ def phase_progressive_fit(dev, card, report, workdir):
     _require(n_new > 0 and len(scene.updates["00001"][0]) == n_new, "the new view's pool is empty")
     _require(from_new >= n_steps2 // 2, f"stage 2 drew {from_new} of {n_steps2} batches from the "
              "new view's pool")
-
     for kind in ("dense", "compact"):
         print(f"{kind} steps: {len(probe.ms[kind])}, step alone median "
               f"{_median(probe.ms[kind]):.2f} ms, end to end median "
               f"{_median(probe.loop_ms[kind]):.2f} ms; A' by mode {probe.modes[kind]}",
               flush=True)
-    inpaint_ms, merge_ms = services.inpaint.ms, merge.run_finetune.ms
-    print(f"inpaint: {len(inpaint_ms)} calls, {_median(inpaint_ms):.2f} ms median; merge "
-          f"finetune: {ex.merge_iters} iterations in {merge_ms[0]:.1f} ms, "
-          f"{merge_ms[0] / ex.merge_iters:.3f} ms per iteration", flush=True)
 
     # the untrained field the fit started from, upsampled as the fit did
     want_up = tf.n_to_reso(SEED_FIT_VOXELS[1], scene.scene_bbox)
@@ -1398,8 +1418,6 @@ def phase_progressive_fit(dev, card, report, workdir):
                    push_depth=scene_cfg.push_depth, near_far=scene.near_far, device=dev)
     _, f0, _, _ = trainer.init_field(cfg, scene, device=dev)
     f0 = tf.upsample_volume_grid(f0, want_up).requires_grad_(False)
-    from text2nerf_tpu_torch.data import scene_state as ss
-
     z_floor = ss.supervised_z_floor(scene)
     psnr0 = renderer.evaluation(
         f0, torch.as_tensor(scene.scene_bbox, device=dev), scene.rays_gen_split[:1],
@@ -1419,7 +1437,28 @@ def phase_progressive_fit(dev, card, report, workdir):
           f"generated view final {psnr[1]:.4f} dB; logged means by step {evals} (step "
           f"{loop['global_step']}, view {loop['view_idx']})", flush=True)
     _require(loop["view_idx"] == 1 and all(np.isfinite(psnr)), f"final state {loop}, {psnr}")
-    _require(psnr[0] >= psnr0 + 5.0, f"seed view PSNR {psnr[0]} is not 5 dB above {psnr0}")
+    _require(psnr[0] > psnr0 + margin_db,
+             f"seed view PSNR {psnr[0]} is not {margin_db} dB above {psnr0}")
+    return dict(wall=wall, phases=phases, n_new=n_new, psnr0=psnr0, psnr=psnr, dibr=dibr,
+                compact_ms=_median(probe.ms["compact"]), dense_ms=_median(probe.ms["dense"]))
+
+
+def phase_progressive_fit(dev, card, report, workdir):
+    """The progressive fit on the procedural services (module docstring,
+    phase 7)."""
+    from text2nerf_tpu_torch.services.registry import default_services
+
+    services = default_services(hw=SEED_FIT_HW, device=dev)
+    services.inpaint = _Timed(services.inpaint)
+    merge = services.merge
+    merge.run_finetune = _Timed(merge.run_finetune, keep=True)
+    fit = _progressive_fit(dev, card, report, workdir, services, PROGRESSIVE_EPOCHS,
+                           "progressive fit", 5.0)
+    inpaint_ms, merge_ms = services.inpaint.ms, merge.run_finetune.ms
+    iters = merge.run_finetune.args[1]["iters"]
+    print(f"inpaint: {len(inpaint_ms)} calls, {_median(inpaint_ms):.2f} ms median; merge "
+          f"finetune: {iters} iterations in {merge_ms[0]:.1f} ms, "
+          f"{merge_ms[0] / iters:.3f} ms per iteration", flush=True)
 
     # the merge net on the card against the CPU, on the expansion's inputs
     err, ms_card, ms_cpu = _merge_card_vs_cpu(dev, merge, *merge.run_finetune.args)
@@ -1428,15 +1467,267 @@ def phase_progressive_fit(dev, card, report, workdir):
           f"(tol {TOL['merge']:g}); {ms_card:.0f} ms on the card, {ms_cpu:.0f} ms on the CPU",
           flush=True)
     _require(err <= TOL["merge"], f"merge finetune card vs CPU: {err} > {TOL['merge']}")
-    return {"progressive_wall_s": wall, "progressive_pool_new_rays": n_new,
-            "progressive_expand_s": phases["expand_view_1"],
-            "progressive_merge_ms_per_iter": merge_ms[0] / ex.merge_iters,
+    return {"progressive_wall_s": fit["wall"], "progressive_pool_new_rays": fit["n_new"],
+            "progressive_expand_s": fit["phases"]["expand_view_1"],
+            "progressive_merge_ms_per_iter": merge_ms[0] / iters,
             "progressive_inpaint_ms": _median(inpaint_ms),
-            "progressive_psnr_seed_untrained": psnr0, "progressive_psnr_seed": psnr[0],
-            "progressive_psnr_generated": psnr[1],
-            "progressive_compact_ms": _median(probe.ms["compact"]),
-            "progressive_dense_ms": _median(probe.ms["dense"]),
+            "progressive_psnr_seed_untrained": fit["psnr0"], "progressive_psnr_seed": fit["psnr"][0],
+            "progressive_psnr_generated": fit["psnr"][1],
+            "progressive_compact_ms": fit["compact_ms"], "progressive_dense_ms": fit["dense_ms"],
             "progressive_merge_card_vs_cpu": err}
+
+
+# phase 8: the progressive fit on the generative services at random init
+GENERATIVE_WEIGHTS = ("stable-diffusion-2-1-base", "stable-diffusion-2-inpainting",
+                      "clip-vit-base-patch32")
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+# the profiler's op names, by what they compute in the UNet and the VAE
+PROFILE_GROUPS = {
+    "attention": ("aten::baddbmm", "aten::bmm", "aten::_softmax"),
+    "convolution": ("aten::cudnn_convolution", "aten::_convolution", "aten::convolution"),
+    "group_norm": ("aten::native_group_norm",),
+    "linear": ("aten::addmm", "aten::mm"),
+}
+
+
+class _Evals:
+    """Counts a UNet's evaluations (batch, input channels) through its
+    forward."""
+
+    def __init__(self, unet):
+        self.unet, self.forward0, self.calls = unet, unet.forward, []
+        unet.forward = self
+
+    def __call__(self, x, *args, **kw):
+        self.calls.append((x.shape[0], x.shape[1]))
+        return self.forward0(x, *args, **kw)
+
+    def close(self):
+        del self.unet.forward
+
+
+class _Recorded(_Timed):
+    """_Timed that keeps every call's output."""
+
+    def __init__(self, fn, keep=False):
+        super().__init__(fn, keep)
+        self.outs = []
+
+    def __call__(self, *args, **kw):
+        out = super().__call__(*args, **kw)
+        self.outs.append(out)
+        return out
+
+
+def _flops(make, *shapes):
+    """Matmul and convolution FLOPs of one call, counted from the shapes on
+    the meta device (torch.utils.flop_counter)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.device("meta"):
+        module = make()
+        with FlopCounterMode(display=False) as fc:
+            module(*[torch.empty(s) for s in shapes])
+    return fc.get_total_flops()
+
+
+def _profile_shares(fn, dev):
+    """fn() under torch.profiler: (device busy ms, {group: share of the
+    busy time}, the profiled wall ms), the groups PROFILE_GROUPS' ops'
+    self device time."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize(dev)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = _busy_ms(prof.events())
+    self_us = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        self_us[e.key] = self_us.get(e.key, 0.0) + us
+    shares = {g: sum(self_us.get(k, 0.0) for k in keys) / 1e3 / busy if busy > 0 else float("nan")
+              for g, keys in PROFILE_GROUPS.items()}
+    return busy, shares, wall
+
+
+def _card_vs_cpu(make, state, inputs, dev):
+    """One forward of ``make()`` from ``state`` in fp32 (TF32 off) on the
+    card and on the CPU: (max |difference| over the largest |CPU output|,
+    card ms, CPU ms)."""
+    import torch
+    from text2nerf_tpu_torch.models.diffusion import materialize
+
+    outs, ms = [], []
+    for device in (dev, torch.device("cpu")):
+        net = materialize(make, device)
+        net.load_state_dict(state, strict=True)
+        args = [a.to(device) for a in inputs]
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            t0 = time.perf_counter()
+            out = net(*args)
+            out = (out["embeds"] if isinstance(out, dict) else out).float().cpu()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+        del net
+    torch.cuda.empty_cache()
+    return float((outs[0] - outs[1]).abs().max() / outs[1].abs().max()), ms[0], ms[1]
+
+
+def phase_generative_fit(dev, card, report, workdir):
+    """The progressive fit on the diffusion and CLIP services at their
+    published widths and seeded random init (module docstring, phase 8),
+    then the services' own timings, FLOPs, profile and card-vs-CPU
+    checks."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch.models import clip as C
+    from text2nerf_tpu_torch.models import diffusion as D
+    from text2nerf_tpu_torch.services.registry import default_services
+    from text2nerf_tpu_torch.utils.png import read_png
+
+    wdir = os.path.join(workdir, "gen_weights")
+    for sub in GENERATIVE_WEIGHTS:
+        os.makedirs(os.path.join(wdir, sub))
+    t0 = time.perf_counter()
+    services = default_services(weights_dir=wdir, hw=SEED_FIT_HW, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    res = services.resolution
+    _require(all(res[k] == "real" for k in ("text2img", "inpaint", "rank")),
+             f"the generative services did not resolve to their nets: {res}")
+    t2i, inp = services.text2img.pipeline, services.inpaint.pipeline
+    ranker = services.rank.model
+    _require((t2i.unet_cfg, inp.unet_cfg, t2i.vae_cfg, t2i.text_cfg, ranker.cfg)
+             == (D.UNetConfig.sd21_base(), D.UNetConfig.sd2_inpaint(), D.VAEConfig(),
+                 C.CLIPTextConfig.sd2_text(), C.CLIPVisionConfig.vit_b32()),
+             "the services are not at SD 2 / OpenCLIP-H / ViT-B/32 widths")
+    _require((t2i.scheduler, t2i.num_steps, inp.scheduler, inp.num_steps)
+             == ("euler", 50, "pndm", 50), "the schedulers are not Euler / PNDM at 50 steps")
+    n_params = {k: sum(p.numel() for p in m.parameters()) for k, m in (
+        ("unet", t2i.unet), ("inpaint_unet", inp.unet), ("vae", t2i.vae), ("text", t2i.text),
+        ("clip_vision", ranker))}
+    print(f"generative services built in {build_s:.2f} s on {card}: {res}; parameters "
+          f"{n_params}; text2img euler x {t2i.num_steps}, inpaint pndm x {inp.num_steps} "
+          f"({len(inp._make_schedule().timesteps)} evaluations), bf16 compute", flush=True)
+
+    evals_t2i, evals_inp = _Evals(t2i.unet), _Evals(inp.unet)
+    services.text2img = _Recorded(services.text2img)
+    services.inpaint = _Recorded(services.inpaint, keep=True)
+    services.rank = _Recorded(services.rank, keep=True)
+    services.merge.run_finetune = _Timed(services.merge.run_finetune)
+    try:
+        fit = _progressive_fit(dev, card, report, workdir, services, PROGRESSIVE_EPOCHS,
+                               "generative fit", 0.0)
+    finally:
+        evals_t2i.close()
+        evals_inp.close()
+
+    # the seed image: SD 2.1-base, Euler, 50 evaluations of the doubled batch
+    _require(evals_t2i.calls == [(2, 4)] * 50, f"text2img evaluations {evals_t2i.calls[:3]}... "
+             f"({len(evals_t2i.calls)})")
+    seed_img = services.text2img.outs[0]
+    _require(seed_img.shape == (*SEED_FIT_HW, 3) and np.isfinite(seed_img).all()
+             and 0 <= seed_img.min() <= seed_img.max() <= 1, "the seed image is not an image")
+    # 4 inpaint rounds x 5 candidates, each PNDM: 51 evaluations at batch 10
+    rounds = services.inpaint.outs
+    n_cand = [len(r) for r in rounds]
+    _require(n_cand == [5] * 4 and evals_inp.calls == [(10, 9)] * 204,
+             f"inpaint rounds {n_cand}, evaluations {len(evals_inp.calls)} "
+             f"{set(evals_inp.calls)}")
+    cands = [c for r in rounds for c in r]
+    for c in cands:
+        _require(c.shape == (*SEED_FIT_HW, 3) and c.dtype == np.float32 and np.isfinite(c).all()
+                 and 0 <= c.min() <= c.max() <= 1, "a candidate is not a finite [0, 1] image")
+    scores = np.asarray(services.rank.outs[0])
+    best = int(np.argmax(scores))
+    chosen = read_png(f"{fit['dibr']}/rgbs/00001.png")
+    _require(scores.shape == (N_CANDIDATES,) and np.isfinite(scores).all()
+             and np.array_equal(chosen, read_png(f"{fit['dibr']}/rgbs/00001_{best:03d}.png")),
+             f"the chosen view is not candidate {best}, the argmax of the CLIP scores")
+    spread = float(np.mean([np.abs(c - cands[0]).mean() for c in cands[1:]]))
+    print(f"seed image: 50 Euler evaluations at batch 2, mean {seed_img.mean():.4f}; "
+          f"{len(cands)} candidates finite in [0, 1] (mean |c - c0| {spread:.4f}); CLIP scores "
+          f"{np.round(scores, 3).tolist()}, argmax {best} chosen", flush=True)
+
+    t2i_ms, inp_ms = services.text2img.ms, services.inpaint.ms
+    rank_ms, merge_ms = services.rank.ms, services.merge.run_finetune.ms
+    print(f"calls on {card}: text2img {t2i_ms[0]:.1f} ms; inpaint {len(inp_ms)} calls, "
+          f"{_median(inp_ms):.1f} ms median ({[round(m, 1) for m in inp_ms]}); rank "
+          f"{rank_ms[0]:.1f} ms ({N_CANDIDATES + 1} images); merge finetune {merge_ms[0]:.1f} ms",
+          flush=True)
+
+    # ms per UNet evaluation (the inpainting UNet, bf16) and per VAE call,
+    # and the UNet's FLOPs counted from its shapes
+    lat = SEED_FIT_HW[0] // 8
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ctx = t2i.encode_text("a beautiful garden with flowers")[0]
+    unet_ms = {}
+    with torch.no_grad():
+        for b in (10, 2):
+            x = torch.randn(b, 9, lat, lat, generator=gen, device=dev)
+            t = torch.full((b,), 501.0, device=dev)
+            c = ctx.expand(b, -1, -1)
+            unet_ms[b] = _time_ms(lambda: inp.unet(x, t, c), 3)
+        img = torch.rand(1, 3, *SEED_FIT_HW, generator=gen, device=dev) * 2 - 1
+        z = torch.randn(5, 4, lat, lat, generator=gen, device=dev)
+        enc_ms = _time_ms(lambda: inp.vae.encode(img), 3)
+        dec_ms = _time_ms(lambda: inp.vae.decode(z), 2)
+    flops = {b: _flops(lambda: D.UNet(D.UNetConfig.sd2_inpaint(), torch.bfloat16),
+                       (b, 9, lat, lat), (b,), (b, 77, 1024)) for b in (10, 2)}
+    share = {b: flops[b] / (unet_ms[b] * 1e-3) / BF16_FLOPS for b in (10, 2)}
+    print(f"UNet evaluation (9 channels, bf16, {lat}^2 latents): batch 10 {unet_ms[10]:.2f} ms "
+          f"({flops[10] / 1e12:.3f} TFLOP, {share[10]:.3f} of the {BF16_FLOPS / 1e12:.0f} TFLOP/s "
+          f"bf16 peak), batch 2 {unet_ms[2]:.2f} ms ({flops[2] / 1e12:.3f} TFLOP, "
+          f"{share[2]:.3f}); VAE encode 1x{SEED_FIT_HW[0]}^2 {enc_ms:.2f} ms, decode 5x{lat}^2 "
+          f"{dec_ms:.2f} ms; on {card}", flush=True)
+
+    # one inpaint call under torch.profiler, on the expansion's first inputs
+    args, kw = services.inpaint.args
+    busy, shares, wall_prof = _profile_shares(lambda: services.inpaint.fn(*args, **kw), dev)
+    busy_share = busy / _median(inp_ms)
+    print(f"one inpaint call under torch.profiler on {card}: device busy {busy:.1f} ms of the "
+          f"unprofiled median {_median(inp_ms):.1f} ms (busy share {busy_share:.3f}; "
+          f"{wall_prof:.1f} ms profiled); of the busy time: "
+          + ", ".join(f"{g} {v:.3f}" for g, v in shares.items()), flush=True)
+
+    # the full-width inpainting UNet and CLIP ViT-B/32 on the card and the CPU
+    g = torch.Generator().manual_seed(4)
+    ux = (torch.randn(2, 9, lat, lat, generator=g), torch.full((2,), 501.0),
+          torch.randn(2, 77, 1024, generator=g))
+    u_err, u_card, u_cpu = _card_vs_cpu(lambda: D.UNet(D.UNetConfig.sd2_inpaint()),
+                                        {k: v.cpu() for k, v in inp.unet.state_dict().items()},
+                                        ux, dev)
+    from text2nerf_tpu_torch.services.clip_rank import preprocess
+
+    cx = (torch.from_numpy(preprocess(services.rank.args[0][0] + [services.rank.args[0][1]]))
+          .permute(0, 3, 1, 2).contiguous(),)
+    c_err, c_card, c_cpu = _card_vs_cpu(lambda: C.CLIPVisionEncoder(C.CLIPVisionConfig.vit_b32()),
+                                        {k: v.cpu() for k, v in ranker.state_dict().items()},
+                                        cx, dev)
+    print(f"{card} vs CPU (fp32, TF32 off): inpainting UNet batch 2 at {lat}^2 {u_err:.3e} of the "
+          f"largest output (tol {TOL['unet']:g}; {u_card:.0f} / {u_cpu:.0f} ms); CLIP ViT-B/32 on "
+          f"{cx[0].shape[0]} images {c_err:.3e} (tol {TOL['clip']:g}; {c_card:.0f} / {c_cpu:.0f} "
+          f"ms)", flush=True)
+    _require(u_err <= TOL["unet"], f"the inpainting UNet card vs CPU: {u_err} > {TOL['unet']}")
+    _require(c_err <= TOL["clip"], f"CLIP ViT-B/32 card vs CPU: {c_err} > {TOL['clip']}")
+    return {"generative_wall_s": fit["wall"], "generative_expand_s": fit["phases"]["expand_view_1"],
+            "generative_inpaint_rank_s": fit["phases"]["expand1_inpaint_rank"],
+            "generative_text2img_ms": t2i_ms[0], "generative_inpaint_ms": _median(inp_ms),
+            "generative_rank_ms": rank_ms[0], "generative_unet_b10_ms": unet_ms[10],
+            "generative_unet_b2_ms": unet_ms[2], "generative_unet_b10_tflop": flops[10] / 1e12,
+            "generative_unet_b10_peak_share": share[10], "generative_vae_encode_ms": enc_ms,
+            "generative_vae_decode5_ms": dec_ms, "generative_inpaint_busy_share": busy_share,
+            "generative_inpaint_shares": shares, "generative_psnr_seed": fit["psnr"][0],
+            "generative_psnr_seed_untrained": fit["psnr0"],
+            "generative_psnr_generated": fit["psnr"][1], "generative_unet_card_vs_cpu": u_err,
+            "generative_clip_card_vs_cpu": c_err}
 
 
 # stage 3's compaction settings tried on the seed fit (TrainConfig overrides)
@@ -1511,6 +1802,7 @@ def main(argv):
         print(f"chip_smoke: the text2nerf_tpu_torch package is missing ({e})",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = _card_line()
     print(card, flush=True)
@@ -1550,8 +1842,14 @@ def main(argv):
         prog = phase_progressive_fit(dev, card, report, str(prog_dir))
     finally:
         shutil.rmtree(prog_dir, ignore_errors=True)
-    print(json.dumps({"rays_per_s": rays_s, "max_dev": max_dev, **train, **seed, **prog,
-                      "card": card}), flush=True)
+    gen_dir = _build.BUILD_DIR / "generative_fit"
+    shutil.rmtree(gen_dir, ignore_errors=True)
+    try:
+        gen = phase_generative_fit(dev, card, report, str(gen_dir))
+    finally:
+        shutil.rmtree(gen_dir, ignore_errors=True)
+    print(json.dumps({"rays_per_s": rays_s, "max_dev": max_dev, **train, **seed, **prog, **gen,
+                      "card": card, "wall_s": time.perf_counter() - t_start}), flush=True)
     kernels = [report[k] for k in ("factor_features", "shading_mlp", "factor_features_bwd")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -464,3 +464,22 @@ def test_support_warp_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(m_g, m_c) and 0.3 < float(m_c.float().mean()) < 1.0
     assert float((rgb_g - rgb_c).abs().max()) <= 1.0 / 255 + 1e-6
     assert float(((d_g - d_c).abs() / d_c.abs().clamp(min=1e-6)).max()) <= 1e-5
+
+
+def test_tiny_unet_on_the_card_matches_the_cpu(cuda):
+    # the 9-channel tiny UNet (fp32, TF32 off) from one seeded init on both
+    # devices: conv and matmul sums in other orders
+    from text2nerf_tpu_torch.models import diffusion as PD
+
+    cfg = PD.UNetConfig(**{**PD.UNetConfig.tiny().__dict__, "in_channels": 9})
+    cpu = PD.materialize(lambda: PD.UNet(cfg), "cpu", torch.Generator().manual_seed(0))
+    card = PD.materialize(lambda: PD.UNet(cfg), cuda)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    args = (torch.randn(2, 9, 16, 16, generator=g), torch.tensor([10.0, 500.5]),
+            torch.randn(2, 7, 64, generator=g))
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = cpu(*args)
+        got = card(*[a.to(cuda) for a in args]).cpu()
+    assert got.shape == want.shape == (2, 4, 16, 16)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5

@@ -38,15 +38,17 @@ def _cubic_weights(x: np.ndarray, a: float = -0.5) -> np.ndarray:
     ).astype(np.float32)
 
 
-def _resize_bicubic_np(grid: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Separable bicubic upsample (half-pixel centers)."""
+def _resize_bicubic_np(grid: np.ndarray, h: int, w: int, a: float = -0.5) -> np.ndarray:
+    """Separable bicubic resize (half-pixel centers, clamped taps, no
+    antialias) with Keys coefficient ``a``: -0.5 is ``jax.image.resize``'s,
+    -0.75 OpenCV's ``INTER_CUBIC``."""
 
     def along(arr, n_out, axis):
         n_in = arr.shape[axis]
         coord = (np.arange(n_out, dtype=np.float64) + 0.5) * n_in / n_out - 0.5
         base = np.floor(coord).astype(np.int64)
         taps = base[None, :] + np.arange(-1, 3)[:, None]          # (4, n_out)
-        wts = _cubic_weights(coord[None, :] - taps)               # (4, n_out)
+        wts = _cubic_weights(coord[None, :] - taps, a)            # (4, n_out)
         wts /= np.maximum(wts.sum(0, keepdims=True), 1e-8)
         taps = np.clip(taps, 0, n_in - 1)
         moved = np.moveaxis(arr, axis, 0)

@@ -31,16 +31,18 @@ from ..device import resolve_device
 from ..models.pix2pix import UnetGenerator, minmax_normalize, state_from_flax
 
 
-def nearest_resize(img, size: int):
-    """(H, W) → (size, size), the source pixel of output i being
-    floor((i + 0.5) · in / out) computed in fp32 (``jax.image.resize``'s
-    "nearest", half-pixel centres: a 1024 → 512 downsample takes pixel
-    2i + 1)."""
-    def index(n_in):
-        pos = (torch.arange(size, dtype=torch.float32, device=img.device) + 0.5) * n_in / size
+def nearest_resize(img, size):
+    """(H, W) → (size, size), or (h, w) for a pair, the source pixel of
+    output i being floor((i + 0.5) · in / out) computed in fp32
+    (``jax.image.resize``'s "nearest", half-pixel centres: a 1024 → 512
+    downsample takes pixel 2i + 1)."""
+    out_h, out_w = (size, size) if isinstance(size, int) else size
+
+    def index(n_in, n_out):
+        pos = (torch.arange(n_out, dtype=torch.float32, device=img.device) + 0.5) * n_in / n_out
         return torch.floor(pos).long()
 
-    return img[index(img.shape[0])][:, index(img.shape[1])]
+    return img[index(img.shape[0], out_h)][:, index(img.shape[1], out_w)]
 
 
 class DepthMergeService:

@@ -1,14 +1,16 @@
 """The generative services behind one injectable bundle (port of
-``text2nerf_tpu/services/registry.py``, the procedural route and the
-depth-merge net).
+``text2nerf_tpu/services/registry.py``).
 
 The trainer's scene bootstrap calls ``text2img`` and ``estimate_depth``;
 scene expansion calls ``inpaint``, ``rank``, ``estimate_depth`` and
 ``merge``.  :func:`default_services` resolves each as the JAX package
-does: the procedural stand-ins, and the merge net from
-``merge_model_sc.npz`` in ``weights_dir`` when it is there, else at its
-seeded random init.  A ``weights_dir`` that holds diffusion, LeReS or
-CLIP weights raises: those networks are not ported yet.
+does: a service whose entry exists in ``weights_dir`` runs its network
+("real": SD 2.1-base text2img, SD 2-inpainting, the CLIP ViT-B/32 ranker,
+each from its checkpoint or, in a directory that holds none, at its
+seeded random init), else its procedural stand-in ("fallback"); the merge
+net from ``merge_model_sc.npz`` when it is there, else at its seeded
+random init.  A ``weights_dir`` with a ``leres/`` entry raises: the depth
+family comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -23,9 +25,8 @@ import numpy as np
 from . import fallbacks
 from .merge import DepthMergeService
 
-#: the weight entries of a weights directory, by service, whose networks
-#: are not ported
-_UNPORTED = {
+#: the entry of a weights directory of each service
+WEIGHTS = {
     "text2img": "stable-diffusion-2-1-base",
     "inpaint": "stable-diffusion-2-inpainting",
     "depth": "leres",
@@ -56,35 +57,46 @@ class Services:
 def default_services(weights_dir: Optional[str] = None, hw=(512, 512),
                      merge_net_size: int = 1024, merge_num_downs: int = 10,
                      device=None) -> Services:
-    """The bundle: procedural text2img, depth, inpainting and ranking, and
-    the merge net at ``merge_net_size`` / ``merge_num_downs`` (from
-    ``weights_dir/merge_model_sc.npz`` when it exists).  The inpainting
-    blur and the merge finetune run on ``device`` (cuda unless asked)."""
+    """The bundle for ``weights_dir`` (see the module docstring); the
+    networks, the inpainting blur and the merge finetune run on ``device``
+    (cuda unless asked)."""
     weights_dir = weights_dir or ""
 
     def _has(sub):
         return bool(weights_dir) and os.path.exists(os.path.join(weights_dir, sub))
 
-    found = [sub for sub in _UNPORTED.values() if _has(sub)]
-    if found:
-        raise NotImplementedError(
-            f"{weights_dir} holds real weights ({', '.join(found)}); the diffusion, "
-            "depth and CLIP networks are not ported yet"
-        )
+    def path(service):
+        return os.path.join(weights_dir, WEIGHTS[service])
 
-    def text2img(prompt, negative_prompt=""):
-        return fallbacks.procedural_text2img(prompt, negative_prompt, hw=hw)
+    if _has(WEIGHTS["depth"]):
+        raise NotImplementedError(
+            f"{path('depth')}: the depth estimators (LeReS, MiDaS, monodepth) are not ported "
+            "yet; they come with the port's depth-family slice")
+    if _has(WEIGHTS["text2img"]):
+        from .diffusion_service import make_text2img
+
+        text2img = make_text2img(path("text2img"), hw=hw, device=device)
+    else:
+        def text2img(prompt, negative_prompt=""):
+            return fallbacks.procedural_text2img(prompt, negative_prompt, hw=hw)
+    if _has(WEIGHTS["inpaint"]):
+        from .diffusion_service import make_inpaint
+
+        inpaint = make_inpaint(path("inpaint"), hw=hw, device=device)
+    else:
+        inpaint = functools.partial(fallbacks.diffusion_fill_inpaint, device=device)
+    if _has(WEIGHTS["rank"]):
+        from .clip_rank import make_clip_ranker
+
+        rank = make_clip_ranker(path("rank"), device=device)
+    else:
+        rank = fallbacks.histogram_rank
 
     merge = DepthMergeService(
         ckpt_path=os.path.join(weights_dir, MERGE_WEIGHTS) if weights_dir else None,
         net_size=merge_net_size, num_downs=merge_num_downs, device=device,
     )
-    return Services(
-        text2img=text2img,
-        estimate_depth=fallbacks.procedural_depth,
-        inpaint=functools.partial(fallbacks.diffusion_fill_inpaint, device=device),
-        rank=fallbacks.histogram_rank,
-        merge=merge,
-        resolution={"text2img": "fallback", "inpaint": "fallback", "depth": "fallback",
-                    "rank": "fallback", "merge": "real" if _has(MERGE_WEIGHTS) else "init"},
-    )
+    resolution = {k: "real" if _has(sub) else "fallback" for k, sub in WEIGHTS.items()}
+    resolution["merge"] = "real" if _has(MERGE_WEIGHTS) else "init"
+    return Services(text2img=text2img, estimate_depth=fallbacks.procedural_depth,
+                    inpaint=inpaint, rank=rank, merge=merge, resolution=resolution)
