@@ -75,25 +75,51 @@ Phases (any failure exits nonzero before the last line):
    iterations, on the card and on the CPU, held within a relative bound.
    Prints the wall of each expansion sub-phase, ms per merge iteration
    and per inpaint call, and the fit's wall and step ms;
-8. generative fit: phase 7's fit on default_services(weights_dir) whose stable-diffusion-2-1-base/,
-   stable-diffusion-2-inpainting/ and clip-vit-base-patch32/ exist and hold
-   no checkpoint: the SD 2 UNets, the VAE, the OpenCLIP-H text tower and
-   the CLIP ViT-B/32 ranker at their published widths and seeded random
-   init, bf16 compute.  The services must resolve "real"; the seed image
-   come from 50 Euler evaluations of the 4-channel UNet at batch 2; the
-   expansion make 4 inpaint calls of 5 candidates, each 51 PNDM
-   evaluations of the 9-channel UNet at batch 10; every candidate be a
-   finite 512x512x3 image in [0, 1] and the chosen one the argmax of the
-   CLIP scores; every phase/expand1_* row be logged and kernels A, A' and
-   B launched (held as in phase 7); the seed view's final PSNR beat the
-   untrained field's.  Then ms per UNet evaluation (batch 10 and 2), per
+8. generative fit through the command line: text2nerf_tpu_torch.main.main
+   on configs/text2nerf_scenes.txt with flags for phase 7's fit (512^2,
+   circle0_30, 2 views, 1 / 1 / 1 epochs, seed 11, stage 3 at K 256,
+   app_k 256, band 0; the adaptive eval renderer; 4 test frames; no
+   alpha-mask milestone, as in the shipped config), under the CLI's
+   production overrides (a 300^3 grid from the first step, batch 16384;
+   the masks' default pool 3 keeps every step dense), on a weights
+   directory whose
+   stable-diffusion-2-1-base/, stable-diffusion-2-inpainting/ and
+   clip-vit-base-patch32/ exist and hold no checkpoint, and whose leres/
+   holds a res101.pth: the SD 2 UNets, the VAE, the OpenCLIP-H text
+   tower, the CLIP ViT-B/32 ranker and the boosted ResNeXt-101 LeReS at
+   their published widths and seeded random init, bf16 compute.  The
+   smoke wraps registry.default_services (to count and time the
+   services' calls) and trainer.reconstruction (to read its result).
+   main must return 0; the services must resolve "real"; the seed image
+   come from 50 Euler evaluations of the 4-channel UNet at batch 2; both
+   depth calls (the bootstrap's, the expansion's) return finite counts
+   spanning [0, 65535]; the expansion make 4 inpaint calls of 5
+   candidates, each 51 PNDM evaluations of the 9-channel UNet at batch
+   10; every candidate be a finite 512x512x3 image in [0, 1] and the
+   chosen one the argmax of the CLIP scores; every phase/expand1_* row be
+   logged and kernels A, A' and B launched (held as in phase 7); the seed
+   view's final PSNR beat the untrained field's.  Then the render-only
+   branch (--render_only 1 --render_test 1 --ckpt <the fit's
+   checkpoint>, the fit's scene snapshot beside it) must write the fit's
+   test frames again; then ms per UNet evaluation (batch 10 and 2), per
    VAE encode and decode, the UNet's FLOPs from its shapes and its share
    of the bf16 peak, one inpaint call under torch.profiler (busy share,
    attention / convolution / GroupNorm / linear shares), and one forward
    of the full-width inpainting UNet (batch 2) and of CLIP ViT-B/32 on the
-   card and the CPU (fp32, TF32 off), held within a relative bound.
+   card and the CPU (fp32, TF32 off), held within a relative bound;
+9. depth family: one boosted estimate of the fit's seed image and one of
+   the procedural seed image (wall, device-busy share under
+   torch.profiler, LeReS evaluations by size, patches), ms per LeReS
+   evaluation at 448, 896 and each processing size (CUDA events), its
+   device-busy ms under torch.profiler, its FLOPs and share of the bf16
+   peak, the fallback merge's ms, one
+   pix2pix merge_double at 1024 (unet_1024, random init), the MiDaS,
+   SGRNet (ResNet-50) and RelDepthNet stand-in forwards once each in
+   bf16, and the ResNeXt-101 LeReS at 448^2 on the card against the CPU
+   (fp32, TF32 off) within 1e-3 of the largest output.
 
-Prints a JSON line of per-kernel numbers, then as the last line
+Prints the smoke's wall, a JSON line of per-kernel numbers, then as the
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs one GPU and no network.  Exits nonzero without CUDA, or without the
 text2nerf_tpu_torch package beside it.
@@ -168,6 +194,12 @@ TOL = {
     # block's error
     "unet": 1e-3,
     "clip": 1e-4,
+    # the render-only branch's test frames vs the fit's (8-bit PNGs): the
+    # same field, mask, z-floor and renderer, so the same bytes
+    "render_only": 1e-6,
+    # ResNeXt-101 LeReS at 448^2 (fp32, TF32 off), card vs CPU, of the
+    # largest output: 33 residual blocks of conv sums in other orders
+    "leres": 1e-3,
 }
 SEED_FIT_HW = (512, 512)
 SEED_FIT_EPOCHS = (2, 1)  # n_stage1, n_stage3
@@ -1253,6 +1285,13 @@ DIBR_FILES = sorted(["warped/00001.png", "mask/00001.png", "mask_inv/00001.png",
 # compacted step's fused A and A' in the first compacted step
 PROGRESSIVE_HELD = (("expand", "B", "fp32"), ("compact", "A", "fused fp32"),
                     ("compact", "A'", "fused"))
+# the CLI's fit (phase 8) builds its masks at the default pool 3, which
+# cannot license the group-2 strided occupancy test, so every step is
+# dense: B and A in the expansion's renders, A and A' in the first stage-2
+# step, held
+CLI_HELD = (("expand", "B", "fp32"), ("expand", "A", "fused bf16"),
+            ("stage2", "A", "density fp32"), ("stage2", "A", "app fp32"),
+            ("stage2", "A'", "density"), ("stage2", "A'", "app"))
 MERGE_CHECK_ITERS = 2
 
 
@@ -1299,12 +1338,16 @@ def _merge_card_vs_cpu(dev, merge, args, kw):
     return float(np.abs(outs[0] - outs[1]).max() / np.abs(outs[1]).max()), ms[0], ms[1]
 
 
-def _progressive_fit(dev, card, report, workdir, services, epochs, label, margin_db):
-    """trainer.reconstruction on the two-view trajectory with ``services``
-    and phase 6's configuration at ``epochs`` (n_stage1, n_stage2,
-    n_stage3), the kernel counts set to 0 just before and read just after,
-    then the checks phases 7 and 8 share (module docstring).  Returns the
-    fit's records."""
+def _progressive_fit(dev, card, report, workdir, services, epochs, label, margin_db, run=None,
+                     held=PROGRESSIVE_HELD):
+    """The progressive fit on the two-view trajectory, the kernel counts
+    set to 0 just before and read just after, then the checks phases 7
+    and 8 share (module docstring).  By default trainer.reconstruction with
+    ``services`` and phase 6's configuration at ``epochs`` (n_stage1,
+    n_stage2, n_stage3); ``run()`` instead drives the fit its own way and
+    returns (reconstruction's result, TrainConfig, SceneConfig,
+    ExpansionConfig, services); ``held`` names the launches held against
+    the plain versions.  Returns the fit's records."""
     import numpy as np
     import torch
     from text2nerf_tpu_torch.data import scene_state as ss
@@ -1317,19 +1360,19 @@ def _progressive_fit(dev, card, report, workdir, services, epochs, label, margin
     from text2nerf_tpu_torch.utils.png import read_png
 
     n1, n2, n3 = epochs
-    cfg, scene_cfg = _seed_fit_configs(
-        workdir, SEED_FIT_HW, scene=PROGRESSIVE_SCENE, n_stage1=n1, n_stage2=n2, n_stage3=n3,
-        eval_every_epochs=sum(epochs), **SEED_FIT_COMPACT)
-    ex = expansion.ExpansionConfig(prompt=scene_cfg.prompt, push_depth=scene_cfg.push_depth,
-                                   trans_range=scene_cfg.trans_range)
-    _require(ex.n_candidates == N_CANDIDATES, "the expansion does not run its defaults")
-    merge = services.merge
-    _require((merge.net_size, merge.num_downs, merge.compute_dtype)
-             == (1024, 10, torch.bfloat16), "the merge net is not unet_1024 in bf16")
-    print(f"{label}: hw {SEED_FIT_HW}, {scene_cfg.pose_traj} x {scene_cfg.num_training} views, "
-          f"epochs {epochs}, the seed fit's grid and milestones, stage 2 and 3 "
-          f"{SEED_FIT_COMPACT}; expansion {ex}; merge net {merge.net_size}/{merge.num_downs} "
-          f"bf16; services {services.resolution}", flush=True)
+    if run is None:
+        cfg, scene_cfg = _seed_fit_configs(
+            workdir, SEED_FIT_HW, scene=PROGRESSIVE_SCENE, n_stage1=n1, n_stage2=n2,
+            n_stage3=n3, eval_every_epochs=sum(epochs), **SEED_FIT_COMPACT)
+        ex = expansion.ExpansionConfig(prompt=scene_cfg.prompt, push_depth=scene_cfg.push_depth,
+                                       trans_range=scene_cfg.trans_range)
+        print(f"{label}: hw {SEED_FIT_HW}, {scene_cfg.pose_traj} x {scene_cfg.num_training} "
+              f"views, epochs {epochs}, the seed fit's grid and milestones, stage 2 and 3 "
+              f"{SEED_FIT_COMPACT}; expansion {ex}; services {services.resolution}", flush=True)
+
+        def run():
+            return (trainer.reconstruction(cfg, scene_cfg, services, ex, device=dev), cfg,
+                    scene_cfg, ex, services)
 
     expand0, batch0 = expansion.expand_scene, trainer._batch_from_pool
     drawn = []  # the pool size of every batch the trainer drew
@@ -1353,12 +1396,15 @@ def _progressive_fit(dev, card, report, workdir, services, epochs, label, margin
             torch.cuda.synchronize()
             ff.LAUNCHES = ff.BWD_LAUNCHES = sm.LAUNCHES = 0
             t0 = time.perf_counter()
-            mcfg, field, aabb, scene, logfolder = trainer.reconstruction(
-                cfg, scene_cfg, services, ex, device=dev)
+            (mcfg, field, aabb, scene, logfolder), cfg, scene_cfg, ex, services = run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
             expansion.expand_scene, trainer._batch_from_pool = expand0, batch0
+    _require(ex.n_candidates == N_CANDIDATES, "the expansion does not run its defaults")
+    merge = services.merge
+    _require((merge.net_size, merge.num_downs, merge.compute_dtype)
+             == (1024, 10, torch.bfloat16), "the merge net is not unet_1024 in bf16")
     launches = {"factor_features": ff.LAUNCHES, "factor_features_bwd": ff.BWD_LAUNCHES,
                 "shading_mlp": sm.LAUNCHES}
     path = label.replace(" ", "_")
@@ -1374,7 +1420,7 @@ def _progressive_fit(dev, card, report, workdir, services, epochs, label, margin
              f"kernels A and B did not run in the expansion: {sorted(probe.captured)}")
     _require(any(k[:2] == ("stage2", "A'") for k in probe.captured),
              f"kernel A' did not run in the first stage-2 step: {sorted(probe.captured)}")
-    _hold_seed_fit_kernels(probe.captured, report, PROGRESSIVE_HELD, label)
+    _hold_seed_fit_kernels(probe.captured, report, held, label)
     probe.captured.clear()
 
     rows = [json.loads(line) for line in open(f"{logfolder}/metrics.jsonl")]
@@ -1427,7 +1473,9 @@ def _progressive_fit(dev, card, report, workdir, services, epochs, label, margin
     _, f1, aabb1, mask1, loop = ckpt.load_checkpoint(f"{logfolder}/{cfg.expname}_final.npz",
                                                      device=dev)
     f1.requires_grad_(False)
-    n_samples = next(r["n_samples"] for r in rows if "n_samples" in r)
+    # the fit's n_samples: set at the c2f upsample, else the initial grid's
+    n_samples = next((r["n_samples"] for r in rows if "n_samples" in r), tf.default_n_samples(
+        tf.n_to_reso(cfg.n_voxel_init, scene.scene_bbox), mcfg.step_ratio, cfg.n_samples_cap))
     psnr = renderer.evaluation(
         f1, aabb1, scene.rays_gen_split[:2], scene.hw, gt_rgbs=scene.rgbs_gen_split,
         n_samples=n_samples, alpha_mask=mask1, compact_k=cfg.eval_compact_k,
@@ -1440,7 +1488,8 @@ def _progressive_fit(dev, card, report, workdir, services, epochs, label, margin
     _require(psnr[0] > psnr0 + margin_db,
              f"seed view PSNR {psnr[0]} is not {margin_db} dB above {psnr0}")
     return dict(wall=wall, phases=phases, n_new=n_new, psnr0=psnr0, psnr=psnr, dibr=dibr,
-                compact_ms=_median(probe.ms["compact"]), dense_ms=_median(probe.ms["dense"]))
+                compact_ms=_median(probe.ms["compact"]), dense_ms=_median(probe.ms["dense"]),
+                logfolder=logfolder, scene=scene)
 
 
 def phase_progressive_fit(dev, card, report, workdir):
@@ -1477,9 +1526,10 @@ def phase_progressive_fit(dev, card, report, workdir):
             "progressive_merge_card_vs_cpu": err}
 
 
-# phase 8: the progressive fit on the generative services at random init
+# phase 8: the progressive fit through the CLI on the networks at random init
 GENERATIVE_WEIGHTS = ("stable-diffusion-2-1-base", "stable-diffusion-2-inpainting",
                       "clip-vit-base-patch32")
+CLI_TEST_FRAMES = 4  # --N_vis: the test frames the fit and the render-only branch write
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 # the profiler's op names, by what they compute in the UNet and the VAE
 PROFILE_GROUPS = {
@@ -1521,14 +1571,21 @@ class _Recorded(_Timed):
 
 def _flops(make, *shapes):
     """Matmul and convolution FLOPs of one call, counted from the shapes on
-    the meta device (torch.utils.flop_counter)."""
+    the meta device."""
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
 
     with torch.device("meta"):
         module = make()
-        with FlopCounterMode(display=False) as fc:
-            module(*[torch.empty(s) for s in shapes])
+        return _flops_of(lambda: module(*[torch.empty(s) for s in shapes]))
+
+
+def _flops_of(fn):
+    """Matmul and convolution FLOPs of one call of ``fn``, counted from the
+    shapes it runs (torch.utils.flop_counter)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        fn()
     return fc.get_total_flops()
 
 
@@ -1580,56 +1637,186 @@ def _card_vs_cpu(make, state, inputs, dev):
     return float((outs[0] - outs[1]).abs().max() / outs[1].abs().max()), ms[0], ms[1]
 
 
+def _write_leres_checkpoint(path):
+    """The port's RelDepthModel(resnext101) at a seeded random init, saved
+    in the reference's {"depth_model": state_dict} container (res101.pth)."""
+    import torch
+    from text2nerf_tpu_torch.models import diffusion as D
+    from text2nerf_tpu_torch.models import leres as L
+
+    net = D.materialize(lambda: L.RelDepthModel(L.LeReSConfig.resnext101()), "cpu",
+                        torch.Generator().manual_seed(5))
+    torch.save({"depth_model": net.state_dict()}, path)
+    return sum(p.numel() for p in net.parameters())
+
+
+def _cli_argv(workdir, wdir):
+    """Phase 8's configuration as the port's command line: the shipped
+    config file and flags for what phase 7 ran (module docstring), but no
+    alpha-mask milestone, as in the shipped config: after its shrink
+    render_test marches the default sample count of the shrunk grid (half
+    the fit's, in both packages), and the render-only frames could not
+    equal the fit's."""
+    return ["--config", "configs/text2nerf_scenes.txt", "--expname", "seed",
+            "--basedir", f"{workdir}/log", "--datadir", f"{workdir}/scene",
+            "--prompt", "a beautiful garden with flowers", "--weights_dir", wdir,
+            "--hw", str(SEED_FIT_HW[0]), str(SEED_FIT_HW[1]),
+            "--pose_traj", PROGRESSIVE_SCENE["pose_traj"],
+            "--num_training", str(PROGRESSIVE_SCENE["num_training"]),
+            "--n_stage1", str(PROGRESSIVE_EPOCHS[0]), "--n_stage2", str(PROGRESSIVE_EPOCHS[1]),
+            "--n_stage3", str(PROGRESSIVE_EPOCHS[2]), "--seed", "11",
+            "--train_compact_k", str(SEED_FIT_COMPACT["train_compact_k"]),
+            "--app_k", str(SEED_FIT_COMPACT["app_k"]),
+            "--train_depth_cap_band", str(SEED_FIT_COMPACT["train_depth_cap_band"]),
+            "--eval_compact_k", "-1", "--N_vis", str(CLI_TEST_FRAMES)]
+
+
+class _DepthCalls:
+    """Wraps the depth service: per call its wall (ms, device synchronized),
+    the base-net evaluations by size, the merged patches, the processing
+    size and the counts."""
+
+    def __init__(self, estimate):
+        self.fn, self.booster, self.calls = estimate, estimate.__self__, []
+        self.base0 = self.booster.base_estimate
+        self.sizes = []
+        self.booster.base_estimate = self._base
+
+    def _base(self, img, size):
+        self.sizes.append(int(size))
+        return self.base0(img, size)
+
+    def __call__(self, img, *args, **kw):
+        import collections
+
+        import torch
+
+        self.sizes = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(img, *args, **kw)
+        torch.cuda.synchronize()
+        self.calls.append(dict(
+            ms=(time.perf_counter() - t0) * 1e3, evals=dict(collections.Counter(self.sizes)),
+            patches=self.booster.last["patches"], optimal=self.booster.last["optimal"],
+            img_big=self.booster.last["img_big"], counts=out, image=img))
+        return out
+
+    def close(self):
+        self.booster.base_estimate = self.base0
+
+
 def phase_generative_fit(dev, card, report, workdir):
-    """The progressive fit on the diffusion and CLIP services at their
-    published widths and seeded random init (module docstring, phase 8),
-    then the services' own timings, FLOPs, profile and card-vs-CPU
-    checks."""
+    """The progressive fit through the port's command line on every
+    network at its published width and seeded random init (module
+    docstring, phase 8), the render-only branch on its checkpoint, then
+    the services' own timings, FLOPs, profile and card-vs-CPU checks.
+    Returns (records, the depth booster, the fit's seed image)."""
     import numpy as np
     import torch
+    from text2nerf_tpu_torch import main as cli
+    from text2nerf_tpu_torch.data import scene_state as ss
+    from text2nerf_tpu_torch.engine import trainer
     from text2nerf_tpu_torch.models import clip as C
     from text2nerf_tpu_torch.models import diffusion as D
-    from text2nerf_tpu_torch.services.registry import default_services
+    from text2nerf_tpu_torch.ops import render as render_ops
+    from text2nerf_tpu_torch.services import registry
     from text2nerf_tpu_torch.utils.png import read_png
 
     wdir = os.path.join(workdir, "gen_weights")
     for sub in GENERATIVE_WEIGHTS:
         os.makedirs(os.path.join(wdir, sub))
-    t0 = time.perf_counter()
-    services = default_services(weights_dir=wdir, hw=SEED_FIT_HW, device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    os.makedirs(os.path.join(wdir, "leres"))
+    n_leres = _write_leres_checkpoint(os.path.join(wdir, "leres", "res101.pth"))
+    argv = _cli_argv(workdir, wdir)
+    print(f"generative fit: python -m text2nerf_tpu_torch.main {' '.join(argv)} (leres/res101.pth: "
+          f"RelDepthModel(resnext101), {n_leres} parameters, seeded random init)", flush=True)
+
+    built = {}
+    default_services0, recon0 = registry.default_services, trainer.reconstruction
+
+    def default_services(*args, **kw):
+        t0 = time.perf_counter()
+        svc = default_services0(*args, **kw)
+        torch.cuda.synchronize()
+        built["build_s"] = time.perf_counter() - t0
+        built.update(t2i=svc.text2img.pipeline, inp=svc.inpaint.pipeline, ranker=svc.rank.model,
+                     evals_t2i=_Evals(svc.text2img.pipeline.unet),
+                     evals_inp=_Evals(svc.inpaint.pipeline.unet))
+        svc.estimate_depth = built["depth"] = _DepthCalls(svc.estimate_depth)
+        svc.text2img = _Recorded(svc.text2img)
+        svc.inpaint = _Recorded(svc.inpaint, keep=True)
+        svc.rank = _Recorded(svc.rank, keep=True)
+        svc.merge.run_finetune = _Timed(svc.merge.run_finetune)
+        return svc
+
+    def reconstruction(cfg, scene_cfg, services, ex, *, device=None):
+        built["args"] = (cfg, scene_cfg, ex, services)
+        built["out"] = recon0(cfg, scene_cfg, services, ex, device=device)
+        return built["out"]
+
+    def run():
+        registry.default_services, trainer.reconstruction = default_services, reconstruction
+        try:
+            rc = cli.main(argv, device=dev)
+        finally:
+            registry.default_services, trainer.reconstruction = default_services0, recon0
+        _require(rc == 0, f"main returned {rc}")
+        cfg, scene_cfg, ex, svc = built["args"]
+        return built["out"], cfg, scene_cfg, ex, svc
+
+    try:
+        fit = _progressive_fit(dev, card, report, workdir, None, PROGRESSIVE_EPOCHS,
+                               "generative fit", 0.0, run=run, held=CLI_HELD)
+    finally:
+        for k in ("evals_t2i", "evals_inp", "depth"):
+            if k in built:
+                built[k].close()
+    cfg, scene_cfg, ex, services = built["args"]
+    t2i, inp, ranker = built["t2i"], built["inp"], built["ranker"]
     res = services.resolution
-    _require(all(res[k] == "real" for k in ("text2img", "inpaint", "rank")),
-             f"the generative services did not resolve to their nets: {res}")
-    t2i, inp = services.text2img.pipeline, services.inpaint.pipeline
-    ranker = services.rank.model
+    _require(all(v == "real" for k, v in res.items() if k != "merge"),
+             f"the services did not resolve to their nets: {res}")
     _require((t2i.unet_cfg, inp.unet_cfg, t2i.vae_cfg, t2i.text_cfg, ranker.cfg)
              == (D.UNetConfig.sd21_base(), D.UNetConfig.sd2_inpaint(), D.VAEConfig(),
                  C.CLIPTextConfig.sd2_text(), C.CLIPVisionConfig.vit_b32()),
              "the services are not at SD 2 / OpenCLIP-H / ViT-B/32 widths")
     _require((t2i.scheduler, t2i.num_steps, inp.scheduler, inp.num_steps)
              == ("euler", 50, "pndm", 50), "the schedulers are not Euler / PNDM at 50 steps")
+    from text2nerf_tpu_torch.models import leres as L
+
+    booster = built["depth"].booster
+    _require(isinstance(booster.model, L.RelDepthModel)
+             and booster.model.cfg == L.LeReSConfig.resnext101()
+             and (booster.rf, booster.pix2pix_size) == (448, 1024),
+             "the depth service is not the boosted ResNeXt-101 LeReS")
+    _require((cfg.n_voxel_init, cfg.n_voxel_final, cfg.batch_size, cfg.eval_compact_k, cfg.seed)
+             == (27_000_000, 27_000_000, 16384, -1, 11), f"the CLI's configuration: {cfg}")
     n_params = {k: sum(p.numel() for p in m.parameters()) for k, m in (
         ("unet", t2i.unet), ("inpaint_unet", inp.unet), ("vae", t2i.vae), ("text", t2i.text),
-        ("clip_vision", ranker))}
-    print(f"generative services built in {build_s:.2f} s on {card}: {res}; parameters "
-          f"{n_params}; text2img euler x {t2i.num_steps}, inpaint pndm x {inp.num_steps} "
-          f"({len(inp._make_schedule().timesteps)} evaluations), bf16 compute", flush=True)
+        ("clip_vision", ranker), ("leres", booster.model))}
+    print(f"services built in {built['build_s']:.2f} s on {card}: {res}; parameters {n_params}; "
+          f"text2img euler x {t2i.num_steps}, inpaint pndm x {inp.num_steps} "
+          f"({len(inp._make_schedule().timesteps)} evaluations), bf16 compute; the CLI's "
+          f"TrainConfig {cfg}", flush=True)
 
-    evals_t2i, evals_inp = _Evals(t2i.unet), _Evals(inp.unet)
-    services.text2img = _Recorded(services.text2img)
-    services.inpaint = _Recorded(services.inpaint, keep=True)
-    services.rank = _Recorded(services.rank, keep=True)
-    services.merge.run_finetune = _Timed(services.merge.run_finetune)
-    try:
-        fit = _progressive_fit(dev, card, report, workdir, services, PROGRESSIVE_EPOCHS,
-                               "generative fit", 0.0)
-    finally:
-        evals_t2i.close()
-        evals_inp.close()
+    # the depth calls: the bootstrap's and the expansion's, each the boosted
+    # LeReS, finite counts spanning [0, 65535]
+    calls = built["depth"].calls
+    _require(len(calls) == 2, f"{len(calls)} depth calls, not the bootstrap's and the expansion's")
+    for i, c in enumerate(calls):
+        counts = c["counts"]
+        _require(counts.dtype == np.float64 and counts.shape == tuple(SEED_FIT_HW)
+                 and np.isfinite(counts).all() and counts.min() == 0 and counts.max() == 65535,
+                 f"depth call {i}: counts {counts.dtype} {counts.shape} in "
+                 f"[{counts.min()}, {counts.max()}]")
+        print(f"depth call {i} ({'bootstrap' if i == 0 else 'expansion'}): {c['ms']:.1f} ms on "
+              f"{card}; processing size {c['optimal']}, enlarged image {c['img_big']}, "
+              f"{c['patches']} patches merged; LeReS evaluations by size {c['evals']} "
+              f"({sum(c['evals'].values())})", flush=True)
 
     # the seed image: SD 2.1-base, Euler, 50 evaluations of the doubled batch
+    evals_t2i, evals_inp = built["evals_t2i"], built["evals_inp"]
     _require(evals_t2i.calls == [(2, 4)] * 50, f"text2img evaluations {evals_t2i.calls[:3]}... "
              f"({len(evals_t2i.calls)})")
     seed_img = services.text2img.outs[0]
@@ -1660,8 +1847,42 @@ def phase_generative_fit(dev, card, report, workdir):
     rank_ms, merge_ms = services.rank.ms, services.merge.run_finetune.ms
     print(f"calls on {card}: text2img {t2i_ms[0]:.1f} ms; inpaint {len(inp_ms)} calls, "
           f"{_median(inp_ms):.1f} ms median ({[round(m, 1) for m in inp_ms]}); rank "
-          f"{rank_ms[0]:.1f} ms ({N_CANDIDATES + 1} images); merge finetune {merge_ms[0]:.1f} ms",
-          flush=True)
+          f"{rank_ms[0]:.1f} ms ({N_CANDIDATES + 1} images); merge finetune {merge_ms[0]:.1f} ms; "
+          f"depth {[round(c['ms'], 1) for c in calls]} ms", flush=True)
+
+    # the render-only branch on the fit's checkpoint: the fit's final test
+    # frames again.  render_test culls at the z-floor of a scene snapshot
+    # beside the checkpoint (else at the reference's 2.0); the CLI's fit,
+    # not resumable, writes none, so the snapshot of its scene is written
+    # here.  The adaptive renderer's rung memo starts empty, as in a new
+    # process.
+    logfolder, scene = fit["logfolder"], fit["scene"]
+    test_dir = f"{logfolder}/imgs_test_all"
+    names = sorted(os.listdir(f"{test_dir}/rgbs"))
+    _require(len(names) == CLI_TEST_FRAMES, f"the fit wrote test frames {names}")
+    fit_frames = [read_png(f"{test_dir}/rgbs/{n}") for n in names]
+    shutil.move(test_dir, f"{logfolder}/imgs_test_fit")
+    snap = f"{logfolder}/scene_snapshot.npz"
+    ss.save_scene_snapshot(snap, scene)
+    z_fit, z_snap = ss.supervised_z_floor(scene), ss.supervised_z_floor(ss.load_scene_snapshot(snap))
+    _require(z_fit == z_snap, f"the snapshot's z-floor {z_snap} is not the fit's {z_fit}")
+    render_ops._ADAPTIVE_PROBE_CACHE.clear()
+    ckpt_path = f"{logfolder}/{cfg.expname}_final.npz"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(argv + ["--render_only", "1", "--render_test", "1", "--ckpt", ckpt_path],
+                  device=dev)
+    torch.cuda.synchronize()
+    ro_s = time.perf_counter() - t0
+    _require(rc == 0 and sorted(os.listdir(f"{test_dir}/rgbs")) == names,
+             f"render-only returned {rc} with frames {os.listdir(test_dir)}")
+    ro_dev = max(float(np.abs(read_png(f"{test_dir}/rgbs/{n}").astype(np.float64)
+                              - f.astype(np.float64)).max()) / 255.0
+                 for n, f in zip(names, fit_frames))
+    print(f"render-only: {len(names)} test frames from {os.path.basename(ckpt_path)} in "
+          f"{ro_s:.2f} s, max |frame - fit's frame| {ro_dev:.3e} (tol {TOL['render_only']:g}); "
+          f"z-floor {z_fit:.4f} (no snapshot: 2.0)", flush=True)
+    _require(ro_dev <= TOL["render_only"], f"render-only frames differ by {ro_dev}")
 
     # ms per UNet evaluation (the inpainting UNet, bf16) and per VAE call,
     # and the UNet's FLOPs counted from its shapes
@@ -1717,17 +1938,129 @@ def phase_generative_fit(dev, card, report, workdir):
           f"ms)", flush=True)
     _require(u_err <= TOL["unet"], f"the inpainting UNet card vs CPU: {u_err} > {TOL['unet']}")
     _require(c_err <= TOL["clip"], f"CLIP ViT-B/32 card vs CPU: {c_err} > {TOL['clip']}")
-    return {"generative_wall_s": fit["wall"], "generative_expand_s": fit["phases"]["expand_view_1"],
-            "generative_inpaint_rank_s": fit["phases"]["expand1_inpaint_rank"],
-            "generative_text2img_ms": t2i_ms[0], "generative_inpaint_ms": _median(inp_ms),
-            "generative_rank_ms": rank_ms[0], "generative_unet_b10_ms": unet_ms[10],
-            "generative_unet_b2_ms": unet_ms[2], "generative_unet_b10_tflop": flops[10] / 1e12,
-            "generative_unet_b10_peak_share": share[10], "generative_vae_encode_ms": enc_ms,
-            "generative_vae_decode5_ms": dec_ms, "generative_inpaint_busy_share": busy_share,
-            "generative_inpaint_shares": shares, "generative_psnr_seed": fit["psnr"][0],
-            "generative_psnr_seed_untrained": fit["psnr0"],
-            "generative_psnr_generated": fit["psnr"][1], "generative_unet_card_vs_cpu": u_err,
-            "generative_clip_card_vs_cpu": c_err}
+    rec = {"generative_wall_s": fit["wall"], "generative_expand_s": fit["phases"]["expand_view_1"],
+           "generative_inpaint_rank_s": fit["phases"]["expand1_inpaint_rank"],
+           "generative_text2img_ms": t2i_ms[0], "generative_inpaint_ms": _median(inp_ms),
+           "generative_rank_ms": rank_ms[0], "generative_depth_ms": [c["ms"] for c in calls],
+           "generative_depth_evals": [c["evals"] for c in calls],
+           "generative_depth_patches": [c["patches"] for c in calls],
+           "generative_unet_b10_ms": unet_ms[10],
+           "generative_unet_b2_ms": unet_ms[2], "generative_unet_b10_tflop": flops[10] / 1e12,
+           "generative_unet_b10_peak_share": share[10], "generative_vae_encode_ms": enc_ms,
+           "generative_vae_decode5_ms": dec_ms, "generative_inpaint_busy_share": busy_share,
+           "generative_inpaint_shares": shares, "generative_psnr_seed": fit["psnr"][0],
+           "generative_psnr_seed_untrained": fit["psnr0"],
+           "generative_psnr_generated": fit["psnr"][1], "generative_unet_card_vs_cpu": u_err,
+           "generative_clip_card_vs_cpu": c_err, "render_only_s": ro_s,
+           "render_only_max_dev": ro_dev}
+    return rec, booster, calls[0]["image"]
+
+
+# phase 9: the depth family at full width
+DEPTH_FAMILY_SIZES = (448, 896)
+
+
+def phase_depth_family(dev, card, booster, fit_seed_image):
+    """The depth family at full width (module docstring, phase 9)."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch.models import diffusion as D
+    from text2nerf_tpu_torch.models import leres as L
+    from text2nerf_tpu_torch.models import midas as M
+    from text2nerf_tpu_torch.models import monodepth as MD
+    from text2nerf_tpu_torch.models import pix2pix as P
+    from text2nerf_tpu_torch.services import depth_service as DS
+    from text2nerf_tpu_torch.services import fallbacks
+
+    model = booster.model
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rec, sizes = {}, set(DEPTH_FAMILY_SIZES)
+    images = (("fit seed image", fit_seed_image),
+              ("procedural seed image",
+               fallbacks.procedural_text2img("a beautiful garden with flowers", hw=SEED_FIT_HW)))
+    for name, img in images:
+        calls = _DepthCalls(booster.estimate)
+        try:
+            counts = calls(img)
+            busy, _, wall_prof = _profile_shares(lambda: booster.estimate(img), dev)
+        finally:
+            calls.close()
+        c = calls.calls[0]
+        _require(np.isfinite(counts).all() and counts.min() == 0 and counts.max() == 65535,
+                 f"{name}: counts in [{counts.min()}, {counts.max()}]")
+        sizes.add(min(c["optimal"], DS.GPU_THRESHOLD))
+        key = name.split()[0]
+        rec[f"depth_{key}_ms"], rec[f"depth_{key}_busy_share"] = c["ms"], busy / c["ms"]
+        rec[f"depth_{key}_evals"], rec[f"depth_{key}_patches"] = c["evals"], c["patches"]
+        print(f"boosted estimate of the {name} on {card}: {c['ms']:.1f} ms, device busy "
+              f"{busy:.1f} ms under torch.profiler ({wall_prof:.1f} ms profiled; busy share "
+              f"{busy / c['ms']:.3f}); processing size {c['optimal']}, enlarged image "
+              f"{c['img_big']}, {c['patches']} patches merged; LeReS evaluations by size "
+              f"{c['evals']} ({sum(c['evals'].values())})", flush=True)
+
+    # ms per LeReS evaluation (bf16, CUDA events) and its FLOPs and peak share
+    with torch.no_grad():
+        for sz in sorted(sizes):
+            x = torch.randn(1, 3, sz, sz, generator=gen, device=dev)
+            ms = _time_ms(lambda: model(x), 3)
+            busy, _, _ = _profile_shares(lambda: model(x), dev)
+            flops = _flops_of(lambda: model(x))
+            rec[f"leres_{sz}_ms"], rec[f"leres_{sz}_tflop"] = ms, flops / 1e12
+            rec[f"leres_{sz}_busy_ms"] = busy
+            print(f"LeReS ResNeXt-101 evaluation at {sz}^2 (bf16): {ms:.2f} ms, device busy "
+                  f"{busy:.2f} ms of it under torch.profiler, {flops / 1e12:.4f} TFLOP, "
+                  f"{flops / (ms * 1e-3) / BF16_FLOPS:.3f} of the {BF16_FLOPS / 1e12:.0f} "
+                  f"TFLOP/s bf16 peak, on {card}", flush=True)
+        p = booster.pix2pix_size
+        a = torch.rand(p, p, generator=gen, device=dev)
+        b = torch.rand(p, p, generator=gen, device=dev)
+        rec["fallback_merge_ms"] = _time_ms(lambda: booster._fallback_merge(a, b), 5)
+        unet = P.UnetGenerator(2, 1, 10, generator=torch.Generator().manual_seed(0))
+        merge = DS.make_merge_double(unet.to(dev).requires_grad_(False), dev)
+        m = merge(a, b)
+        _require(m.shape == (p, p) and bool(torch.isfinite(m).all()), "the pix2pix merge")
+        rec["pix2pix_merge_ms"] = _time_ms(lambda: merge(a, b), 3)
+        mflops = _flops_of(lambda: merge(a, b))
+        del unet, merge
+        print(f"fallback merge at {p}^2: {rec['fallback_merge_ms']:.2f} ms; pix2pix merge_double "
+              f"(unet_1024, 10 downs, fp32, seeded random init) at {p}^2: "
+              f"{rec['pix2pix_merge_ms']:.2f} ms, {mflops / 1e12:.3f} TFLOP "
+              f"({mflops / (rec['pix2pix_merge_ms'] * 1e-3) / TF32_FLOPS:.3f} of the "
+              f"{TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 peak), on {card}", flush=True)
+
+        # the other nets of the family, once each in bf16 at their sizes
+        others = (("MiDaS v2.1", lambda: M.MidasNet(L.LeReSConfig.resnext101(),
+                                                    dtype=torch.bfloat16),
+                   M.midas_resize_shape(*SEED_FIT_HW, 384)),
+                  ("SGRNet (ResNet-50)", lambda: L.SGRNetDepth(L.LeReSConfig.resnet50(),
+                                                               torch.bfloat16), (448, 448)),
+                  ("RelDepthNet (leres stand-in)",
+                   lambda: MD.RelDepthNet(MD.DepthNetConfig.leres(), torch.bfloat16), (448, 448)))
+        for name, make, hw in others:
+            net = D.materialize(make, dev, torch.Generator(device=dev).manual_seed(1))
+            x = torch.randn(1, 3, *hw, generator=gen, device=dev)
+            out = net(x)
+            _require(out.shape == (1, *hw) and bool(torch.isfinite(out).all()),
+                     f"{name}: output {tuple(out.shape)} not finite")
+            ms = _time_ms(lambda: net(x), 1)
+            flops = _flops_of(lambda: net(x))
+            key = name.split()[0].lower()
+            rec[f"{key}_ms"], rec[f"{key}_tflop"] = ms, flops / 1e12
+            print(f"{name} forward at {hw} (bf16, random init): {ms:.2f} ms, "
+                  f"{flops / 1e12:.4f} TFLOP, {flops / (ms * 1e-3) / BF16_FLOPS:.3f} of the "
+                  f"bf16 peak, on {card}", flush=True)
+            del net
+
+    # ResNeXt-101 LeReS on the card against the CPU, fp32, TF32 off
+    x = (torch.rand(1, 3, 448, 448, generator=torch.Generator().manual_seed(6)),)
+    err, ms_card, ms_cpu = _card_vs_cpu(lambda: L.RelDepthModel(L.LeReSConfig.resnext101()),
+                                        {k: v.cpu() for k, v in model.state_dict().items()},
+                                        x, dev)
+    print(f"LeReS ResNeXt-101 at 448^2, {card} vs CPU (fp32, TF32 off): {err:.3e} of the largest "
+          f"output (tol {TOL['leres']:g}; {ms_card:.0f} / {ms_cpu:.0f} ms)", flush=True)
+    _require(err <= TOL["leres"], f"LeReS card vs CPU: {err} > {TOL['leres']}")
+    rec["leres_card_vs_cpu"] = err
+    return rec
 
 
 # stage 3's compaction settings tried on the seed fit (TrainConfig overrides)
@@ -1845,11 +2178,15 @@ def main(argv):
     gen_dir = _build.BUILD_DIR / "generative_fit"
     shutil.rmtree(gen_dir, ignore_errors=True)
     try:
-        gen = phase_generative_fit(dev, card, report, str(gen_dir))
+        gen, booster, fit_seed_image = phase_generative_fit(dev, card, report, str(gen_dir))
     finally:
         shutil.rmtree(gen_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    depth = phase_depth_family(dev, card, booster, fit_seed_image)
+    wall_s = time.perf_counter() - t_start
+    print(f"chip_smoke wall {wall_s:.1f} s on {card}", flush=True)
     print(json.dumps({"rays_per_s": rays_s, "max_dev": max_dev, **train, **seed, **prog, **gen,
-                      "card": card, "wall_s": time.perf_counter() - t_start}), flush=True)
+                      **depth, "card": card, "wall_s": wall_s}), flush=True)
     kernels = [report[k] for k in ("factor_features", "shading_mlp", "factor_features_bwd")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ otherwise (the worst seen in brackets):
   OpenCV): 2e-5 absolute after CLIP's normalization (values up to ~2.1;
   fp32 sums in another order);
 - the registry: empty service entries resolve "real" and run their nets;
-  ``leres`` raises; a present but unreadable checkpoint raises.
+  ``leres/`` with a ``res101.pth`` resolves "real" to the boosted LeReS
+  loaded from it; a present but unreadable checkpoint raises.
 """
 
 import functools
@@ -36,6 +37,7 @@ from text2nerf_tpu.services import clip_rank as JCR
 from text2nerf_tpu.services import weight_convert as JWC
 from text2nerf_tpu_torch.models import clip as PC
 from text2nerf_tpu_torch.models import diffusion as PD
+from text2nerf_tpu_torch.models import leres as PL
 from text2nerf_tpu_torch.models.tokenizer import CLIPBPETokenizer as PTok
 from text2nerf_tpu_torch.services import clip_rank as PCR
 from text2nerf_tpu_torch.services import diffusion_service as PDS
@@ -162,10 +164,19 @@ def test_registry_resolves_the_real_services(tmp_path, monkeypatch):
     assert scores.shape == (2,) and np.isfinite(scores).all()
     assert svc.rank.model.cfg == PC.CLIPVisionConfig.vit_b32()
 
-    # the depth family is not ported: raises
+    # leres/ with a res101.pth: the boosted LeReS from it, "real" (the
+    # checkpoint at the tiny width; the published one is chip_smoke.py's)
     (tmp_path / "w" / "leres").mkdir()
-    with pytest.raises(NotImplementedError, match="leres"):
-        preg.default_services(weights_dir=str(tmp_path / "w"), hw=(16, 16), device="cpu")
+    tiny = PL.LeReSConfig.tiny()
+    monkeypatch.setattr(PL.LeReSConfig, "resnext101", staticmethod(lambda: tiny))
+    net = PD.materialize(lambda: PL.RelDepthModel(tiny), "cpu", torch.Generator().manual_seed(0))
+    torch.save({"depth_model": net.state_dict()}, tmp_path / "w" / "leres" / "res101.pth")
+    svc = preg.default_services(weights_dir=str(tmp_path / "w"), hw=(16, 16), device="cpu")
+    assert svc.resolution["depth"] == "real"
+    model = svc.estimate_depth.__self__.model
+    assert isinstance(model, PL.RelDepthModel) and model.cfg == tiny
+    for k, v in net.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k
 
 
 @pytest.mark.parametrize("sub,path,content", [

@@ -483,3 +483,28 @@ def test_tiny_unet_on_the_card_matches_the_cpu(cuda):
         got = card(*[a.to(cuda) for a in args]).cpu()
     assert got.shape == want.shape == (2, 4, 16, 16)
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_tiny_leres_on_the_card_matches_the_cpu(cuda):
+    # the tiny LeReS (fp32, TF32 off) from one seeded init on both devices,
+    # and the boosted estimate's image work (cubic resize, blur) likewise
+    from text2nerf_tpu_torch.models import diffusion as PD
+    from text2nerf_tpu_torch.models import leres as PL
+    from text2nerf_tpu_torch.services import image_ops as IO
+
+    make = lambda: PL.RelDepthModel(PL.LeReSConfig.tiny())  # noqa: E731
+    cpu = PD.materialize(make, "cpu", torch.Generator().manual_seed(0))
+    card = PD.materialize(make, cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand(1, 3, 96, 64, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = cpu(x)
+        got = card(x.to(cuda)).cpu()
+    assert got.shape == want.shape == (1, 96, 64)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    img = torch.rand(77, 51, 3, generator=torch.Generator().manual_seed(2))
+    for hw in ((448, 448), (20, 30)):
+        assert float((IO.resize(img.to(cuda), hw).cpu() - IO.resize(img, hw)).abs().max()) <= 1e-6
+    blur_c = IO.gaussian_blur(img[..., 0], 13)
+    blur_g = IO.gaussian_blur(img[..., 0].to(cuda), 13).cpu()
+    assert float((blur_g - blur_c).abs().max()) <= 1e-6

@@ -39,10 +39,12 @@ from text2nerf_tpu_torch.data import scene_state as pss
 from text2nerf_tpu_torch.data import trajectories as ptraj
 from text2nerf_tpu_torch.engine import checkpoints as PC
 from text2nerf_tpu_torch.engine import trainer as PT
+from text2nerf_tpu_torch.models import monodepth as pmd
 from text2nerf_tpu_torch.models import tensorf as ptf
 from text2nerf_tpu_torch.ops import filters as pfilters
 from text2nerf_tpu_torch.ops import rays as PR
 from text2nerf_tpu_torch.ops import render as PRd
+from text2nerf_tpu_torch.services import depth_service as pdepth
 from text2nerf_tpu_torch.services import fallbacks as pfb
 from text2nerf_tpu_torch.services import registry as preg
 
@@ -165,15 +167,19 @@ def test_nearest_resize_matches_cv2(src, dst):
                                              interpolation=cv2.INTER_NEAREST))
 
 
-def test_procedural_services_match_jax(tmp_path):
+def test_procedural_services_match_jax(tmp_path, monkeypatch):
     for hw in ((32, 32), (20, 28)):
         want = jfb.procedural_text2img("a garden", "neg", hw=hw)
         got = preg.default_services(hw=hw).text2img("a garden", "neg")
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(pfb.procedural_depth(got), jfb.procedural_depth(want))
+    # leres/ without a checkpoint: the weights-free RelDepthNet stand-in
+    # behind the booster, "real" as in JAX (at the tiny width here)
     (tmp_path / "leres").mkdir()
-    with pytest.raises(NotImplementedError, match="leres"):
-        preg.default_services(weights_dir=str(tmp_path))
+    monkeypatch.setattr(pdepth, "standin_config", lambda net: pmd.DepthNetConfig.tiny())
+    svc = preg.default_services(weights_dir=str(tmp_path), device="cpu")
+    assert svc.resolution["depth"] == "real"
+    assert isinstance(svc.estimate_depth.__self__.model, pmd.RelDepthNet)
     svc = preg.default_services(weights_dir=str(tmp_path / "empty"), device="cpu")
     assert svc.inpaint.func is pfb.diffusion_fill_inpaint and svc.rank is pfb.histogram_rank
     assert svc.resolution == {"text2img": "fallback", "inpaint": "fallback",

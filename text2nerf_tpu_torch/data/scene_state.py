@@ -327,6 +327,26 @@ def supervised_z_floor(
     return max(floor, min(ceiling, z_min - margin))
 
 
+def save_scene_snapshot(path: str, scene: SceneState):
+    """Write the part of the scene that :func:`load_scene_snapshot` reads
+    (the JAX package's ``save_scene_snapshot``): the generated views'
+    images, depths, masks and poses, the support poses, the frame.  The
+    port's trainer does not call it (``resume`` is not ported); a
+    snapshot beside a checkpoint gives ``render_test`` the fit's
+    supervised z-floor."""
+    from ..utils.atomic_io import atomic_savez
+
+    atomic_savez(
+        path, hw=np.asarray(scene.hw), intrinsic=np.asarray(scene.intrinsic),
+        scene_bbox=np.asarray(scene.scene_bbox), near_far=np.asarray(scene.near_far),
+        white_bg=np.asarray(scene.white_bg), poses_gen=np.asarray(scene.poses_gen),
+        poses_support=np.asarray(scene.poses_support),
+        rgbs_gen_split=np.asarray(scene.rgbs_gen_split),
+        depth_gen_split=np.asarray(scene.depth_gen_split),
+        masks_gen_split=np.asarray(scene.masks_gen_split),
+    )
+
+
 def load_scene_snapshot(path: str) -> SceneState:
     """The scene a ``scene_snapshot.npz`` holds: the generated views'
     images, depths and inpaint masks, their poses and the support poses,

@@ -95,7 +95,7 @@ def linear(m: nn.Linear, x, dtype):
 
 def conv(m: nn.Conv2d, x, dtype):
     bias = None if m.bias is None else m.bias.to(dtype)
-    return F.conv2d(x.to(dtype), m.weight.to(dtype), bias, m.stride, m.padding)
+    return F.conv2d(x.to(dtype), m.weight.to(dtype), bias, m.stride, m.padding, 1, m.groups)
 
 
 def group_norm(m: nn.GroupNorm, x, dtype):

@@ -7,10 +7,10 @@ scene expansion calls ``inpaint``, ``rank``, ``estimate_depth`` and
 does: a service whose entry exists in ``weights_dir`` runs its network
 ("real": SD 2.1-base text2img, SD 2-inpainting, the CLIP ViT-B/32 ranker,
 each from its checkpoint or, in a directory that holds none, at its
-seeded random init), else its procedural stand-in ("fallback"); the merge
-net from ``merge_model_sc.npz`` when it is there, else at its seeded
-random init.  A ``weights_dir`` with a ``leres/`` entry raises: the depth
-family comes with a later slice of the port.
+seeded random init; the boosted depth estimator of ``leres/``, LeReS
+from its ``res101.pth`` or, without one, the weights-free RelDepthNet),
+else its procedural stand-in ("fallback"); the merge net from
+``merge_model_sc.npz`` when it is there, else at its seeded random init.
 """
 
 from __future__ import annotations
@@ -69,9 +69,11 @@ def default_services(weights_dir: Optional[str] = None, hw=(512, 512),
         return os.path.join(weights_dir, WEIGHTS[service])
 
     if _has(WEIGHTS["depth"]):
-        raise NotImplementedError(
-            f"{path('depth')}: the depth estimators (LeReS, MiDaS, monodepth) are not ported "
-            "yet; they come with the port's depth-family slice")
+        from .depth_service import make_depth_estimator
+
+        estimate_depth = make_depth_estimator(path("depth"), device=device)
+    else:
+        estimate_depth = fallbacks.procedural_depth
     if _has(WEIGHTS["text2img"]):
         from .diffusion_service import make_text2img
 
@@ -98,5 +100,5 @@ def default_services(weights_dir: Optional[str] = None, hw=(512, 512),
     )
     resolution = {k: "real" if _has(sub) else "fallback" for k, sub in WEIGHTS.items()}
     resolution["merge"] = "real" if _has(MERGE_WEIGHTS) else "init"
-    return Services(text2img=text2img, estimate_depth=fallbacks.procedural_depth,
+    return Services(text2img=text2img, estimate_depth=estimate_depth,
                     inpaint=inpaint, rank=rank, merge=merge, resolution=resolution)

@@ -1,5 +1,5 @@
-"""Pretrained weights of the diffusion and CLIP networks (the port's share
-of ``text2nerf_tpu/services/weight_convert.py``).
+"""Pretrained weights of the diffusion, CLIP and depth networks (the
+port's share of ``text2nerf_tpu/services/weight_convert.py``).
 
 - Reading: :func:`load_torch_checkpoint` (``.bin`` / ``.pt`` through
   ``torch.load(weights_only=True)``, ``.safetensors`` through
@@ -8,9 +8,15 @@ of ``text2nerf_tpu/services/weight_convert.py``).
   :func:`find_weights_file`.
 - The name maps, torch name → the JAX package's flax path (the port's
   copies of ``sd_unet_name_map``, ``sd_vae_{encoder,decoder}_name_map``,
-  ``clip_text_name_map``, ``clip_vision_name_map``).  The port's modules
-  carry the torch names, so a map serves the coverage check, the legacy
-  VAE attention aliases and the bridge from flax.
+  ``clip_text_name_map``, ``clip_vision_name_map``, ``leres_name_map``,
+  ``sgrnet_name_map``, ``midas_name_map``).  The port's modules carry the
+  torch names, so a map serves the coverage check, the legacy VAE
+  attention aliases and the bridge from flax.
+- The depth checkpoints: :func:`load_leres_checkpoint` (``res101.pth``),
+  :func:`load_sgrnet_checkpoint` (``model.pth.tar``) and
+  :func:`load_midas_checkpoint` (``model.pt``), each reading the
+  containers ``{"depth_model": ...}``, ``{"state_dict": ...}`` or a plain
+  state dict, ``module.`` prefixes stripped.
 - :func:`require_coverage`: a checkpoint must hold ≥ 99% of a map's
   required entries, else it raises (a layout mismatch never becomes a
   zero-filled net); :func:`load_state` then copies it into a module,
@@ -18,7 +24,9 @@ of ``text2nerf_tpu/services/weight_convert.py``).
 - The bridge from the JAX package's parameter trees (nested dicts, or the
   flat ``a/b/c`` keys of its ``.npz``): :func:`unet_state_from_flax`,
   :func:`vae_state_from_flax`, :func:`clip_text_state_from_flax`,
-  :func:`clip_vision_state_from_flax`.  Dense kernels (in, out) become
+  :func:`clip_vision_state_from_flax`, :func:`leres_state_from_flax`,
+  :func:`sgrnet_state_from_flax`, :func:`midas_state_from_flax`,
+  :func:`reldepthnet_state_from_flax`.  Dense kernels (in, out) become
   Linear weights (out, in), conv kernels HWIO become OIHW, norm ``scale``
   becomes ``weight``.  :func:`load_converted` reads the JAX package's
   converted ``.npz``.
@@ -34,7 +42,10 @@ import numpy as np
 import torch
 
 from ..models.clip import CLIPTextConfig, CLIPTextEncoder, CLIPVisionConfig, CLIPVisionEncoder
-from ..models.diffusion import AutoencoderKL, UNet, UNetConfig, VAEConfig
+from ..models.diffusion import AutoencoderKL, UNet, UNetConfig, VAEConfig, materialize
+from ..models.leres import LeReSConfig, RelDepthModel, SGRNetDepth
+from ..models.midas import MidasNet
+from ..models.monodepth import DepthNetConfig, RelDepthNet, reldepthnet_name_map
 
 # ---------------------------------------------------------------------------
 # Reading checkpoints
@@ -269,6 +280,90 @@ def clip_vision_name_map(layers: int = 12) -> Dict[str, str]:
     return m
 
 
+def _bn_map(t: str, f: str) -> Dict[str, str]:
+    """BatchNorm2d → the flax FrozenBatchNorm (running stats as params)."""
+    return {f"{t}.weight": f"{f}/scale", f"{t}.bias": f"{f}/bias",
+            f"{t}.running_mean": f"raw:{f}/mean", f"{t}.running_var": f"raw:{f}/var"}
+
+
+def _ftb_map(t: str, f: str) -> Dict[str, str]:
+    """FTB: conv1, conv_branch (ReLU, Conv, BN, ReLU, Conv)."""
+    m = {**_kernel_bias(f"{t}.conv1", f"{f}/conv1"),
+         **_kernel_bias(f"{t}.conv_branch.1", f"{f}/branch_conv1"),
+         **_kernel_bias(f"{t}.conv_branch.4", f"{f}/branch_conv2")}
+    m.update(_bn_map(f"{t}.conv_branch.2", f"{f}/branch_bn"))
+    return m
+
+
+def _resnet_stage_map(t_prefix: str, f_prefix: str, stage: int, planes: int,
+                      n_blocks: int, inplanes: int) -> Dict[str, str]:
+    """One torchvision ResNet stage ``{t_prefix}.{b}`` → the flax
+    ``{f_prefix}/layer{stage}_{b}`` blocks."""
+    m: Dict[str, str] = {}
+    for b in range(n_blocks):
+        t, f = f"{t_prefix}.{b}", f"{f_prefix}/layer{stage}_{b}"
+        for k in (1, 2, 3):
+            m[f"{t}.conv{k}.weight"] = f"{f}/conv{k}/kernel"
+            m.update(_bn_map(f"{t}.bn{k}", f"{f}/bn{k}"))
+        stride = 2 if (b == 0 and stage > 1) else 1
+        if b == 0 and (stride != 1 or inplanes != planes * 4):
+            m[f"{t}.downsample.0.weight"] = f"{f}/downsample_conv/kernel"
+            m.update(_bn_map(f"{t}.downsample.1", f"{f}/downsample_bn"))
+        inplanes = planes * 4
+    return m
+
+
+def leres_name_map(cfg: LeReSConfig, encoder_prefix: str = "depth_model.encoder_modules",
+                   decoder_prefix: str = "depth_model.decoder_modules") -> Dict[str, str]:
+    """LeReS's RelDepthModel (``res101.pth``) → the flax RelDepthModel."""
+    e, d = encoder_prefix, decoder_prefix
+    m = {f"{e}.conv1.weight": "encoder/conv1/kernel"}
+    m.update(_bn_map(f"{e}.bn1", "encoder/bn1"))
+    inplanes = cfg.planes[0]
+    for s, (planes, n_blocks) in enumerate(zip(cfg.planes, cfg.blocks)):
+        m.update(_resnet_stage_map(f"{e}.layer{s + 1}", "encoder", s + 1, planes, n_blocks,
+                                   inplanes))
+        inplanes = planes * 4
+    m.update(_ftb_map(f"{d}.conv", "decoder/conv"))
+    m.update(_kernel_bias(f"{d}.conv1", "decoder/conv1"))
+    for name in ("ffm2", "ffm1", "ffm0"):
+        m.update(_ftb_map(f"{d}.{name}.ftb1", f"decoder/{name}/ftb1"))
+        m.update(_ftb_map(f"{d}.{name}.ftb2", f"decoder/{name}/ftb2"))
+    m.update(_kernel_bias(f"{d}.outconv.adapt_conv.0", "decoder/outconv/conv1"))
+    m.update(_bn_map(f"{d}.outconv.adapt_conv.1", "decoder/outconv/bn"))
+    m.update(_kernel_bias(f"{d}.outconv.adapt_conv.3", "decoder/outconv/conv2"))
+    return m
+
+
+def sgrnet_name_map(cfg: LeReSConfig) -> Dict[str, str]:
+    """SGRNet's DepthNet (``model.pth.tar``): LeReS under ``encoder.`` /
+    ``decoder.``."""
+    return leres_name_map(cfg, "encoder", "decoder")
+
+
+def midas_name_map(cfg: LeReSConfig) -> Dict[str, str]:
+    """MiDaS v2.1 (``model.pt``) → the flax MidasNet: the stem and stage
+    1 in ``pretrained.layer1`` (indices 0, 1, 4), the scratch convs, the
+    refinenets and the output head."""
+    m = {"pretrained.layer1.0.weight": "pretrained/conv1/kernel"}
+    m.update(_bn_map("pretrained.layer1.1", "pretrained/bn1"))
+    inplanes = cfg.planes[0]
+    for s, (planes, n_blocks) in enumerate(zip(cfg.planes, cfg.blocks)):
+        t_prefix = "pretrained.layer1.4" if s == 0 else f"pretrained.layer{s + 1}"
+        m.update(_resnet_stage_map(t_prefix, "pretrained", s + 1, planes, n_blocks, inplanes))
+        inplanes = planes * 4
+    for i in range(4):
+        m[f"scratch.layer{i + 1}_rn.weight"] = f"layer{i + 1}_rn/kernel"
+    for k in range(1, 5):
+        for j in (1, 2):
+            for c in (1, 2):
+                m.update(_kernel_bias(f"scratch.refinenet{k}.resConfUnit{j}.conv{c}",
+                                      f"refinenet{k}/resConfUnit{j}/conv{c}"))
+    for t_idx, f_name in ((0, "output_conv1"), (2, "output_conv2"), (4, "output_conv3")):
+        m.update(_kernel_bias(f"scratch.output_conv.{t_idx}", f_name))
+    return m
+
+
 def _target(fpath: str):
     """(flax path, marker) of a map entry."""
     marker = None
@@ -341,6 +436,48 @@ def load_state(module: torch.nn.Module, state, name_maps) -> torch.nn.Module:
     return module
 
 
+def read_depth_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A depth checkpoint's state dict: the ``depth_model`` or
+    ``state_dict`` entry of a container, or the file's plain dict, with
+    ``module.`` (DataParallel) prefixes stripped.  A file that does not
+    parse raises."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("depth_model", "state_dict"):
+        if isinstance(ckpt, dict) and key in ckpt:
+            ckpt = ckpt[key]
+            break
+    if not isinstance(ckpt, dict):
+        raise ValueError(f"{path}: not a state dict ({type(ckpt).__name__})")
+    return {(k[len("module."):] if k.startswith("module.") else k): v for k, v in ckpt.items()}
+
+
+def _load_depth(path: str, module, name_map, what: str):
+    state = read_depth_checkpoint(path)
+    require_coverage(state, name_map, what, path, optional_substr=())
+    return load_state(module, state, [name_map])
+
+
+def load_leres_checkpoint(path: str, module: Optional[RelDepthModel] = None):
+    """``res101.pth`` into ``module`` (a ResNeXt-101 RelDepthModel built
+    on the CPU when none is given), ≥ 99% coverage, missing entries
+    zero-filled; returns the module."""
+    module = module or materialize(lambda: RelDepthModel(LeReSConfig.resnext101()), "cpu")
+    return _load_depth(path, module, leres_name_map(module.cfg), "LeReS")
+
+
+def load_sgrnet_checkpoint(path: str, module: Optional[SGRNetDepth] = None):
+    """SGRNet's ``model.pth.tar`` into ``module`` (ResNet-50 by default)."""
+    module = module or materialize(lambda: SGRNetDepth(LeReSConfig.resnet50()), "cpu")
+    return _load_depth(path, module, sgrnet_name_map(module.cfg), "SGRNet")
+
+
+def load_midas_checkpoint(path: str, module: Optional[MidasNet] = None):
+    """MiDaS v2.1's ``model.pt`` into ``module`` (ResNeXt-101, 256
+    features by default)."""
+    module = module or materialize(lambda: MidasNet(LeReSConfig.resnext101()), "cpu")
+    return _load_depth(path, module, midas_name_map(module.cfg), "MiDaS")
+
+
 # ---------------------------------------------------------------------------
 # The bridge from the JAX package's flax trees
 # ---------------------------------------------------------------------------
@@ -406,6 +543,33 @@ def clip_text_state_from_flax(params, cfg: CLIPTextConfig):
 def clip_vision_state_from_flax(params, cfg: CLIPVisionConfig):
     return state_from_flax(params, clip_vision_name_map(cfg.layers),
                            _template(lambda: CLIPVisionEncoder(cfg)))
+
+
+def leres_state_from_flax(params, cfg: LeReSConfig):
+    """:class:`RelDepthModel`'s state from the flax RelDepthModel's tree."""
+    return state_from_flax(params, leres_name_map(cfg), _template(lambda: RelDepthModel(cfg)))
+
+
+def sgrnet_state_from_flax(params, cfg: LeReSConfig):
+    """:class:`SGRNetDepth`'s state from the flax RelDepthModel's tree."""
+    return state_from_flax(params, sgrnet_name_map(cfg), _template(lambda: SGRNetDepth(cfg)))
+
+
+def midas_state_from_flax(params, cfg: LeReSConfig, features: int = 256):
+    """:class:`MidasNet`'s state from the flax MidasNet's tree; refinenet4
+    takes no lateral input, so flax never builds its ``resConfUnit1``
+    (the reference holds one, unused): zeros here."""
+    tmpl = _template(lambda: MidasNet(cfg, features))
+    unused = "scratch.refinenet4.resConfUnit1."
+    state = state_from_flax(params, midas_name_map(cfg),
+                            {k: v for k, v in tmpl.items() if not k.startswith(unused)})
+    state.update({k: torch.zeros(v.shape) for k, v in tmpl.items() if k.startswith(unused)})
+    return state
+
+
+def reldepthnet_state_from_flax(params, cfg: DepthNetConfig):
+    return state_from_flax(params, reldepthnet_name_map(cfg),
+                           _template(lambda: RelDepthNet(cfg)))
 
 
 def load_converted(weights_path: str) -> Optional[dict]:
