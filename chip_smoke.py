@@ -60,8 +60,10 @@ Phases (any failure exits nonzero before the last line):
    compacted step on the shrunk grid and in the evals after it are
    captured and held against the plain versions at phase 3's tolerances;
 7. progressive fit: trainer.reconstruction on a two-view trajectory
-   (circle0_30, a real disocclusion) with phase 6's configuration and
-   n_stage1 1, n_stage2 1, n_stage3 1, on default_services: procedural
+   (circle0_30, a real disocclusion) with phase 6's configuration but no
+   alpha-mask milestone (as in the shipped config, so the grid stays
+   300^3 and its box unshrunk), and n_stage1 1, n_stage2 1, n_stage3 1,
+   on default_services: procedural
    text2img and depth, diffusion_fill_inpaint, histogram_rank, and the
    merge net at its production shape (unet_1024, 10 downs, bf16, seeded
    random init), with ExpansionConfig's defaults (20 candidates, 500
@@ -71,6 +73,8 @@ Phases (any failure exits nonzero before the last line):
    launched in the expansion's renders and A' in the first stage-2 step,
    each held against its plain version on inputs captured there; the
    seed view's final PSNR must beat the untrained field's by 5 dB.  The
+   fit runs with resume on and a resume point every epoch, and must
+   leave its last resume point and scene snapshot in its log folder.  The
    expansion's merge call runs again, fp32 with TF32 off and 2
    iterations, on the card and on the CPU, held within a relative bound.
    Prints the wall of each expansion sub-phase, ms per merge iteration
@@ -116,7 +120,24 @@ Phases (any failure exits nonzero before the last line):
    pix2pix merge_double at 1024 (unet_1024, random init), the MiDaS,
    SGRNet (ResNet-50) and RelDepthNet stand-in forwards once each in
    bf16, and the ResNeXt-101 LeReS at 448^2 on the card against the CPU
-   (fp32, TF32 off) within 1e-3 of the largest output.
+   (fp32, TF32 off) within 1e-3 of the largest output;
+10. resume, at phase 7's configuration: (a) phase 7's fit again with an
+   inpaint service that raises on its second call (after the stage-2
+   boundary's resume point is written), then rerun with resume: it must
+   log its resume epoch, not bootstrap, launch kernels A, A' and B, and
+   end with per-view PSNRs within 0.5 dB of phase 7's (both final
+   checkpoints rendered at phase 7's sample count); (b) phase 7's last
+   resume point (the entry of stage 3) resumed in a copy of its log
+   folder, its PSNRs printed beside phase 7's; (c) view 1 expanded again
+   with update_known_views on phase 7's final field and its scene cut
+   back to view 0: the warp2known artifacts written, view 0's pool
+   rebuilt and non-empty, its image changed only where the back-warp's
+   mask is set; (d) evaluation(compute_extra_metrics=True) of phase 6's
+   final field at 512^2 with LPIPS alex and vgg at a seeded random init
+   in the torch originals' layout, then SSIM and LPIPS of its render on
+   the card against the CPU (SSIM within 1e-6, LPIPS within 1e-4 of the
+   value, fp32 with TF32 off), with ms per call on the card.  The kernel
+   counts are set to 0 before and read after each of (a) to (d).
 
 Prints the smoke's wall, a JSON line of per-kernel numbers, then as the
 last line
@@ -200,6 +221,12 @@ TOL = {
     # ResNeXt-101 LeReS at 448^2 (fp32, TF32 off), card vs CPU, of the
     # largest output: 33 residual blocks of conv sums in other orders
     "leres": 1e-3,
+    # SSIM at 512^2 in float64, card vs CPU: the same window sums in the
+    # same order, a mean of 0.25M terms in another
+    "ssim": 1e-6,
+    # LPIPS (fp32, TF32 off), card vs CPU, of the value: 5 or 13 convs in
+    # other orders, then channel norms and a mean over each layer
+    "lpips": 1e-4,
 }
 SEED_FIT_HW = (512, 512)
 SEED_FIT_EPOCHS = (2, 1)  # n_stage1, n_stage3
@@ -927,7 +954,8 @@ class _StepProbe:
       device's busy time;
     - captures the inputs of the first launch of each kernel and mode in
       the ``CAPTURED_DENSE``-th dense step (on the upsampled grid), in the
-      first compacted step (on the shrunk grid) and in the evals after it,
+      first compacted step not captured under ``tag_next`` (in phase 6 on
+      the shrunk grid) and in the evals after it,
       cloned at launch, for :func:`_hold_seed_fit_kernels`."""
 
     PROFILED_DENSE = 20  # counted from 1: dense steps 11-30 run on 300^3
@@ -1018,7 +1046,8 @@ class _StepProbe:
 
         ff = self.ff
         n_dense = self.kinds.count("dense")
-        first_compact = kind == "compact" and "compact" not in self.kinds[:-1]
+        # the first compacted step not captured under another tag
+        first_compact = kind == "compact" and not any(k[0] == "compact" for k in self.captured)
         captured = (kind == "dense" and n_dense == self.CAPTURED_DENSE) or first_compact
         self._tag = kind if captured else None
         if self.tag_next is not None:
@@ -1117,10 +1146,13 @@ def _hold_seed_fit_kernels(captured, report, held=SEED_FIT_HELD, label="seed fit
     torch.cuda.empty_cache()
 
 
-def phase_seed_fit(dev, card, report, workdir):
+def phase_seed_fit(dev, card, report, workdir, keep_dir=None):
     """The seed fit through trainer.reconstruction at full width (see the
     module docstring), then the final checkpoint reloaded and its render of
-    the seed view held to the logged PSNR."""
+    the seed view held to the logged PSNR.  Returns what phase 10
+    evaluates again (the final checkpoint, copied to ``keep_dir`` when one
+    is given; the seed view's rays and image; the render settings) and the
+    fit's records."""
     import numpy as np
     import torch
     from text2nerf_tpu_torch.data import scene_state as ss
@@ -1239,7 +1271,12 @@ def phase_seed_fit(dev, card, report, workdir):
           f"{final:.4f} dB", flush=True)
     _require(abs(reload_psnr - final) <= TOL["reload_psnr"],
              f"reloaded render {reload_psnr} differs from the logged {final}")
-    return {"seed_fit_wall_s": wall, "seed_fit_pool_rays": pool,
+    if keep_dir:
+        os.makedirs(keep_dir, exist_ok=True)
+    kept = dict(ckpt=keep_dir and shutil.copy(f"{logfolder}/{cfg.expname}_final.npz", keep_dir),
+                rays=scene.rays_gen_split[:1], gt=gt[:1], hw=(h, w),
+                n_samples=logged["n_samples"][1], compact_k=cfg.eval_compact_k, eval_kw=eval_kw)
+    return kept, {"seed_fit_wall_s": wall, "seed_fit_pool_rays": pool,
             "seed_fit_psnr_untrained": psnr0, "seed_fit_psnr_stage1": evals[0][1],
             "seed_fit_psnr_final": final, "seed_fit_psnr_reloaded": reload_psnr,
             "seed_fit_dense_ms": _median(probe.ms["dense"]),
@@ -1270,6 +1307,12 @@ def _seed_fit_configs(workdir, hw, scene=None, **overrides):
 
 # phase 7: the progressive fit (stage 1, one expansion, stage 2, stage 3)
 PROGRESSIVE_EPOCHS = (1, 1, 1)  # n_stage1, n_stage2, n_stage3 of phases 7 and 8
+# phase 7 writes a resume point at its stage-2 boundary and after every
+# epoch (the last one at the entry of stage 3): phase 10 resumes from them.
+# No alpha-mask milestone, as in the shipped config: a run resumed after
+# the shrink marches the shrunk grid's sample count, the JAX trainer's
+# rule (ROADMAP section 3)
+PROGRESSIVE_OVERRIDES = dict(resume=True, resume_every_epochs=1, update_alphamask_list=())
 PROGRESSIVE_SCENE = dict(pose_traj="circle0_30", num_training=2)
 # every sub-phase expand_scene logs for view 1, and the view's DIBR tree
 EXPAND_PHASES = ("render_filter_known", "dibr_warp", "dibr_holefill", "render_target",
@@ -1339,19 +1382,19 @@ def _merge_card_vs_cpu(dev, merge, args, kw):
 
 
 def _progressive_fit(dev, card, report, workdir, services, epochs, label, margin_db, run=None,
-                     held=PROGRESSIVE_HELD):
+                     held=PROGRESSIVE_HELD, overrides=None):
     """The progressive fit on the two-view trajectory, the kernel counts
     set to 0 just before and read just after, then the checks phases 7
     and 8 share (module docstring).  By default trainer.reconstruction with
     ``services`` and phase 6's configuration at ``epochs`` (n_stage1,
-    n_stage2, n_stage3); ``run()`` instead drives the fit its own way and
-    returns (reconstruction's result, TrainConfig, SceneConfig,
-    ExpansionConfig, services); ``held`` names the launches held against
-    the plain versions.  Returns the fit's records."""
+    n_stage2, n_stage3), with TrainConfig ``overrides``; ``run()`` instead
+    drives the fit its own way and returns (reconstruction's result,
+    TrainConfig, SceneConfig, ExpansionConfig, services); ``held`` names
+    the launches held against the plain versions.  Returns the fit's
+    records."""
     import numpy as np
     import torch
     from text2nerf_tpu_torch.data import scene_state as ss
-    from text2nerf_tpu_torch.engine import checkpoints as ckpt
     from text2nerf_tpu_torch.engine import expansion, renderer, trainer
     from text2nerf_tpu_torch.engine import train_step as ts
     from text2nerf_tpu_torch.models import tensorf as tf
@@ -1363,11 +1406,13 @@ def _progressive_fit(dev, card, report, workdir, services, epochs, label, margin
     if run is None:
         cfg, scene_cfg = _seed_fit_configs(
             workdir, SEED_FIT_HW, scene=PROGRESSIVE_SCENE, n_stage1=n1, n_stage2=n2,
-            n_stage3=n3, eval_every_epochs=sum(epochs), **SEED_FIT_COMPACT)
+            n_stage3=n3, eval_every_epochs=sum(epochs), **SEED_FIT_COMPACT,
+            **(overrides or {}))
         ex = expansion.ExpansionConfig(prompt=scene_cfg.prompt, push_depth=scene_cfg.push_depth,
                                        trans_range=scene_cfg.trans_range)
         print(f"{label}: hw {SEED_FIT_HW}, {scene_cfg.pose_traj} x {scene_cfg.num_training} "
-              f"views, epochs {epochs}, the seed fit's grid and milestones, stage 2 and 3 "
+              f"views, epochs {epochs}, the seed fit's grid, upsample at {cfg.upsamp_list}, alpha-mask "
+              f"milestones {cfg.update_alphamask_list}, stage 2 and 3 "
               f"{SEED_FIT_COMPACT}; expansion {ex}; services {services.resolution}", flush=True)
 
         def run():
@@ -1460,8 +1505,7 @@ def _progressive_fit(dev, card, report, workdir, services, epochs, label, margin
 
     # the untrained field the fit started from, upsampled as the fit did
     want_up = tf.n_to_reso(SEED_FIT_VOXELS[1], scene.scene_bbox)
-    eval_kw = dict(chunk=cfg.batch_size, app_k=cfg.app_k, white_bg=scene.white_bg,
-                   push_depth=scene_cfg.push_depth, near_far=scene.near_far, device=dev)
+    eval_kw = _eval_kw(cfg, scene_cfg, scene, dev)
     _, f0, _, _ = trainer.init_field(cfg, scene, device=dev)
     f0 = tf.upsample_volume_grid(f0, want_up).requires_grad_(False)
     z_floor = ss.supervised_z_floor(scene)
@@ -1470,16 +1514,10 @@ def _progressive_fit(dev, card, report, workdir, services, epochs, label, margin
         scene.hw, gt_rgbs=scene.rgbs_gen_split, eval_z_min=z_floor,
         n_samples=tf.default_n_samples(want_up, f0.cfg.step_ratio), **eval_kw)["psnr"][0]
     del f0
-    _, f1, aabb1, mask1, loop = ckpt.load_checkpoint(f"{logfolder}/{cfg.expname}_final.npz",
-                                                     device=dev)
-    f1.requires_grad_(False)
     # the fit's n_samples: set at the c2f upsample, else the initial grid's
     n_samples = next((r["n_samples"] for r in rows if "n_samples" in r), tf.default_n_samples(
         tf.n_to_reso(cfg.n_voxel_init, scene.scene_bbox), mcfg.step_ratio, cfg.n_samples_cap))
-    psnr = renderer.evaluation(
-        f1, aabb1, scene.rays_gen_split[:2], scene.hw, gt_rgbs=scene.rgbs_gen_split,
-        n_samples=n_samples, alpha_mask=mask1, compact_k=cfg.eval_compact_k,
-        eval_z_min=z_floor, **eval_kw)["psnr"]
+    psnr, loop = _final_psnrs(cfg, scene, logfolder, n_samples, eval_kw)
     evals = [(r["step"], r["eval_psnr"]) for r in rows if "eval_psnr" in r]
     print(f"eval PSNR: seed view untrained (upsampled) {psnr0:.4f} dB, final {psnr[0]:.4f} dB; "
           f"generated view final {psnr[1]:.4f} dB; logged means by step {evals} (step "
@@ -1489,7 +1527,33 @@ def _progressive_fit(dev, card, report, workdir, services, epochs, label, margin
              f"seed view PSNR {psnr[0]} is not {margin_db} dB above {psnr0}")
     return dict(wall=wall, phases=phases, n_new=n_new, psnr0=psnr0, psnr=psnr, dibr=dibr,
                 compact_ms=_median(probe.ms["compact"]), dense_ms=_median(probe.ms["dense"]),
-                logfolder=logfolder, scene=scene)
+                logfolder=logfolder, scene=scene, cfg=cfg, scene_cfg=scene_cfg, ex=ex,
+                n_samples=n_samples, eval_kw=eval_kw)
+
+
+def _eval_kw(cfg, scene_cfg, scene, dev):
+    """The evaluation's settings of a fit's final renders."""
+    return dict(chunk=cfg.batch_size, app_k=cfg.app_k, white_bg=scene.white_bg,
+                push_depth=scene_cfg.push_depth, near_far=scene.near_far, device=dev)
+
+
+def _final_psnrs(cfg, scene, logfolder, n_samples, eval_kw):
+    """(per-view PSNRs, loop state) of the final checkpoint in ``logfolder``
+    over the scene's generated views, at ``n_samples``, culled at the
+    scene's supervised z-floor, through its mask's adaptive renderer."""
+    from text2nerf_tpu_torch.data import scene_state as ss
+    from text2nerf_tpu_torch.engine import checkpoints as ckpt
+    from text2nerf_tpu_torch.engine import renderer
+
+    _, f1, aabb1, mask1, loop = ckpt.load_checkpoint(f"{logfolder}/{cfg.expname}_final.npz",
+                                                     device=eval_kw["device"])
+    f1.requires_grad_(False)
+    n_gen = scene.rgbs_gen_split.shape[0]
+    psnr = renderer.evaluation(
+        f1, aabb1, scene.rays_gen_split[:n_gen], scene.hw, gt_rgbs=scene.rgbs_gen_split,
+        n_samples=n_samples, alpha_mask=mask1, compact_k=cfg.eval_compact_k,
+        eval_z_min=ss.supervised_z_floor(scene), **eval_kw)["psnr"]
+    return psnr, loop
 
 
 def phase_progressive_fit(dev, card, report, workdir):
@@ -1497,12 +1561,26 @@ def phase_progressive_fit(dev, card, report, workdir):
     phase 7)."""
     from text2nerf_tpu_torch.services.registry import default_services
 
+    from text2nerf_tpu_torch.engine import trainer
+
     services = default_services(hw=SEED_FIT_HW, device=dev)
     services.inpaint = _Timed(services.inpaint)
     merge = services.merge
     merge.run_finetune = _Timed(merge.run_finetune, keep=True)
-    fit = _progressive_fit(dev, card, report, workdir, services, PROGRESSIVE_EPOCHS,
-                           "progressive fit", 5.0)
+    save0 = trainer._save_resume
+    trainer._save_resume = saves = _Timed(save0)
+    try:
+        fit = _progressive_fit(dev, card, report, workdir, services, PROGRESSIVE_EPOCHS,
+                               "progressive fit", 5.0, overrides=PROGRESSIVE_OVERRIDES)
+    finally:
+        trainer._save_resume = save0
+    names = [f"{fit['cfg'].expname}_resume.npz", "scene_snapshot.npz"]
+    _require(all(os.path.exists(f"{fit['logfolder']}/{n}") for n in names),
+             f"the fit wrote no resume point ({names}) in {fit['logfolder']}")
+    size = sum(os.path.getsize(f"{fit['logfolder']}/{n}") for n in names)
+    print(f"resume points: {len(saves.ms)} saves, {sum(saves.ms) / 1e3:.3f} s of the fit's "
+          f"{fit['wall']:.3f} s ({[round(x, 1) for x in saves.ms]} ms; {size / 2 ** 20:.1f} MiB "
+          f"a point), on {card}", flush=True)
     inpaint_ms, merge_ms = services.inpaint.ms, merge.run_finetune.ms
     iters = merge.run_finetune.args[1]["iters"]
     print(f"inpaint: {len(inpaint_ms)} calls, {_median(inpaint_ms):.2f} ms median; merge "
@@ -1516,7 +1594,8 @@ def phase_progressive_fit(dev, card, report, workdir):
           f"(tol {TOL['merge']:g}); {ms_card:.0f} ms on the card, {ms_cpu:.0f} ms on the CPU",
           flush=True)
     _require(err <= TOL["merge"], f"merge finetune card vs CPU: {err} > {TOL['merge']}")
-    return {"progressive_wall_s": fit["wall"], "progressive_pool_new_rays": fit["n_new"],
+    return fit, {"progressive_wall_s": fit["wall"], "progressive_pool_new_rays": fit["n_new"],
+            "progressive_resume_save_s": sum(saves.ms) / 1e3,
             "progressive_expand_s": fit["phases"]["expand_view_1"],
             "progressive_merge_ms_per_iter": merge_ms[0] / iters,
             "progressive_inpaint_ms": _median(inpaint_ms),
@@ -2063,6 +2142,256 @@ def phase_depth_family(dev, card, booster, fit_seed_image):
     return rec
 
 
+# phase 10: resume, update_known_views and the evaluation's extra metrics
+RESUME_PSNR_DB = 0.5  # the JAX package's crash-resume test bound
+EXTRA_METRIC_REPS = 5
+LPIPS_FILES = {"alex": "alexnet-owt-7be5be79.pth", "vgg": "vgg16-397923af.pth"}
+
+
+def _counts_zeroed():
+    import torch
+    from text2nerf_tpu_torch.ops.kernels import factor_features as ff
+    from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
+
+    torch.cuda.synchronize()
+    ff.LAUNCHES = ff.BWD_LAUNCHES = sm.LAUNCHES = 0
+
+
+def _read_counts(report, path, need):
+    """The kernel counts of the run just driven, added to the report under
+    ``path``; each kernel of ``need`` must have been launched."""
+    import torch
+    from text2nerf_tpu_torch.ops.kernels import factor_features as ff
+    from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
+
+    torch.cuda.synchronize()
+    launches = {"factor_features": ff.LAUNCHES, "factor_features_bwd": ff.BWD_LAUNCHES,
+                "shading_mlp": sm.LAUNCHES}
+    for name, count in launches.items():
+        _require(count > 0 or name not in need, f"{name} was not launched on {path}")
+        if count:
+            report[name]["launches"] = report[name].get("launches", 0) + count
+            report[name].setdefault("launches_by_path", {})[path] = count
+    return launches
+
+
+def _rows_of(logfolder, skip=0):
+    return [json.loads(line) for line in open(f"{logfolder}/metrics.jsonl")][skip:]
+
+
+def _write_lpips_weights(d):
+    """LPIPS alex and vgg at a seeded random init in the torch originals'
+    layout: torchvision's ``features.*`` and lpips' heads."""
+    import torch
+    from text2nerf_tpu_torch.models import lpips as PL
+
+    os.makedirs(d, exist_ok=True)
+    for net, name in LPIPS_FILES.items():
+        torch.manual_seed(7)
+        feats = PL.alex_features() if net == "alex" else PL.vgg16_features()
+        torch.save({f"features.{k}": v for k, v in feats.state_dict().items()}, f"{d}/{name}")
+        torch.save({f"lin{i}.model.1.weight": torch.rand(1, c, 1, 1)
+                    for i, c in enumerate(PL.CHANNELS[net])}, f"{d}/{net}.pth")
+
+
+def phase_resume(dev, card, report, workdir, prog, seed_kept):
+    """Phase 10 (module docstring): (a) phase 7's fit crashed in its
+    expansion and resumed, (b) phase 7's last resume point resumed, (c)
+    one expansion with update_known_views on phase 7's field and scene,
+    (d) the evaluation's SSIM and LPIPS on phase 6's final field."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch.data import scene_state as ss
+    from text2nerf_tpu_torch.engine import checkpoints as ckpt
+    from text2nerf_tpu_torch.engine import expansion, metrics, renderer, trainer
+    from text2nerf_tpu_torch.ops import splat
+    from text2nerf_tpu_torch.services.registry import default_services
+    from text2nerf_tpu_torch.utils.png import read_png
+
+    cfg, scene_cfg, ex = prog["cfg"], prog["scene_cfg"], prog["ex"]
+    out = {}
+
+    # (a) the crash after the boundary's save, and the rerun
+    services = default_services(hw=SEED_FIT_HW, device=dev)
+    inpaint, calls = services.inpaint, [0]
+
+    def dying_inpaint(*args, **kw):
+        calls[0] += 1
+        if calls[0] == 2:
+            raise RuntimeError("simulated crash in the expansion")
+        return inpaint(*args, **kw)
+
+    services.inpaint = dying_inpaint
+    cfg_a = dataclasses.replace(cfg, basedir=f"{workdir}/a/log")
+    scene_a = dataclasses.replace(scene_cfg, datadir=f"{workdir}/a/scene")
+    t0 = time.perf_counter()
+    try:
+        trainer.reconstruction(cfg_a, scene_a, services, ex, device=dev)
+        _require(False, "the crashing inpaint did not stop the fit")
+    except RuntimeError as e:
+        _require("simulated crash" in str(e), f"the fit failed otherwise: {e}")
+    crash_s = time.perf_counter() - t0
+    folder = trainer.log_folder(cfg_a, scene_a)
+    loop = ckpt.load_checkpoint(f"{folder}/{cfg.expname}_resume.npz", device=dev)[-1]
+    _require(loop["epoch"] == cfg.n_stage1 and loop["next_view"] == 1,
+             f"the crashed fit's resume point is not the boundary's: {loop}")
+    n_rows = len(_rows_of(folder))
+    services.inpaint = inpaint
+    _counts_zeroed()
+    t0 = time.perf_counter()
+    _, _, _, scene_r, _ = trainer.reconstruction(cfg_a, scene_a, services, ex, device=dev)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    launches = _read_counts(report, "resume", ("factor_features", "factor_features_bwd",
+                                                "shading_mlp"))
+    rows = _rows_of(folder, n_rows)
+    _require([r["resume_epoch"] for r in rows if "resume_epoch" in r] == [cfg.n_stage1],
+             "the rerun did not log its resume epoch")
+    _require(not any(k.startswith("phase/bootstrap") for r in rows for k in r),
+             "the rerun bootstrapped the scene again")
+    psnr_a, _ = _final_psnrs(cfg, scene_r, folder, prog["n_samples"], prog["eval_kw"])
+    gap = max(abs(a - b) for a, b in zip(psnr_a, prog["psnr"]))
+    view1_diff = float(np.abs(scene_r.rgbs_gen_split[1] - prog["scene"].rgbs_gen_split[1]).max())
+    print(f"(a) crash and resume: crashed after {crash_s:.3f} s (inpaint call {calls[0]}, "
+          f"after the boundary's save at epoch {loop['epoch']}, step {loop['global_step']}); "
+          f"the rerun {resume_s:.3f} s (phase 7 uninterrupted {prog['wall']:.3f} s, both with a "
+          f"device sync around every step), launches {launches}; per-view PSNRs "
+          f"{[round(p, 4) for p in psnr_a]} dB vs phase 7's "
+          f"{[round(p, 4) for p in prog['psnr']]} dB (at phase 7's {prog['n_samples']} "
+          f"samples): largest gap {gap:.4f} dB (tol {RESUME_PSNR_DB}); the regenerated view 1 "
+          f"within {view1_diff:.3e} of phase 7's, on {card}", flush=True)
+    _require(len(psnr_a) == len(prog["psnr"]) and gap <= RESUME_PSNR_DB,
+             f"the resumed fit's PSNRs {psnr_a} are not within {RESUME_PSNR_DB} dB of "
+             f"{prog['psnr']}")
+    out.update(resume_crash_s=crash_s, resume_rerun_s=resume_s, resume_psnr=psnr_a,
+               resume_psnr_gap_db=gap)
+
+    # (b) phase 7's last resume point (the entry of stage 3), resumed
+    folder_b = trainer.log_folder(dataclasses.replace(cfg, basedir=f"{workdir}/b/log"),
+                                  scene_cfg)
+    shutil.copytree(prog["logfolder"], folder_b)
+    cfg_b = dataclasses.replace(cfg, basedir=f"{workdir}/b/log")
+    loop_b = ckpt.load_checkpoint(f"{folder_b}/{cfg.expname}_resume.npz", device=dev)[-1]
+    n_rows = len(_rows_of(folder_b))
+    _counts_zeroed()
+    t0 = time.perf_counter()
+    _, _, _, scene_b, _ = trainer.reconstruction(cfg_b, scene_cfg, services, ex, device=dev)
+    torch.cuda.synchronize()
+    resume_b_s = time.perf_counter() - t0
+    launches = _read_counts(report, "resume_stage3", ("factor_features", "factor_features_bwd",
+                                                       "shading_mlp"))
+    rows = _rows_of(folder_b, n_rows)
+    _require([r["resume_epoch"] for r in rows if "resume_epoch" in r] == [loop_b["epoch"]],
+             "the resumed stage 3 did not log its resume epoch")
+    psnr_b, _ = _final_psnrs(cfg, scene_b, folder_b, prog["n_samples"], prog["eval_kw"])
+    print(f"(b) resumed at phase 7's last point (epoch {loop_b['epoch']}, step "
+          f"{loop_b['global_step']}): {resume_b_s:.3f} s, launches {launches}; per-view PSNRs "
+          f"{[round(p, 4) for p in psnr_b]} dB beside phase 7's "
+          f"{[round(p, 4) for p in prog['psnr']]} dB", flush=True)
+    _require(all(np.isfinite(psnr_b)), f"the resumed stage 3 ended at {psnr_b}")
+    out.update(resume_stage3_s=resume_b_s, resume_stage3_psnr=psnr_b)
+
+    # (c) view 1 expanded again with update_known_views, on phase 7's final
+    # field and its scene cut back to view 0
+    _, field, _, mask, _ = ckpt.load_checkpoint(f"{prog['logfolder']}/{cfg.expname}_final.npz",
+                                                device=dev)
+    field.requires_grad_(False)
+    scene = prog["scene"]
+    scene0 = dataclasses.replace(
+        scene, rgbs_gen_split=scene.rgbs_gen_split[:1], depth_gen_split=scene.depth_gen_split[:1],
+        masks_gen_split=scene.masks_gen_split[:1], updates={"00000": scene.updates["00000"]})
+    ex_c = dataclasses.replace(ex, update_known_views=True)
+    _counts_zeroed()
+    t0 = time.perf_counter()
+    got = expansion.expand_scene(
+        1, field, scene0, services, ex_c, f"{workdir}/c", n_samples=prog["n_samples"],
+        white_bg=scene.white_bg, seed=cfg.seed + 1,
+        alpha_mask=mask if cfg.eval_compact_k != 0 else None, compact_k=cfg.eval_compact_k,
+        eval_z_min=ss.supervised_z_floor(scene0), device=dev)
+    torch.cuda.synchronize()
+    expand_s = time.perf_counter() - t0
+    launches = _read_counts(report, "update_known_views", ("factor_features", "shading_mlp"))
+    from text2nerf_tpu_torch.engine import io_async
+
+    io_async.flush(f"{workdir}/c")
+    sup = f"{workdir}/c/DIBR/rgbs_support/00001_warp2known"
+    names = sorted(os.listdir(sup)) if os.path.isdir(sup) else []
+    want = sorted(f"00000_{k}.png" for k in ("image_pre", "image_warp", "depth_pre",
+                                             "depth_warp"))
+    _require(names == want, f"warp2known artifacts {names} are not {want}")
+    # the back-warp's mask: view 1's new content warped into view 0
+    my_map = read_png(f"{workdir}/c/DIBR/mask/00001_expand.png").astype(np.float32) / 255.0
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    back = splat.warp_one_to_many_with_mask(
+        t(got.rgbs_gen_split[1]), t(got.depth_gen_split[1]), t(scene.poses_gen[1]),
+        t(scene.poses_gen[:1]), scene.intrinsic, extra_mask=t(1.0 - my_map))[3][0].cpu().numpy()
+    changed = np.abs(got.rgbs_gen_split[0] - scene0.rgbs_gen_split[0]).max(-1) > 0
+    pool0 = got.updates["00000"]
+    print(f"(c) update_known_views: {expand_s:.3f} s, launches {launches}; view 0 changed on "
+          f"{int(changed.sum())} pixels, the back-warp covers {int(back.sum())}, changed outside "
+          f"it {int((changed & (back == 0)).sum())}; view 0's pool {len(pool0[0])} rays (was "
+          f"{len(scene0.updates['00000'][0])})", flush=True)
+    _require(pool0 is not scene0.updates["00000"] and len(pool0[0]) > 0,
+             "view 0's pool was not rebuilt")
+    _require(changed.any() and not (changed & (back == 0)).any(),
+             "view 0 changed outside the back-warp's mask, or nowhere")
+    out.update(update_known_views_s=expand_s, update_known_views_changed_px=int(changed.sum()))
+
+    # (d) SSIM and LPIPS of phase 6's final field at 512^2, card vs CPU
+    _, f6, aabb6, mask6, _ = ckpt.load_checkpoint(seed_kept["ckpt"], device=dev)
+    f6.requires_grad_(False)
+    lp_dir = f"{workdir}/lpips_weights"
+    _write_lpips_weights(lp_dir)
+    kw = dict(seed_kept["eval_kw"], n_samples=seed_kept["n_samples"], alpha_mask=mask6,
+              compact_k=seed_kept["compact_k"])
+    _counts_zeroed()
+    res = renderer.evaluation(f6, aabb6, seed_kept["rays"], seed_kept["hw"],
+                              gt_rgbs=seed_kept["gt"], compute_extra_metrics=True,
+                              lpips_weights_dir=lp_dir, **kw)
+    launches = _read_counts(report, "extra_metrics", ("factor_features", "shading_mlp"))
+    _require(len(res.get("ssim", [])) == 1 and len(res.get("lpips_alex", [])) == 1,
+             f"the evaluation gave no ssim or lpips: {sorted(res)}")
+    kw.pop("device")
+    rgb, _ = renderer.render_view(f6, aabb6, seed_kept["rays"][0], seed_kept["hw"], device=dev,
+                                  **{k: kw[k] for k in ("n_samples", "chunk", "app_k", "white_bg",
+                                                        "alpha_mask", "compact_k", "eval_z_min")})
+    gt = np.asarray(seed_kept["gt"][0]).reshape(rgb.shape)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EXTRA_METRIC_REPS):
+            v = fn()
+        torch.cuda.synchronize()
+        return v, (time.perf_counter() - t0) * 1e3 / EXTRA_METRIC_REPS
+
+    s_card, ssim_ms = timed(lambda: metrics.ssim(rgb, gt, device=dev))
+    s_cpu = metrics.ssim(rgb, gt, device="cpu")
+    line = (f"(d) extra metrics at {seed_kept['hw'][0]}x{seed_kept['hw'][1]}: evaluation psnr "
+            f"{res['psnr'][0]:.4f} dB, ssim {res['ssim'][0]:.6f}, lpips_alex "
+            f"{res['lpips_alex'][0]:.6f}, launches {launches}; SSIM card {s_card:.9f} vs CPU "
+            f"{s_cpu:.9f} (|diff| {abs(s_card - s_cpu):.3e}, tol {TOL['ssim']:g}), "
+            f"{ssim_ms:.3f} ms a call on the card")
+    _require(abs(s_card - s_cpu) <= TOL["ssim"], f"SSIM card vs CPU: {s_card} vs {s_cpu}")
+    out.update(ssim_ms=ssim_ms, ssim_card_vs_cpu=abs(s_card - s_cpu))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for net in LPIPS_FILES:
+            d_card, ms = timed(lambda: metrics.lpips(rgb, gt, net, lp_dir, device=dev))
+            d_cpu = metrics.lpips(rgb, gt, net, lp_dir, device="cpu")
+            rel = abs(d_card - d_cpu) / abs(d_cpu)
+            line += (f"; LPIPS-{net} card {d_card:.7f} vs CPU {d_cpu:.7f} ({rel:.3e} of the "
+                     f"value, tol {TOL['lpips']:g}), {ms:.3f} ms a call on the card")
+            _require(rel <= TOL["lpips"], f"LPIPS-{net} card vs CPU: {d_card} vs {d_cpu}")
+            out.update({f"lpips_{net}_ms": ms, f"lpips_{net}_card_vs_cpu": rel})
+    print(line + f", on {card}", flush=True)
+    return out
+
+
+
 # stage 3's compaction settings tried on the seed fit (TrainConfig overrides)
 SEED_FIT_VARIANTS = {
     "defaults": {},  # compacted K 64, depth-anchored band 6
@@ -2163,30 +2492,35 @@ def main(argv):
         for f in os.listdir(workdir):
             os.remove(os.path.join(workdir, f))
     train = phase_train(dev, card, report)
-    seed_dir = _build.BUILD_DIR / "seed_fit"
-    shutil.rmtree(seed_dir, ignore_errors=True)
+    seed_dir, prog_dir, resume_dir = (_build.BUILD_DIR / name for name in (
+        "seed_fit", "progressive_fit", "resume"))
     try:
-        seed = phase_seed_fit(dev, card, report, str(seed_dir))
-    finally:
-        shutil.rmtree(seed_dir, ignore_errors=True)
-    prog_dir = _build.BUILD_DIR / "progressive_fit"
-    shutil.rmtree(prog_dir, ignore_errors=True)
-    try:
-        prog = phase_progressive_fit(dev, card, report, str(prog_dir))
-    finally:
-        shutil.rmtree(prog_dir, ignore_errors=True)
-    gen_dir = _build.BUILD_DIR / "generative_fit"
-    shutil.rmtree(gen_dir, ignore_errors=True)
-    try:
-        gen, booster, fit_seed_image = phase_generative_fit(dev, card, report, str(gen_dir))
-    finally:
+        for d in (seed_dir, prog_dir, resume_dir):
+            shutil.rmtree(d, ignore_errors=True)
+        try:
+            seed_kept, seed = phase_seed_fit(dev, card, report, str(seed_dir),
+                                             str(resume_dir / "seed_fit"))
+        finally:
+            shutil.rmtree(seed_dir, ignore_errors=True)
+        prog_fit, prog = phase_progressive_fit(dev, card, report, str(prog_dir))
+        gen_dir = _build.BUILD_DIR / "generative_fit"
         shutil.rmtree(gen_dir, ignore_errors=True)
-    torch.cuda.empty_cache()
-    depth = phase_depth_family(dev, card, booster, fit_seed_image)
+        try:
+            gen, booster, fit_seed_image = phase_generative_fit(dev, card, report, str(gen_dir))
+        finally:
+            shutil.rmtree(gen_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        depth = phase_depth_family(dev, card, booster, fit_seed_image)
+        del booster
+        torch.cuda.empty_cache()
+        resumed = phase_resume(dev, card, report, str(resume_dir), prog_fit, seed_kept)
+    finally:
+        for d in (prog_dir, resume_dir):
+            shutil.rmtree(d, ignore_errors=True)
     wall_s = time.perf_counter() - t_start
     print(f"chip_smoke wall {wall_s:.1f} s on {card}", flush=True)
     print(json.dumps({"rays_per_s": rays_s, "max_dev": max_dev, **train, **seed, **prog, **gen,
-                      **depth, "card": card, "wall_s": wall_s}), flush=True)
+                      **depth, **resumed, "card": card, "wall_s": wall_s}), flush=True)
     kernels = [report[k] for k in ("factor_features", "shading_mlp", "factor_features_bwd")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, on the card, and the
-train step on the card against the CPU.  Kernel A' also on adversarial
+train step, the metrics and the pools of a resume on the card against the
+CPU.  Kernel A' also on adversarial
 inputs: a run inside one cell, every upper edge, runs that cross rays, a
 ragged n, zero gradients, accumulation, and both of its routes.
 
@@ -8,6 +9,8 @@ machine with a card and no JAX it runs with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -508,3 +511,87 @@ def test_tiny_leres_on_the_card_matches_the_cpu(cuda):
     blur_c = IO.gaussian_blur(img[..., 0], 13)
     blur_g = IO.gaussian_blur(img[..., 0].to(cuda), 13).cpu()
     assert float((blur_g - blur_c).abs().max()) <= 1e-6
+
+
+def test_ssim_and_lpips_on_the_card_match_the_cpu(cuda, tmp_path):
+    # SSIM in float64: card and CPU sum the same window in the same order;
+    # LPIPS in fp32 with TF32 off (its convolutions sum in other orders),
+    # alex and vgg at random init from torch-layout files
+    from text2nerf_tpu_torch.engine import metrics as PM
+    from text2nerf_tpu_torch.models import lpips as PL
+
+    g = torch.Generator().manual_seed(0)
+    a = torch.rand(96, 80, 3, generator=g)
+    b = (a + 0.1 * torch.randn(96, 80, 3, generator=g)).clamp(0, 1)
+    s_card, s_cpu = PM.ssim(a, b, device=cuda), PM.ssim(a, b, device="cpu")
+    assert abs(s_card - s_cpu) <= 1e-6 and 0 < s_cpu < 1
+    for net, name in (("alex", "alexnet-owt.pth"), ("vgg", "vgg16.pth")):
+        torch.manual_seed(1)
+        feats = PL.alex_features() if net == "alex" else PL.vgg16_features()
+        torch.save({f"features.{k}": v for k, v in feats.state_dict().items()}, tmp_path / name)
+        torch.save({f"lin{i}.model.1.weight": torch.rand(1, c, 1, 1)
+                    for i, c in enumerate(PL.CHANNELS[net])}, tmp_path / f"{net}.pth")
+        d_card = PM.lpips(a, b, net, str(tmp_path), device=cuda)
+        d_cpu = PM.lpips(a, b, net, str(tmp_path), device="cpu")
+        assert abs(d_card - d_cpu) <= 1e-4 * abs(d_cpu) and d_cpu > 0
+
+
+def _tiny_resume_setup(root, device):
+    from text2nerf_tpu_torch.data import scene_state as pss
+    from text2nerf_tpu_torch.engine import expansion as PE
+    from text2nerf_tpu_torch.engine import trainer as PT
+    from text2nerf_tpu_torch.services import fallbacks
+    from text2nerf_tpu_torch.services.merge import DepthMergeService
+    from text2nerf_tpu_torch.services.registry import Services
+
+    hw = (32, 32)
+    scene_cfg = pss.SceneConfig(datadir=str(root / "d"), prompt="card resume",
+                                pose_traj="circle0_30", num_training=2, hw=hw,
+                                num_filter_iter=2, filter_size=(3, 3))
+    cfg = PT.TrainConfig(
+        expname="r", basedir=str(root / "log"), n_stage1=1, n_stage2=2, n_stage3=1,
+        batch_size=512, n_voxel_init=16 ** 3, app_k=8, eval_every_epochs=10, seed=5,
+        eval_mask_pool=5, resume=True, resume_every_epochs=1,
+        # the default head: kernel B takes feature_c 128
+        model=ptf.TensoRFConfig(density_n_comp=(2, 2, 2), app_n_comp=(4, 4, 4)))
+    services = Services(
+        text2img=lambda p, n="": fallbacks.procedural_text2img(p, n, hw=hw),
+        inpaint=lambda *a, **kw: fallbacks.diffusion_fill_inpaint(*a, device=device, **kw),
+        estimate_depth=fallbacks.procedural_depth, rank=fallbacks.histogram_rank,
+        merge=DepthMergeService(net_size=64, num_downs=4, device=device))
+    ex = PE.ExpansionConfig(prompt=scene_cfg.prompt, n_candidates=1, candidates_per_round=1,
+                            merge_iters=2, chunk=256, app_k=8, update_known_views=True)
+    return cfg, scene_cfg, services, ex
+
+
+def test_resume_on_the_card(cuda, tmp_path):
+    # a fit with update_known_views and a resume point every epoch; its
+    # last point (the entry of stage 3) resumed; the pools the snapshot
+    # gives on the card and on the CPU: the same rays, rgb within a level
+    import json
+    import shutil
+
+    from text2nerf_tpu_torch.data import scene_state as pss
+    from text2nerf_tpu_torch.engine import checkpoints as PC
+    from text2nerf_tpu_torch.engine import trainer as PT
+
+    cfg, scene_cfg, services, ex = _tiny_resume_setup(tmp_path, cuda)
+    first = PT.reconstruction(cfg, scene_cfg, services, ex, device=cuda)
+    folder = first[4]
+    loop = PC.load_checkpoint(f"{folder}/r_resume.npz", device=cuda)[-1]
+    assert loop["epoch"] == 3 and loop["next_view"] == 2
+    assert os.path.isdir(f"{folder}/DIBR/rgbs_support/00001_warp2known")
+    snap = f"{folder}/scene_snapshot.npz"
+    pools = [pss.load_scene_snapshot(snap, n_views_pools=2, device=d).updates
+             for d in (cuda, "cpu")]
+    for v in ("00000", "00001"):
+        (gr, gc, gd), (cr, cc, cd) = pools[0][v], pools[1][v]
+        assert len(gr) == len(cr) > 0 and np.array_equal(gr, cr)
+        assert np.abs(gc - cc).max() <= 1.0 / 255 + 1e-6
+    shutil.copy(f"{folder}/metrics.jsonl", tmp_path / "first.jsonl")
+    second = PT.reconstruction(cfg, scene_cfg, services, ex, device=cuda)
+    rows = [json.loads(line) for line in open(f"{second[4]}/metrics.jsonl")]
+    n_first = sum(1 for _ in open(tmp_path / "first.jsonl"))
+    assert [r["resume_epoch"] for r in rows[n_first:] if "resume_epoch" in r] == [3]
+    assert second[3].rgbs_gen_split.shape[0] == 2
+    assert all(torch.isfinite(p).all() for p in second[1].parameters())

@@ -6,7 +6,8 @@ tolerance (the worst seen on these inputs in brackets):
   ``warp_many_to_one``): masks bit-equal; warped rgb within one uint8
   level on every pixel and equal on at least 99% of them (100%); depths
   within 1e-5 relative (equal);
-- the native ``hole_fill2``: bit-equal;
+- the native ``hole_fill2``: bit-equal; the JAX package's native library,
+  in a test process, no older than its source;
 - ``diffusion_fill_inpaint``: within 1e-5 (equal); ``histogram_rank``:
   equal scores, so equal argmax;
 - the merge net: the U-Net forward (fp32, 64/4, the flax init carried
@@ -29,6 +30,12 @@ tolerance (the worst seen on these inputs in brackets):
 - the same step with every other option of ExpansionConfig flipped (one
   candidate, stored views warped, no hole fill, no support set): masks,
   pool rays and file list equal, rgb and depth within 1e-5;
+- the same step with ``update_known_views``: the eroded masks equal;
+  both views' rgb within 1e-5 and depth within 1e-5 of the largest (the
+  known view composited, its depth re-estimated and merged; 1.9e-7);
+  both views' pools' rays equal, their rgbs within 1e-5 and depths within
+  1e-5 of the largest on 97% of the rays (98.6%, 98.1%); the DIBR/ file
+  lists (the ``warp2known`` artifacts among them) equal;
 - the same step through the adaptive renderer (a pool-3 mask, compact_k
   -1): mask bits and the chosen candidate equal, scores within 1e-3
   relative (5.2e-5), the new view's rgb within one uint8 level (6.8e-4)
@@ -168,6 +175,14 @@ def test_hole_fill2_bit_equal_to_jax(with_depth):
         np.testing.assert_array_equal(g, w)
     assert got[1].sum() > mask.sum() and (got[1] == 0).any()
     np.testing.assert_array_equal(mask, (mask > 0).astype(np.float32))  # input untouched
+
+
+def test_jax_native_library_is_no_older_than_its_source():
+    # the root conftest builds it in the pytest controller, before any
+    # worker starts, so no test process rebuilds it while another loads it
+    here = os.path.dirname(jnative.__file__)
+    so, src = os.path.join(here, "libhost_ops.so"), os.path.join(here, "host_ops.cpp")
+    assert os.path.getmtime(so) >= os.path.getmtime(src)
 
 
 def test_inpaint_and_rank_match_jax():
@@ -474,13 +489,32 @@ def test_expansion_step_off_default_options_match_jax(tmp_path):
     assert _files(tmp_path / "pl") == _files(tmp_path / "jl")
 
 
-def test_update_known_views_raises_before_any_work(tmp_path):
-    _, ps = _services()
-    cfg = PE.ExpansionConfig(prompt=PROMPT, update_known_views=True)
-    with pytest.raises(NotImplementedError, match="update_known_views"):
-        PE.expand_scene(1, None, None, ps, cfg, str(tmp_path / "log"), n_samples=8,
-                        device="cpu")
-    assert not (tmp_path / "log").exists()
+def test_update_known_views_matches_jax(tmp_path):
+    # the eroded mask, then view 0 updated from view 1's new content: its
+    # composite, its merged depth and its rebuilt pool
+    _, _, pscene, want, got = _expand_both(tmp_path, update_known_views=True)
+    np.testing.assert_array_equal(got.masks_gen_split, want.masks_gen_split)
+    assert got.rgbs_gen_split.shape == want.rgbs_gen_split.shape == (2, *HW, 3)
+    assert np.abs(got.rgbs_gen_split - want.rgbs_gen_split).max() <= 1e-5
+    d_want = want.depth_gen_split
+    assert np.abs(got.depth_gen_split - d_want).max() <= 1e-5 * np.abs(d_want).max()
+    # view 0 changed where the back-warp landed, and its pool was rebuilt
+    assert np.abs(got.rgbs_gen_split[0] - pscene.rgbs_gen_split[0]).max() > 0
+    assert set(got.updates) == set(want.updates) == {"00000", "00001"}
+    # the pools: the same rays; the values of the support warps equal on
+    # 97% of them (a depth within 2e-7 of JAX's moves a splat across a
+    # pixel edge here and there: 1.4% and 1.9% of view 0's rgbs and depths)
+    for v in ("00000", "00001"):
+        (gr, gc, gd), (wr, wc, wd) = got.updates[v], want.updates[v]
+        assert 0 < len(gr) == len(wr)
+        np.testing.assert_array_equal(gr, wr)
+        assert (np.abs(gc - wc).max(-1) <= 1e-5).mean() >= 0.97
+        assert (np.abs(gd - wd) <= 1e-5 * np.abs(wd).max()).mean() >= 0.97
+    assert len(got.updates["00000"][0]) != len(pscene.updates["00000"][0])
+    files = _files(tmp_path / "pl")
+    assert files == _files(tmp_path / "jl")
+    assert "DIBR/rgbs_support/00001_warp2known/00000_image_warp.png" in files
+    assert "DIBR/mask/00001_expand.png" in files
 
 
 # ---------------------------------------------------------------------------

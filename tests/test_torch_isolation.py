@@ -56,7 +56,8 @@ SERVICE_PATH = ("models/diffusion.py", "models/clip.py", "models/tokenizer.py",
                 "services/registry.py", "services/fallbacks.py", "services/merge.py",
                 "models/leres.py", "models/midas.py", "models/monodepth.py",
                 "services/image_ops.py", "services/depth_service.py", "config.py", "main.py",
-                "utils/seeding.py", "utils/mesh.py")
+                "utils/seeding.py", "utils/mesh.py", "models/lpips.py",
+                "services/weights_manifest.py", "engine/metrics.py", "data/blender.py")
 
 
 def _port_sources():
@@ -77,7 +78,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "services/weights.py", "services/diffusion_service.py",
                 "services/clip_rank.py", "models/leres.py", "models/midas.py",
                 "models/monodepth.py", "services/image_ops.py", "services/depth_service.py",
-                "config.py", "main.py", "utils/seeding.py", "utils/mesh.py"):
+                "config.py", "main.py", "utils/seeding.py", "utils/mesh.py",
+                "models/lpips.py", "services/weights_manifest.py", "data/blender.py"):
         assert f"text2nerf_tpu_torch/{mod}" in names, mod
     bad = []
     for path in files:

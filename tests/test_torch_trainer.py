@@ -57,7 +57,6 @@ from text2nerf_tpu.models import tensorf as tf
 from text2nerf_tpu.services import fallbacks as jfb
 from text2nerf_tpu.services.registry import Services
 from text2nerf_tpu_torch.data import scene_state as pss
-from text2nerf_tpu_torch.engine import expansion as PE
 from text2nerf_tpu_torch.engine import renderer as PER
 from text2nerf_tpu_torch.engine import train_step as PTS
 from text2nerf_tpu_torch.engine import trainer as PT
@@ -328,16 +327,12 @@ def test_write_video_falls_back_to_mjpeg_avi(tmp_path):
 
 def test_unported_options_raise_before_any_work(tmp_path):
     scene = _scene(pss.SceneConfig, tmp_path / "d")
-    for kw, what in ((dict(resume=True), "resume"),
-                     (dict(checkpoint_backend="orbax"), "orbax"),
-                     (dict(train_compute_dtype="bf16"), "bf16")):
+    for kw, what in ((dict(checkpoint_backend="orbax"), "orbax"),
+                     (dict(train_compute_dtype="bf16"), "bf16"),
+                     (dict(ndc_ray=True), "NDC")):
         cfg = PT.TrainConfig(basedir=str(tmp_path / "log"), **kw)
         with pytest.raises(NotImplementedError, match=what):
             PT.reconstruction(cfg, scene, device="cpu")
-    known = PE.ExpansionConfig(prompt="p", update_known_views=True)
-    with pytest.raises(NotImplementedError, match="update_known_views"):
-        PT.reconstruction(PT.TrainConfig(basedir=str(tmp_path / "log")), scene,
-                          expansion_cfg=known, device="cpu")
     assert not os.path.exists(tmp_path / "log") and not os.path.exists(tmp_path / "d")
 
 

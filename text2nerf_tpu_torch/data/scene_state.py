@@ -1,6 +1,7 @@
 """Scene state (port of ``text2nerf_tpu/data/scene_state.py``: the ray
-pools, the scene bootstrap, the scene-aware eval z-floor, the read side
-of scene snapshots and the append of a generated view).
+pools, the scene bootstrap, the scene-aware eval z-floor, scene
+snapshots and the pools rebuilt from them, and the append of a generated
+view).
 
 The scene is an explicit state object of numpy arrays; the bootstrap
 returns it.  The generative priors (text2img, depth estimation) are
@@ -328,12 +329,11 @@ def supervised_z_floor(
 
 
 def save_scene_snapshot(path: str, scene: SceneState):
-    """Write the part of the scene that :func:`load_scene_snapshot` reads
-    (the JAX package's ``save_scene_snapshot``): the generated views'
-    images, depths, masks and poses, the support poses, the frame.  The
-    port's trainer does not call it (``resume`` is not ported); a
-    snapshot beside a checkpoint gives ``render_test`` the fit's
-    supervised z-floor."""
+    """Write the resumable part of the scene (the JAX package's
+    ``save_scene_snapshot``, the same keys, so a snapshot crosses
+    packages): the generated views' images, depths, masks and poses, the
+    support poses, the frame.  Ray pools are derived data, rebuilt on
+    load.  Atomic: a kill mid-write leaves the previous snapshot."""
     from ..utils.atomic_io import atomic_savez
 
     atomic_savez(
@@ -347,17 +347,92 @@ def save_scene_snapshot(path: str, scene: SceneState):
     )
 
 
-def load_scene_snapshot(path: str) -> SceneState:
-    """The scene a ``scene_snapshot.npz`` holds: the generated views'
-    images, depths and inpaint masks, their poses and the support poses,
-    with every view's rays recomputed.  No ray pool is rebuilt (the JAX
-    package's ``n_views_pools=0``): enough for :func:`supervised_z_floor`
-    and for renders, not for resuming a fit."""
+def view_pool(scene: SceneState, img, depth, mask, pose, trans_range: float,
+              use_support_set: bool, device=None):
+    """The ray pool of a generated view of ``scene`` given as ``img``,
+    ``depth`` and its inpaint ``mask`` at ``pose``: with the support set,
+    the view and its warps to its ``local_fixed_poses`` support set,
+    keeping what the inpainted region covers; without it, the view alone
+    under ``mask``.  The warps run on ``device`` (cuda unless asked).
+    Returns (rays, rgbs, depths)."""
+    h, w = scene.hw
+    img = np.asarray(img, np.float32)
+    depth = np.asarray(depth, np.float32)
+    mask = np.asarray(mask, np.float32)
+    if not use_support_set:
+        rays_p, rgbs_p, depths_p, _, _, _ = formatted_ray_pool(
+            img[None], depth[None], mask[None], np.asarray(pose)[None], scene.intrinsic, h, w,
+        )
+        return rays_p, rgbs_p, depths_p
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    poses_support = traj.local_fixed_poses(
+        pose, angle=0, range_center=trans_range, range_yaw=0.6, range_pitch=0.2,
+    )
+    # the masks: the coverage of the inpainted region only
+    rgbs_w, _, depth_w, masks_w = splat_ops.warp_one_to_many_with_mask(
+        t(img), t(depth), t(poses_support[0]), t(poses_support[1:]), scene.intrinsic,
+        extra_mask=t(mask),
+    )
+    return _support_pool(scene, img, depth, mask, poses_support, rgbs_w, depth_w, masks_w)
+
+
+def _support_pool(scene, img, depth, mask, poses_support, rgbs_w, depth_w, masks_w):
+    """The pool of a view and its warps to ``poses_support[1:]``."""
+    h, w = scene.hw
+    images = np.concatenate([img[None], rgbs_w.cpu().numpy()], 0)
+    masks = np.concatenate([mask[None], masks_w.cpu().numpy()], 0)
+    depths = np.concatenate([depth[None], depth_w.cpu().numpy()], 0)
+    rays_p, rgbs_p, depths_p, _, _, _ = formatted_ray_pool(
+        images, depths, masks, poses_support, scene.intrinsic, h, w
+    )
+    return rays_p, rgbs_p, depths_p
+
+
+def rebuild_view_pool(scene: SceneState, view_idx: int, trans_range: float,
+                      use_support_set: bool, device=None):
+    """The ray pool of view ``view_idx`` recomputed from the stored view
+    splits: view 0 under an all-ones mask, with the support set warped to
+    the scene's support poses; a later view as ``view_pool`` builds it.
+    The warps run on ``device`` (cuda unless asked).  Returns (rays,
+    rgbs, depths)."""
+    img = scene.rgbs_gen_split[view_idx]
+    depth = scene.depth_gen_split[view_idx]
+    if view_idx > 0 or not use_support_set:
+        mask = (scene.masks_gen_split[view_idx] if view_idx > 0
+                else np.ones(scene.hw, np.float32))
+        return view_pool(scene, img, depth, mask, scene.poses_gen[view_idx], trans_range,
+                         use_support_set, device=device)
+    dev = resolve_device(device)
+    img, depth = np.asarray(img, np.float32), np.asarray(depth, np.float32)
+    poses_support = scene.poses_support
+    rgbs_w, masks_w, depth_w = splat_ops.warp_one_to_many(
+        *(torch.as_tensor(np.asarray(x, np.float32), device=dev)
+          for x in (img, depth, poses_support[0], poses_support[1:])),
+        scene.intrinsic,
+    )
+    return _support_pool(scene, img, depth, np.ones(scene.hw, np.float32), poses_support,
+                         rgbs_w, depth_w, masks_w)
+
+
+def load_scene_snapshot(path: str, n_views_pools: int = 0, trans_range: float = 0.2,
+                        use_support_set: bool = True, device=None) -> SceneState:
+    """The scene a ``scene_snapshot.npz`` holds (written by either
+    package): the generated views' images, depths and inpaint masks,
+    their poses and the support poses, every view's rays recomputed, and
+    the pools of views [0, ``n_views_pools``) rebuilt by
+    :func:`rebuild_view_pool` (on ``device``); ``all_rays`` /
+    ``all_rgbs`` / ``all_depth`` are view 0's pool.  With no pool
+    rebuilt (the default) the scene serves :func:`supervised_z_floor`
+    and renders, not a resumed fit, and needs no device."""
     data = np.load(path)
     h, w = (int(x) for x in data["hw"])
     intrinsic = tuple(float(x) for x in data["intrinsic"])
     poses = data["poses_gen"]
-    return SceneState(
+    state = SceneState(
         hw=(h, w), intrinsic=intrinsic,
         scene_bbox=data["scene_bbox"],
         near_far=tuple(float(x) for x in data["near_far"]),
@@ -372,6 +447,13 @@ def load_scene_snapshot(path: str) -> SceneState:
         masks_gen_split=data["masks_gen_split"],
         rays_support_split=test_ray_split(data["poses_support"], intrinsic, h, w),
     )
+    for v in range(n_views_pools):
+        state.updates["%05d" % v] = rebuild_view_pool(
+            state, v, trans_range, use_support_set, device=device)
+    if "00000" in state.updates:
+        rays, rgbs, depths = state.updates["00000"]
+        state = dataclasses.replace(state, all_rays=rays, all_rgbs=rgbs, all_depth=depths)
+    return state
 
 
 def append_generated_view(

@@ -17,14 +17,18 @@ and its support-set ray pool in ``updates``:
 8. append it and build its support pool (warps of the view to its
    support poses, restricted to what its inpainted region covers).
 
+With ``update_known_views`` the known-content mask is eroded before the
+render of step 3 (the inpainted hole grows over the warp's blurry rim),
+and after step 8's append the new content is warped back into every
+earlier view (:func:`_update_known_views`): composited where that view
+had no coverage, its depth estimated again and merged, its pool rebuilt.
+
 Artifacts go under ``<logdir>/DIBR/`` through :mod:`.io_async` (the
 trainer flushes before it returns).  Each step's wall clock is logged as
 ``phase/expand{view}_<name>_s``.
 
 As in the JAX package, the renders use the scene's box
 (``scene.scene_bbox``), not a box the trainer may have shrunk.
-``update_known_views`` (warping the new content back into the known
-views) is not ported and raises before any work.
 """
 
 from __future__ import annotations
@@ -37,7 +41,6 @@ import torch
 
 from .. import native
 from ..data import scene_state as ss
-from ..data import trajectories as traj
 from ..device import as_tensor, resolve_device
 from ..ops import filters as filter_ops
 from ..ops import render as render_ops
@@ -83,6 +86,61 @@ def global_depth_alignment(
     ok_t = np.abs(shifts) <= 2 * abs(thresh_t)
     shift = float(shifts[ok_t].mean()) if ok_t.any() else float(thresh_t)
     return scale, shift
+
+
+def _update_known_views(view_idx, scene, services, ex, img_new, depth_new, my_map_f, dev,
+                        logdir=None):
+    """Warp the new view's content (where it had no coverage,
+    ``1 - my_map_f``) back into each earlier view and rebuild that view
+    (the JAX package's ``_update_known_views``): composite it where the
+    warp lands, estimate the depth of the composite and merge it with the
+    view's depth outside the warp, then rebuild the view's pool (its
+    support set warped under its own inpaint mask, or the view alone).
+    With ``logdir`` the pre- and post-warp images and depths go under
+    ``DIBR/rgbs_support/%05d_warp2known/``.  Returns the scene with the
+    updated splits and pools."""
+    h, w = scene.hw
+    rgbs_w, _, depth_w, masks_w = splat_ops.warp_one_to_many_with_mask(
+        _f32(img_new, dev), _f32(depth_new, dev), _f32(scene.poses_gen[view_idx], dev),
+        _f32(scene.poses_gen[:view_idx], dev), scene.intrinsic,
+        extra_mask=_f32(1.0 - my_map_f, dev),
+    )
+    rgbs_w, depth_w = rgbs_w.cpu().numpy(), depth_w.cpu().numpy()
+    masks_w = masks_w.cpu().numpy().astype(np.float32)
+    rgbs_gen = np.array(scene.rgbs_gen_split)
+    depth_gen = np.array(scene.depth_gen_split)
+    for ii in range(view_idx):
+        mask = masks_w[ii]
+        if mask.sum() < 1:
+            continue
+        if logdir is not None:
+            sup = os.path.join(logdir, "DIBR", "rgbs_support", "%05d_warp2known" % view_idx)
+            _write(os.path.join(sup, "%05d_image_pre.png" % ii), rgbs_gen[ii])
+            _write(os.path.join(sup, "%05d_image_warp.png" % ii), rgbs_w[ii])
+            _write(os.path.join(sup, "%05d_depth_pre.png" % ii), depth_gen[ii] * 12000)
+            _write(os.path.join(sup, "%05d_depth_warp.png" % ii), depth_w[ii] * 12000)
+        img = rgbs_gen[ii] * (1 - mask[..., None]) + rgbs_w[ii] * mask[..., None]
+        counts = np.asarray(services.estimate_depth(img))
+        depth_ref = ((depth_gen[ii] - ex.push_depth) * 12000.0 / 32768.0 - 1.0) * (1 - mask)
+        depth_est = counts / 32768.0 - 1.0
+        merged = services.merge.run_finetune(
+            depth_ref.astype(np.float32), depth_est.astype(np.float32), (1 - mask),
+            outsize=max(h, w), lr=ex.merge_lr, iters=ex.merge_iters,
+        )
+        depth = ((np.asarray(merged) + 1.0) * 32768.0 / 12000.0 + ex.push_depth).astype(
+            np.float32)
+        rgbs_gen[ii] = img
+        depth_gen[ii] = depth
+        if ex.use_support_set:
+            img, depth = filter_ops.sparse_bilateral_filtering(
+                depth, img, filter_size=(5, 5, 3, 3), depth_threshold=0.02, num_iter=4,
+            )
+        scene.updates["%05d" % ii] = ss.view_pool(
+            scene, img, depth, scene.masks_gen_split[ii], scene.poses_gen[ii], ex.trans_range,
+            ex.use_support_set, device=dev,
+        )
+    return dataclasses.replace(scene, rgbs_gen_split=rgbs_gen, depth_gen_split=depth_gen,
+                               updates=dict(scene.updates))
 
 
 @dataclasses.dataclass
@@ -131,10 +189,6 @@ def expand_scene(
     adaptive renderer) they take the compacted path.  ``log`` (a
     tracing.MetricsLogger) records each step's wall clock."""
     ex = expansion
-    if ex.update_known_views:
-        raise NotImplementedError(
-            "update_known_views=True (warping new content back into the known views) "
-            "is not ported yet")
     dev = resolve_device(device)
     h, w = scene.hw
     aabb = as_tensor(scene.scene_bbox, dev)
@@ -187,6 +241,15 @@ def expand_scene(
     _write(os.path.join(dibr, "warped", "%05d.png" % view_idx), warped_img)
     _write(os.path.join(dibr, "mask", "%05d.png" % view_idx), my_map_f)
     _write(os.path.join(dibr, "mask_inv", "%05d.png" % view_idx), 1 - my_map_f)
+
+    if ex.update_known_views:
+        # erode the known content: the hole grows over the warp's blurry
+        # rim, which the back-warp would carry into the known views
+        my_map_f = filter_ops.expand_mask_blur(my_map_f, ksize=5, thresh=0.99)
+        _write(os.path.join(dibr, "warped", "%05d_expand.png" % view_idx),
+               warped_img * my_map_f[..., None])
+        _write(os.path.join(dibr, "mask", "%05d_expand.png" % view_idx), my_map_f)
+        _write(os.path.join(dibr, "mask_inv", "%05d_expand.png" % view_idx), 1 - my_map_f)
 
     # --- 3. render the target view
     with phase_timer(f"{tag}_render_target", log, dev):
@@ -248,29 +311,12 @@ def expand_scene(
     _write(os.path.join(dibr, "depth", "%05d_new.png" % view_idx), depth_new * 12000)
 
     # --- 8. append, and the view's support pool
-    inpaint_mask = 1.0 - my_map_f
-    scene = ss.append_generated_view(scene, img_new, depth_new, inpaint_mask)
+    scene = ss.append_generated_view(scene, img_new, depth_new, 1.0 - my_map_f)
+    if ex.update_known_views and view_idx > 0:
+        with phase_timer(f"{tag}_update_known_views", log, dev):
+            scene = _update_known_views(view_idx, scene, services, ex, img_new, depth_new,
+                                        my_map_f, dev, logdir=logdir)
     with phase_timer(f"{tag}_support_pool", log, dev):
-        if ex.use_support_set:
-            poses_support = traj.local_fixed_poses(
-                scene.poses_gen[view_idx], angle=0, range_center=ex.trans_range,
-                range_yaw=0.6, range_pitch=0.2,
-            )
-            rgbs_w, _, depth_w, masks_w = splat_ops.warp_one_to_many_with_mask(
-                _f32(img_new, dev), _f32(depth_new, dev), _f32(poses_support[0], dev),
-                _f32(poses_support[1:], dev), scene.intrinsic,
-                extra_mask=_f32(inpaint_mask, dev),
-            )
-            images = np.concatenate([img_new[None], rgbs_w.cpu().numpy()], 0)
-            masks = np.concatenate([inpaint_mask[None], masks_w.cpu().numpy()], 0)
-            depths = np.concatenate([depth_new[None], depth_w.cpu().numpy()], 0)
-            rays_p, rgbs_p, depths_p, _, _, _ = ss.formatted_ray_pool(
-                images, depths, masks, poses_support, scene.intrinsic, h, w
-            )
-        else:
-            rays_p, rgbs_p, depths_p, _, _, _ = ss.formatted_ray_pool(
-                img_new[None], depth_new[None], inpaint_mask[None],
-                scene.poses_gen[view_idx][None], scene.intrinsic, h, w,
-            )
-    scene.updates["%05d" % view_idx] = (rays_p, rgbs_p, depths_p)
+        scene.updates["%05d" % view_idx] = ss.rebuild_view_pool(
+            scene, view_idx, ex.trans_range, ex.use_support_set, device=dev)
     return scene

@@ -4,8 +4,10 @@
 
 Frames are written as PNGs through :mod:`..utils.png` and videos, where
 neither imageio nor PIL can be imported, as uncompressed AVIs
-(:mod:`..utils.mjpeg_avi`): no image library is needed.  SSIM and LPIPS
-are not ported yet.
+(:mod:`..utils.mjpeg_avi`): no image library is needed.  With
+``compute_extra_metrics`` the evaluation adds SSIM and LPIPS-alex, both on
+its device; LPIPS without weights warns once and is left out, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +23,29 @@ from ..ops import render as render_ops
 from ..utils.mjpeg_avi import write_mjpeg_avi, write_rgb_avi
 from ..utils.png import write_png
 from . import metrics as M
+
+_lpips_warned = False
+
+
+def _lpips_or_warn(gt, rgb, net, weights_dir, device):
+    """LPIPS of ``rgb`` against ``gt``, or None when its weights are
+    missing: the first such call warns, later ones are silent.  Any other
+    failure (a device error, a shape fault) propagates."""
+    global _lpips_warned
+    try:
+        return M.lpips(gt, rgb, net, weights_dir, device=device)
+    except FileNotFoundError as e:
+        if not _lpips_warned:
+            import warnings
+
+            warnings.warn(
+                f"LPIPS unavailable ({type(e).__name__}: {e}); evals will omit the lpips "
+                "metric. Put the torchvision backbone and the lpips heads (or the JAX "
+                "package's converted lpips_<net>.npz) in the weights directory to enable it.",
+                stacklevel=3,
+            )
+            _lpips_warned = True
+        return None
 
 
 def write_video(path: str, frames, fps: int = 30, quality: int = 9) -> str:
@@ -70,7 +95,8 @@ def evaluation(
     field, aabb, rays_split, hw, *, n_samples, gt_rgbs=None, save_path=None,
     prefix: str = "", chunk: int = 16384, app_k: int = 64, white_bg: bool = True,
     ndc: bool = False, compute_extra_metrics: bool = False, video: bool = False,
-    push_depth: float = 2.0, near_far=(0.5, 8.0), alpha_mask=None, compact_k: int = 0,
+    push_depth: float = 2.0, near_far=(0.5, 8.0), lpips_weights_dir=None,
+    alpha_mask=None, compact_k: int = 0,
     eval_z_min: float = 2.0, n_vis: int = -1, feature_dtype: str = "fp32",
     k_ladder=render_ops.ADAPTIVE_EVAL_LADDER, device=None,
 ):
@@ -80,13 +106,13 @@ def evaluation(
 
     The depth visualization shifts depth by ``-push_depth + 0.8``; with
     ``n_vis > 0`` only every ``len(views) // n_vis``-th view is rendered.
-    Features default to fp32: these renders carry the reported PSNR.
+    Features default to fp32: these renders carry the reported metrics.
+    ``compute_extra_metrics`` adds SSIM and LPIPS-alex (weights from
+    ``lpips_weights_dir``) where ``gt_rgbs`` is given, both on ``device``.
     Returns {'psnr': [...], 'rgb': [uint8 frames], 'depth': [depth-vis
-    frames]}.  ``compute_extra_metrics`` (SSIM, LPIPS) is not ported."""
+    frames]}, plus 'ssim' and 'lpips_alex' lists when computed."""
     dev = resolve_device(device)
-    if compute_extra_metrics:
-        raise NotImplementedError("SSIM and LPIPS are not ported yet")
-    psnrs, rgb_maps, depth_maps = [], [], []
+    psnrs, ssims, lpips_a, rgb_maps, depth_maps = [], [], [], [], []
     if save_path:
         os.makedirs(os.path.join(save_path, "rgbs"), exist_ok=True)
         os.makedirs(os.path.join(save_path, "depths"), exist_ok=True)
@@ -104,6 +130,11 @@ def evaluation(
         if gt_rgbs is not None:
             gt = np.asarray(gt_rgbs[idx]).reshape(hw[0], hw[1], 3)
             psnrs.append(M.psnr(rgb, gt))
+            if compute_extra_metrics:
+                ssims.append(M.ssim(rgb, gt, 1.0, device=dev))
+                lp = _lpips_or_warn(gt, rgb, "alex", lpips_weights_dir, dev)
+                if lp is not None:
+                    lpips_a.append(lp)
         rgb_maps.append((rgb * 255).astype(np.uint8))
         depth_maps.append(depth_vis)
         if save_path:
@@ -115,7 +146,12 @@ def evaluation(
     if video and save_path:
         write_video(os.path.join(save_path, f"{prefix}video.mp4"), rgb_maps)
         write_video(os.path.join(save_path, f"{prefix}depthvideo.mp4"), depth_maps)
-    return {"psnr": psnrs, "rgb": rgb_maps, "depth": depth_maps}
+    out = {"psnr": psnrs, "rgb": rgb_maps, "depth": depth_maps}
+    if ssims:
+        out["ssim"] = ssims
+    if lpips_a:
+        out["lpips_alex"] = lpips_a
+    return out
 
 
 def evaluation_path(

@@ -28,9 +28,19 @@ checkpoint and the optional train, test and path renders (videos as
 uncompressed AVIs where no encoder package is installed), and waits for
 the expansion's artifact writes.
 
+Crash-safe resume (``resume``): every stage-2 boundary, and every
+``resume_every_epochs`` epochs, writes ``<expname>_resume.npz`` (the
+field and the loop state) and ``scene_snapshot.npz`` atomically, in the
+JAX package's format, so a run killed in one package resumes in either.
+A resumed run skips the bootstrap, rebuilds the pools of the views done
+from the snapshot and, mid-stage, the in-flight stage's pools, samplers,
+schedule and mask; Adam's moments restart, and the step generator
+restarts from ``cfg.seed`` as the JAX trainer's key does.  The sample
+count is recomputed from the restored grid, as in the JAX trainer: a run
+resumed after the first alpha-mask milestone's shrink marches fewer
+samples than the fit did (the reference's behaviour, kept for parity).
+
 Left out, each raising ``NotImplementedError`` before any work:
-``resume`` (writing scene snapshots and resuming from them; render_test
-reads a snapshot's z-floor), ``update_known_views`` of the expansion,
 ``checkpoint_backend="orbax"``, ``ndc_ray`` and the bf16 train step.
 
 The JAX trainer overlaps the first train step's XLA compile with the
@@ -277,9 +287,7 @@ def init_field(cfg: TrainConfig, scene: ss.SceneState, generator=None, device=No
     return cfg.model, field, as_tensor(scene.scene_bbox, dev), None
 
 
-def _check_ported(cfg: TrainConfig, expansion_cfg: exp.ExpansionConfig) -> None:
-    if cfg.resume:
-        raise NotImplementedError("resume=True (scene snapshots) is not ported yet")
+def _check_ported(cfg: TrainConfig) -> None:
     if cfg.checkpoint_backend != "npz":
         raise NotImplementedError(
             f"checkpoint_backend={cfg.checkpoint_backend!r}: only 'npz' is ported")
@@ -289,10 +297,16 @@ def _check_ported(cfg: TrainConfig, expansion_cfg: exp.ExpansionConfig) -> None:
         raise NotImplementedError(
             f"train_compute_dtype={cfg.train_compute_dtype!r}: the bf16 backward is not "
             "ported yet")
-    if expansion_cfg.update_known_views:
-        raise NotImplementedError(
-            "update_known_views=True (the expansion's warp back into the known views) is "
-            "not ported yet")
+
+
+def log_folder(cfg: TrainConfig, scene_cfg: ss.SceneConfig) -> str:
+    """The run's log folder (where a resumed run finds its resume point),
+    before ``add_timestamp``'s suffix."""
+    return os.path.join(
+        cfg.basedir,
+        f"{cfg.expname}_{scene_cfg.prompt.replace(' ', '_')}"
+        f"_{scene_cfg.angle}_{scene_cfg.trans_range}",
+    )
 
 
 def reconstruction(cfg: TrainConfig, scene_cfg: ss.SceneConfig,
@@ -307,13 +321,9 @@ def reconstruction(cfg: TrainConfig, scene_cfg: ss.SceneConfig,
         prompt=scene_cfg.prompt, push_depth=scene_cfg.push_depth,
         trans_range=scene_cfg.trans_range,
     )
-    _check_ported(cfg, expansion_cfg)
+    _check_ported(cfg)
     services = services or default_services(hw=scene_cfg.hw, device=dev)
-    logfolder = os.path.join(
-        cfg.basedir,
-        f"{cfg.expname}_{scene_cfg.prompt.replace(' ', '_')}"
-        f"_{scene_cfg.angle}_{scene_cfg.trans_range}",
-    )
+    logfolder = log_folder(cfg, scene_cfg)
     if cfg.add_timestamp:
         import datetime
 
@@ -332,13 +342,33 @@ def reconstruction(cfg: TrainConfig, scene_cfg: ss.SceneConfig,
     return out
 
 
+def _save_resume(cfg, logfolder, scene, field, aabb, loop_state):
+    """The resume point: the scene snapshot, then the field with its loop
+    state (both atomic; the JAX trainer's file names and keys)."""
+    ss.save_scene_snapshot(os.path.join(logfolder, "scene_snapshot.npz"), scene)
+    ckpt.save_checkpoint(os.path.join(logfolder, f"{cfg.expname}_resume.npz"), field, aabb,
+                         loop_state=loop_state)
+
+
 def _fit(cfg, scene_cfg, services, expansion_cfg, dev, logfolder, log):
-    with phase_timer("bootstrap", log, dev):
-        scene = ss.bootstrap_scene(
-            scene_cfg, "train", text2img=services.text2img,
-            estimate_depth=services.estimate_depth, log=log, device=dev,
+    resume_ckpt = os.path.join(logfolder, f"{cfg.expname}_resume.npz")
+    resume_snap = os.path.join(logfolder, "scene_snapshot.npz")
+    resume_state = None
+    if cfg.resume and os.path.exists(resume_ckpt) and os.path.exists(resume_snap):
+        mcfg, field, aabb, _, resume_state = ckpt.load_checkpoint(resume_ckpt, device=dev)
+        scene = ss.load_scene_snapshot(
+            resume_snap, n_views_pools=resume_state["next_view"],
+            trans_range=scene_cfg.trans_range, use_support_set=scene_cfg.use_support_set,
+            device=dev,
         )
-    mcfg, field, aabb, _ = init_field(cfg, scene, device=dev)
+        log.scalars(0, {"resume_epoch": resume_state["epoch"]})
+    else:
+        with phase_timer("bootstrap", log, dev):
+            scene = ss.bootstrap_scene(
+                scene_cfg, "train", text2img=services.text2img,
+                estimate_depth=services.estimate_depth, log=log, device=dev,
+            )
+        mcfg, field, aabb, _ = init_field(cfg, scene, device=dev)
     white_bg = scene.white_bg
     n_samples = tf.default_n_samples(tf.grid_resolution(field), mcfg.step_ratio,
                                      cfg.n_samples_cap)
@@ -433,11 +463,100 @@ def _fit(cfg, scene_cfg, services, expansion_cfg, dev, logfolder, log):
     pool_new = sampler_new = sampler_s3 = None
     n_iters_epoch = n_iters_epoch1
     global_step = 0
-    for epoch in range(n_total + cfg.n_stage3):
+    start_epoch = 0
+    stage_step = 0  # steps since the last optimizer and schedule reset
+    if resume_state is not None:
+        start_epoch = int(resume_state["epoch"])
+        view_idx = int(resume_state["next_view"]) - 1
+        tv_decay = float(resume_state.get("tv_decay", 1.0))
+        global_step = int(resume_state.get("global_step", 0))
+        stage_step = int(resume_state.get("stage_step", 0))
+        # a boundary resume: the loop's own boundary code rebuilds the
+        # pools, the samplers and the schedule
+        at_boundary = (cfg.n_stage2 > 0 and start_epoch >= cfg.n_stage1
+                       and (start_epoch - cfg.n_stage1) % cfg.n_stage2 == 0
+                       and start_epoch < n_total)
+        # the L1 switch keys on global_step and does not fire again past
+        # the first alpha-mask milestone: apply it before any step rebuild
+        l1_switched = bool(cfg.update_alphamask_list
+                           and global_step > cfg.update_alphamask_list[0])
+        if l1_switched:
+            weights = weights._replace(l1=cfg.l1_weight_rest)
+        if start_epoch > 0 and not at_boundary:
+            # mid-stage: rebuild the in-flight stage's pools and schedule
+            stage3_entry = False
+            if start_epoch >= n_total:
+                # stage 3: every view's pool folded into the replay pool
+                allp = [scene.updates["%05d" % v] for v in range(view_idx + 1)]
+                pool_pre = tuple(np.concatenate(x, 0) for x in zip(*allp))
+                pool_new = sampler_new = None
+                sampler_s3 = build_stage3_sampler(view_idx + 1, cfg.seed + start_epoch + 7)
+                n_iters_epoch = _epoch_iters(len(pool_pre[0]), cfg.batch_size)
+                decay_iters = n_iters_epoch * max(cfg.n_stage3, 1)
+                # a save at the last stage-2 epoch resumes at n_total, where
+                # the live fold (and its schedule reset) is behind us
+                stage3_entry = start_epoch == n_total
+            elif start_epoch > cfg.n_stage1 and cfg.n_stage2 > 0:
+                # mid-stage 2 of view view_idx
+                prev = [scene.updates["%05d" % v] for v in range(view_idx)]
+                pool_pre = tuple(np.concatenate(x, 0) for x in zip(*prev))
+                pool_new = scene.updates["%05d" % view_idx]
+                sampler_new = (
+                    ts.PermutationSampler(len(pool_new[0]), cfg.batch_size,
+                                          cfg.seed + start_epoch + 1)
+                    if len(pool_new[0]) > 0 else None
+                )
+                n_iters_epoch = _epoch_iters(len(pool_new[0]), cfg.batch_size) + n_iters_epoch1
+                decay_iters = n_iters_epoch * cfg.n_stage2
+            else:
+                # mid-stage 1: the pools stand; the stage-1 decay
+                decay_iters = (
+                    cfg.lr_decay_iters if cfg.lr_decay_iters > 0
+                    else (n_iters_stage1 if n_iters_stage1 > 0 else 1000)
+                )
+            factor = ts.lr_factor(cfg.lr_decay_target_ratio, decay_iters)
+            if l1_switched:
+                # the first alpha-mask milestone's pool filtering, again,
+                # through a mask of the restored field
+                mask_reso = tuple(min(r, 200) for r in tf.grid_resolution(field))
+                mask_r, _ = tf.update_alpha_mask(field, aabb, mask_reso, device=dev)
+                keep = render_ops.filter_rays_alpha(aabb, pool_pre[0], mask_r, device=dev)
+                if keep.any() and not keep.all():
+                    pool_pre = tuple(p[keep] for p in pool_pre)
+                if pool_new is not None and len(pool_new[0]) > 0:
+                    keep = render_ops.filter_rays_alpha(aabb, pool_new[0], mask_r, device=dev)
+                    if keep.any() and not keep.all():
+                        pool_new = tuple(p[keep] for p in pool_new)
+                        sampler_new = ts.PermutationSampler(
+                            len(pool_new[0]), cfg.batch_size, cfg.seed + start_epoch + 1)
+            sampler_pre = ts.PermutationSampler(len(pool_pre[0]), cfg.batch_size,
+                                                cfg.seed + start_epoch)
+            state, opt = ts.make_train_state(state.field, cfg.lr_init, cfg.lr_basis, factor,
+                                             runtime_decay=True)
+            # the decayed LR as saved (Adam restarts with fresh moments)
+            if stage3_entry:
+                stage_step, lr_decay = 0, 1.0
+            else:
+                lr_decay = float(resume_state.get("lr_decay", factor ** stage_step))
+            step_fn = make_step(opt)
+            if start_epoch >= cfg.n_stage1 and (cfg.train_compact_k > 0
+                                                or cfg.eval_compact_k != 0):
+                # stage 2 or 3: the compacted paths need the mask again
+                eval_mask = rebuild_eval_mask()
+
+    def loop_state(epoch_next, next_view):
+        return {"epoch": epoch_next, "next_view": next_view, "tv_decay": tv_decay,
+                "global_step": global_step, "stage_step": stage_step, "lr_decay": lr_decay}
+
+    for epoch in range(start_epoch, n_total + cfg.n_stage3):
         # --- stage boundary: expand the scene by one view -----------------
         if (cfg.n_stage2 > 0 and epoch >= cfg.n_stage1
                 and (epoch - cfg.n_stage1) % cfg.n_stage2 == 0 and epoch < n_total):
             view_idx = (epoch - cfg.n_stage1) // cfg.n_stage2 + 1
+            if cfg.resume:
+                # the boundary's resume point, before the expansion
+                _save_resume(cfg, logfolder, scene, state.field, aabb,
+                             loop_state(epoch, view_idx))
             # the field just fitted the earlier views: a fresh mask for the
             # expansion's renders and the next evals
             eval_mask = rebuild_eval_mask()
@@ -465,7 +584,7 @@ def _fit(cfg, scene_cfg, services, expansion_cfg, dev, logfolder, log):
             state, opt = ts.make_train_state(state.field, cfg.lr_init, cfg.lr_basis, factor,
                                              runtime_decay=True)
             step_fn = make_step(opt)
-            lr_decay = 1.0
+            stage_step, lr_decay = 0, 1.0
             log.scalars(global_step, {"view": view_idx, "pool_new_rays": len(pool_new[0]),
                                       "pool_replay_rays": len(pool_pre[0]),
                                       "iters_per_epoch": n_iters_epoch})
@@ -482,7 +601,7 @@ def _fit(cfg, scene_cfg, services, expansion_cfg, dev, logfolder, log):
             state, opt = ts.make_train_state(state.field, cfg.lr_init, cfg.lr_basis, factor,
                                              runtime_decay=True)
             step_fn = make_step(opt)
-            lr_decay = 1.0
+            stage_step, lr_decay = 0, 1.0
 
         # --- epoch -----------------------------------------------------------
         for it in range(n_iters_epoch):
@@ -500,6 +619,7 @@ def _fit(cfg, scene_cfg, services, expansion_cfg, dev, logfolder, log):
                 # lr_upsample_reset=False continues at the decayed rate
                 lr_decay = 1.0 if cfg.lr_upsample_reset else tv_decay
                 step_fn = make_step(opt)
+                stage_step = 0
                 log.scalars(global_step, {"upsample_grid": list(reso),
                                           "n_samples": n_samples})
             if cfg.update_alphamask_list and global_step in cfg.update_alphamask_list:
@@ -511,7 +631,7 @@ def _fit(cfg, scene_cfg, services, expansion_cfg, dev, logfolder, log):
                     field_sh, aabb, grid = tf.shrink(state.field, aabb, new_aabb)
                     state, opt = ts.make_train_state(field_sh, cfg.lr_init, cfg.lr_basis,
                                                      factor, runtime_decay=True)
-                    lr_decay = 1.0
+                    stage_step, lr_decay = 0, 1.0
                     weights = weights._replace(l1=cfg.l1_weight_rest)
                     step_fn = make_step(opt)
                     log.scalars(global_step, {"shrink_aabb": aabb.cpu().tolist(),
@@ -543,36 +663,45 @@ def _fit(cfg, scene_cfg, services, expansion_cfg, dev, logfolder, log):
             tv_decay *= factor
             lr_decay *= factor
             global_step += 1
+            stage_step += 1
             if global_step % max(cfg.progress_refresh_rate, 1) == 0:
                 log.scalars(global_step, {m: float(metrics[m])
                                           for m in ("psnr", "mse", "depth_loss")})
 
         # --- stage-boundary mask and evals -------------------------------
-        if not eval_boundary(epoch, cfg.n_stage1, cfg.n_stage2, cfg.eval_every_epochs):
-            continue
-        eval_mask = rebuild_eval_mask()
-        with phase_timer(f"eval_epoch{epoch + 1:04d}", log, dev):
-            kw = dict(
-                n_samples=n_samples, prefix=f"epoch{epoch + 1:04d}_", chunk=cfg.batch_size,
-                app_k=cfg.app_k, white_bg=white_bg, ndc=cfg.ndc_ray,
-                push_depth=scene_cfg.push_depth, near_far=scene.near_far,
-                alpha_mask=render_mask(),
-                compact_k=cfg.eval_compact_k if eval_mask is not None else 0,
-                eval_z_min=eval_z_floor(), n_vis=cfg.n_vis, device=dev,
-            )
-            if cfg.vis_support_views and len(scene.rays_support_split) > 0:
-                # previews of the support views: no ground truth
-                eval_renderer.evaluation(
-                    state.field, aabb, scene.rays_support_split, scene.hw, gt_rgbs=None,
-                    save_path=os.path.join(logfolder, "imgs_vis_support_view"), **kw)
-            n_gen = scene.rgbs_gen_split.shape[0]
-            if n_gen > 0:
-                res = eval_renderer.evaluation(
-                    state.field, aabb, scene.rays_gen_split[:n_gen], scene.hw,
-                    gt_rgbs=scene.rgbs_gen_split,
-                    save_path=os.path.join(logfolder, "imgs_vis_inpaint_view"), **kw)
-                if res["psnr"]:
-                    log.scalars(global_step, {"eval_psnr": float(np.mean(res["psnr"]))})
+        if eval_boundary(epoch, cfg.n_stage1, cfg.n_stage2, cfg.eval_every_epochs):
+            eval_mask = rebuild_eval_mask()
+            with phase_timer(f"eval_epoch{epoch + 1:04d}", log, dev):
+                kw = dict(
+                    n_samples=n_samples, prefix=f"epoch{epoch + 1:04d}_",
+                    chunk=cfg.batch_size, app_k=cfg.app_k, white_bg=white_bg,
+                    ndc=cfg.ndc_ray, push_depth=scene_cfg.push_depth,
+                    near_far=scene.near_far, alpha_mask=render_mask(),
+                    compact_k=cfg.eval_compact_k if eval_mask is not None else 0,
+                    eval_z_min=eval_z_floor(), n_vis=cfg.n_vis, device=dev,
+                )
+                if cfg.vis_support_views and len(scene.rays_support_split) > 0:
+                    # previews of the support views: no ground truth
+                    eval_renderer.evaluation(
+                        state.field, aabb, scene.rays_support_split, scene.hw,
+                        gt_rgbs=None,
+                        save_path=os.path.join(logfolder, "imgs_vis_support_view"), **kw)
+                n_gen = scene.rgbs_gen_split.shape[0]
+                if n_gen > 0:
+                    res = eval_renderer.evaluation(
+                        state.field, aabb, scene.rays_gen_split[:n_gen], scene.hw,
+                        gt_rgbs=scene.rgbs_gen_split,
+                        save_path=os.path.join(logfolder, "imgs_vis_inpaint_view"), **kw)
+                    if res["psnr"]:
+                        log.scalars(global_step, {"eval_psnr": float(np.mean(res["psnr"]))})
+
+        # --- periodic resume point: a kill inside a long stage loses at
+        # most resume_every_epochs epochs
+        if (cfg.resume and cfg.resume_every_epochs > 0
+                and (epoch + 1) % cfg.resume_every_epochs == 0
+                and epoch + 1 < n_total + cfg.n_stage3):
+            _save_resume(cfg, logfolder, scene, state.field, aabb,
+                         loop_state(epoch + 1, view_idx + 1))
 
     # final mask: saved into the checkpoint and used by the final renders
     eval_mask = rebuild_eval_mask()

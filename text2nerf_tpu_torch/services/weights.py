@@ -9,7 +9,8 @@ port's share of ``text2nerf_tpu/services/weight_convert.py``).
 - The name maps, torch name → the JAX package's flax path (the port's
   copies of ``sd_unet_name_map``, ``sd_vae_{encoder,decoder}_name_map``,
   ``clip_text_name_map``, ``clip_vision_name_map``, ``leres_name_map``,
-  ``sgrnet_name_map``, ``midas_name_map``).  The port's modules carry the
+  ``sgrnet_name_map``, ``midas_name_map``, ``unet_generator_name_map``,
+  ``lpips_{alex,vgg}_name_map``).  The port's modules carry the
   torch names, so a map serves the coverage check, the legacy VAE
   attention aliases and the bridge from flax.
 - The depth checkpoints: :func:`load_leres_checkpoint` (``res101.pth``),
@@ -26,10 +27,15 @@ port's share of ``text2nerf_tpu/services/weight_convert.py``).
   :func:`vae_state_from_flax`, :func:`clip_text_state_from_flax`,
   :func:`clip_vision_state_from_flax`, :func:`leres_state_from_flax`,
   :func:`sgrnet_state_from_flax`, :func:`midas_state_from_flax`,
-  :func:`reldepthnet_state_from_flax`.  Dense kernels (in, out) become
-  Linear weights (out, in), conv kernels HWIO become OIHW, norm ``scale``
-  becomes ``weight``.  :func:`load_converted` reads the JAX package's
-  converted ``.npz``.
+  :func:`reldepthnet_state_from_flax`, :func:`lpips_state_from_flax`.
+  Dense kernels (in, out) become Linear weights (out, in), conv kernels
+  HWIO become OIHW, norm ``scale`` becomes ``weight``.
+  :func:`load_converted` reads the JAX package's converted ``.npz``.
+- LPIPS (:func:`load_lpips`): the JAX package's converted
+  ``lpips_<net>.npz`` through the bridge, else the torch originals read
+  as they are: torchvision's ``alexnet*.pth`` / ``vgg16*.pth``
+  (``features.*``) and lpips v0.1's ``alex.pth`` / ``vgg.pth`` heads
+  (``lin<i>.model.1.weight``), anywhere under the weights directory.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 from ..models.clip import CLIPTextConfig, CLIPTextEncoder, CLIPVisionConfig, CLIPVisionEncoder
 from ..models.diffusion import AutoencoderKL, UNet, UNetConfig, VAEConfig, materialize
 from ..models.leres import LeReSConfig, RelDepthModel, SGRNetDepth
+from ..models.lpips import ALEX_CONVS, VGG16_CONVS, LPIPSModel
 from ..models.midas import MidasNet
 from ..models.monodepth import DepthNetConfig, RelDepthNet, reldepthnet_name_map
 
@@ -364,6 +371,65 @@ def midas_name_map(cfg: LeReSConfig) -> Dict[str, str]:
     return m
 
 
+def unet_generator_name_map(num_downs: int = 10) -> Dict[str, str]:
+    """The reference pix2pix UnetGenerator (norm 'none': the Identity
+    norms keep their Sequential indices) → the flax path.  The outermost
+    block is ``model``; each inner block sits at index 1 (outermost) or 3
+    of its parent's Sequential; flax counts ``UnetSkipBlock_i`` from the
+    innermost."""
+    m = {}
+    n_blocks = max(num_downs, 5)
+    node = "model"
+    for depth in range(n_blocks):
+        i = n_blocks - 1 - depth
+        if depth == 0:
+            down, up = f"{node}.0", f"{node}.3"
+            node = f"{node}.1"
+        elif depth == n_blocks - 1:
+            down, up = f"{node}.model.1", f"{node}.model.3"
+        else:
+            down, up = f"{node}.model.1", f"{node}.model.5"
+            node = f"{node}.model.3"
+        m.update(_kernel_bias(down, f"UnetSkipBlock_{i}/Conv_0"))
+        m[f"{up}.weight"] = f"convT:UnetSkipBlock_{i}/ConvTranspose_0/kernel"
+        m[f"{up}.bias"] = f"UnetSkipBlock_{i}/ConvTranspose_0/bias"
+    return m
+
+
+def pix2pix_key(fpath: str) -> str:
+    """The port's ``models.pix2pix.UnetGenerator`` entry of a flax path
+    of :func:`unet_generator_name_map` (its tensors keep torch's layouts:
+    Conv2d (O, I, kh, kw), ConvTranspose2d (I, O, kh, kw))."""
+    block, layer, leaf = _target(fpath)[0].split("/")
+    side = "down" if layer == "Conv_0" else "up"
+    return f"blocks.{block.rsplit('_', 1)[1]}.{side}_{'weight' if leaf == 'kernel' else 'bias'}"
+
+
+def _lpips_map(convs) -> Dict[str, str]:
+    m = {}
+    for i, t in enumerate(convs):
+        m.update(_kernel_bias(f"features.{t}", f"features/Conv_{i}"))
+    for i in range(5):
+        m[f"lin{i}.model.1.weight"] = f"lins/{i}"
+    return m
+
+
+def lpips_alex_name_map() -> Dict[str, str]:
+    """LPIPS-alex: torchvision AlexNet's convolutions (``features.{0,3,6,
+    8,10}``) and the five lpips heads."""
+    return _lpips_map(ALEX_CONVS)
+
+
+def lpips_vgg_name_map() -> Dict[str, str]:
+    """LPIPS-vgg: torchvision VGG16's thirteen convolutions and the five
+    lpips heads."""
+    return _lpips_map(VGG16_CONVS)
+
+
+def lpips_name_map(net: str) -> Dict[str, str]:
+    return lpips_alex_name_map() if net == "alex" else lpips_vgg_name_map()
+
+
 def _target(fpath: str):
     """(flax path, marker) of a map entry."""
     marker = None
@@ -570,6 +636,70 @@ def midas_state_from_flax(params, cfg: LeReSConfig, features: int = 256):
 def reldepthnet_state_from_flax(params, cfg: DepthNetConfig):
     return state_from_flax(params, reldepthnet_name_map(cfg),
                            _template(lambda: RelDepthNet(cfg)))
+
+
+def lpips_state_from_flax(tree, net: str) -> Dict[str, torch.Tensor]:
+    """:class:`LPIPSModel`'s state from the JAX package's LPIPS tree
+    (``features`` and ``lins``).  A head may be stored as torch's (1, C,
+    1, 1), the converter's (1, 1, C, 1) or a flat (C,): each becomes (1,
+    C, 1, 1)."""
+    tmpl = _template(lambda: LPIPSModel(net))
+    name_map = lpips_name_map(net)
+    heads = {k: v for k, v in tmpl.items() if k.startswith("lin")}
+    state = state_from_flax({"features": tree["features"]}, name_map,
+                            {k: v for k, v in tmpl.items() if k not in heads})
+    flat = _flat(tree)
+    for key, ref in heads.items():
+        path = name_map[key]
+        if path not in flat:
+            raise ValueError(f"the flax tree has no {path} (for {key})")
+        a = np.asarray(flat[path], np.float32)
+        if a.size != ref.numel():
+            raise ValueError(f"{path}: {a.size} values, {key} has {tuple(ref.shape)}")
+        state[key] = torch.from_numpy(a.reshape(tuple(ref.shape)).copy())
+    return state
+
+
+def _lpips_torch_files(weights_dir: str, net: str):
+    """(backbone file, heads file) of the torch originals under
+    ``weights_dir``, or None."""
+    import glob
+
+    backbone = sorted(glob.glob(os.path.join(
+        weights_dir, "**", "alexnet*.pth" if net == "alex" else "vgg16*.pth"), recursive=True))
+    heads = sorted(glob.glob(os.path.join(weights_dir, "**", f"{net}.pth"), recursive=True))
+    return (backbone[0], heads[0]) if backbone and heads else None
+
+
+def load_lpips(net: str, weights_dir, device=None) -> LPIPSModel:
+    """LPIPS-``net`` on ``device`` (cuda unless asked), in evaluation mode,
+    from ``weights_dir``: the JAX package's converted ``lpips_<net>.npz``,
+    else the torch originals (:func:`_lpips_torch_files`), every mapped
+    entry required.  No weights raises FileNotFoundError naming where
+    they were looked for."""
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    model = LPIPSModel(net)
+    converted = os.path.join(weights_dir, f"lpips_{net}") if weights_dir else None
+    tree = load_converted(converted) if converted else None
+    if tree is not None:
+        model.load_state_dict(lpips_state_from_flax(tree, net))
+    else:
+        files = _lpips_torch_files(weights_dir, net) if weights_dir else None
+        if files is None:
+            raise FileNotFoundError(
+                f"LPIPS-{net} needs weights: {converted}.npz, or "
+                f"{'alexnet' if net == 'alex' else 'vgg16'}*.pth and {net}.pth under "
+                f"{weights_dir!r}; none found")
+        state = {}
+        for path in files:
+            state.update(load_torch_checkpoint(path))
+        name_map = lpips_name_map(net)
+        require_coverage(state, name_map, f"LPIPS-{net}", " + ".join(files),
+                         optional_substr=())
+        load_state(model, state, [name_map])
+    return model.to(dev).eval()
 
 
 def load_converted(weights_path: str) -> Optional[dict]:

@@ -37,6 +37,7 @@ _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
 work = tempfile.mkdtemp(dir=str(_build.BUILD_DIR))
 try:
     out = C.phase_seed_fit(torch.device("cuda", 0), card, collections.defaultdict(dict), work)
+    out = out[1] if isinstance(out, tuple) else out  # newer versions: (kept state, records)
 finally:
     shutil.rmtree(work, ignore_errors=True)
 print("FIT_AB " + json.dumps({**out, "card": card}), flush=True)
