@@ -19,9 +19,15 @@ Phases (any failure exits nonzero before the last line):
    layouts (neighbouring rays, the train sampler's random rays, the
    neighbours shuffled), random output gradients, fp32, held to a
    tolerance relative to each table's largest gradient, with the
-   reductions it issues counted on the host), with times, the library
-   yardstick and the bound (kernel B's on the 3xTF32 tensor-core route it
-   takes, the fp32 CUDA-core bound printed beside it);
+   reductions it issues counted on the host); kernel A' in bf16 on the
+   same adversarial inputs and at the train step's shape; kernels C and
+   C' on a TensorCP field at its published widths (96 / 288) on the 300^3
+   grid, 1M samples at the train step's shape, fp32 and bf16, three
+   output modes, C' also on adversarial inputs (every edge, one cell, a
+   1-component CP, zero gradients, accumulation, the generic route);
+   with times, the library yardstick and the bound (kernel B's on the
+   3xTF32 tensor-core route it takes, the fp32 CUDA-core bound printed
+   beside it);
 4. serving path: the serving configuration of text2nerf_tpu_torch/data/
    synthetic.py, a full-width room-shell field from a seeded generator,
    saved and loaded through the npz checkpoint, a 200^3 pool-5 alpha mask,
@@ -137,7 +143,26 @@ Phases (any failure exits nonzero before the last line):
    in the torch originals' layout, then SSIM and LPIPS of its render on
    the card against the CPU (SSIM within 1e-6, LPIPS within 1e-4 of the
    value, fp32 with TF32 off), with ms per call on the card.  The kernel
-   counts are set to 0 before and read after each of (a) to (d).
+   counts are set to 0 before and read after each of (a) to (d);
+11. the TensoRF family through the command line: four runs of
+   text2nerf_tpu_torch.main.main on phase 7's fit (512^2, circle0_30, 2
+   views, 1 / 1 / 1 epochs, seed 11, the adaptive eval renderer, 4 test
+   frames; the CLI's masks keep every step dense, at its app_k 64) on the
+   procedural services, with one sub-batch a dense step
+   (--train_microbatch 1: the phase's one cut), each with the kernel
+   counts set to 0 just before and
+   read just after, every step timed between device syncs: (1) TensorCP
+   at TensoRF's published widths (--n_lamb_sigma 96 --n_lamb_sh 288,
+   MLP_Fea, fea_pe / view_pe 2, L1 1e-5): kernels C and C' launched, the
+   seed view 5 dB above the untrained field, the render-only branch's
+   frames equal to the fit's; (2) TensorVM (16 / 48, SH on the cubic
+   300^3 grid): kernels A and A' launched, the same PSNR gate; (3) the
+   shipped config with --train_compute_dtype bf16: kernels A, A' in bf16
+   and B launched, the same PSNR gate, then phase 5's configuration in
+   bf16 and fp32, in turns, ms per step printed beside phase 5's, and one
+   bf16 crop step on the card held against the CPU; (4) --ndc_ray 1:
+   finite frames, the seed view above the untrained field.  Prints each
+   run's wall, ms per step and PSNRs.
 
 Prints the smoke's wall, a JSON line of per-kernel numbers, then as the
 last line
@@ -186,6 +211,11 @@ TOL = {
     # (about 2^-21 relative each), the kernel's sin/cos (within 1.5 ulp) vs
     # torch.sin/cos at arguments up to 32|f|
     "head": 1e-4,
+    # kernel C vs its plain version, of the largest value: the same
+    # operations in the same order (no FMA contraction, bf16 rounding at
+    # every op); the density sum in fp64 is order-free unless its terms
+    # span more than 2^29, then rounded once
+    "cp": 1e-6,
     # GPU kernels vs the CPU plain path, whole render (fp32)
     "render": 1e-4,
     # kernel A' vs its plain version (index_add_), relative to each table's
@@ -453,6 +483,7 @@ def phase_kernels(dev, report):
         bound_by=by_b, library_ms=lib_b,
     )
     phase_backward(field, aabb, rays, gen, flush, report)
+    phase_cp_kernels(dev, report, rays, aabb, gen, flush)
     del field, flush_buf, x
     torch.cuda.empty_cache()
 
@@ -690,6 +721,254 @@ def phase_backward(field, aabb, rays, gen, flush, report):
         max_abs_err=abs_err, ms=times["coherent"], plain_ms=plain, bound_ms=bound, bound_by=by,
         library_ms=lib, ms_by_layout=times,
         bound_ms_by_layout={k: v[0] for k, v in bounds.items()},
+    )
+    phase_backward_bf16(field, aabb, rays, gen, flush, report, layouts["coherent"], bound, by)
+
+
+def phase_backward_bf16(field, aabb, rays, gen, flush, report, xn, bound, by):
+    """Kernel A' in bf16 (the bf16 train step's backward) against its plain
+    version: the adversarial cases in three modes, then 1M samples at the
+    train step's shape (the coherent layout), timed beside the plain
+    version and F.grid_sample's backward on bf16 tables.  Both add the
+    same bf16-rounded terms in fp32, in another order: TOL["bwd"]."""
+    import torch
+    from text2nerf_tpu_torch.ops.kernels import factor_features as ff
+
+    bf = torch.bfloat16
+    worst = 0.0
+    for name, planes_c, lines_c, nd_c, x, ds_all, da_all, route, acc in _bwd_cases(
+            rays.device, gen):
+        for mode, ds, da in (("fused", ds_all, da_all), ("density", ds_all, None),
+                             ("app", None, da_all)):
+            ref = ff.factor_features_backward_plain(x, planes_c, lines_c, nd_c, ds, da, bf)
+            got = ff.factor_features_backward(x, planes_c, lines_c, nd_c, ds, da, dtype=bf)
+            torch.cuda.synchronize()
+            _require(ff.BWD_LAST_GRID[0] == route,
+                     f"kernel A' bf16 {name}: route {ff.BWD_LAST_GRID[0]}, not {route}")
+            err = _bwd_rel_err(got, ref, f"kernel A' bf16 {name} {mode}")
+            worst = max(worst, err)
+            _require(err <= TOL["bwd"], f"kernel A' bf16 {name} {mode}: {err} > {TOL['bwd']}")
+    print(f"kernel A' bf16 adversarial cases: worst {worst:.3e} of each table's largest over "
+          f"three modes (tol {TOL['bwd']:g})", flush=True)
+
+    planes, lines, nd = tuple(field.planes), tuple(field.lines), field.nd
+    n = xn.shape[0]
+    na = sum(p.shape[2] - d for p, d in zip(planes, nd))
+    # the output gradients of a bf16 step: d_app_raw comes out of a bf16
+    # matrix product, d_sigma is fp32 (the kernel rounds it)
+    d_sig = torch.randn(n, generator=gen, device=rays.device)
+    d_app = torch.randn(n, na, generator=gen, device=rays.device).to(bf).float()
+    got = ff.factor_features_backward(xn, planes, lines, nd, d_sig, d_app, dtype=bf)
+    ref = ff.factor_features_backward_plain(xn, planes, lines, nd, d_sig, d_app, bf)
+    torch.cuda.synchronize()
+    err = _bwd_rel_err(got, ref, "kernel A' bf16 coherent")
+    abs_err = max(float((g - r).abs().max()) for g, r in zip((*got[0], *got[1]),
+                                                               (*ref[0], *ref[1])))
+    _require(err <= TOL["bwd"], f"kernel A' bf16 coherent: {err} > {TOL['bwd']}")
+    f32 = ff.factor_features_backward(xn, planes, lines, nd, d_sig, d_app)
+    off32 = _bwd_rel_err(got, f32, "kernel A' bf16 vs fp32")
+    del got, ref, f32
+    ms = _time_ms(lambda: ff.factor_features_backward(xn, planes, lines, nd, d_sig, d_app,
+                                                      dtype=bf), 10, flush)
+    plain = _time_ms(lambda: ff.factor_features_backward_plain(xn, planes, lines, nd, d_sig,
+                                                               d_app, bf), 3, flush)
+    planes_nchw = [p.permute(2, 0, 1)[None].to(bf).contiguous().requires_grad_(True)
+                   for p in planes]
+    lines_nc1 = [l.T[None, :, :, None].to(bf).contiguous().requires_grad_(True) for l in lines]
+    with torch.enable_grad():
+        lib_sig, lib_app = _grid_sample_features(xn.to(bf), planes_nchw, lines_nc1, nd)
+    cot = (d_sig.to(bf), d_app.to(bf))
+    lib = _time_ms(lambda: torch.autograd.grad((lib_sig, lib_app), (*planes_nchw, *lines_nc1),
+                                               cot, retain_graph=True), 3, flush)
+    del lib_sig, lib_app, planes_nchw, lines_nc1
+    print(f"kernel A' fused bf16, coherent: {ms:.3f} ms, plain {plain:.3f} ms, grid_sample "
+          f"backward (bf16 tables) {lib:.3f} ms, bound {bound:.3f} ms by {by} (the fp32 "
+          f"backward's: the same bytes); within {err:.3e} of the plain version's largest (tol "
+          f"{TOL['bwd']:g}), {off32:.3e} from the fp32 backward", flush=True)
+    report["factor_features_bwd_bf16"] = dict(
+        name="factor_features_bwd_bf16", route="cuda",
+        source="text2nerf_tpu_torch/csrc/factor_features_bwd.cu",
+        replaces="text2nerf_tpu/models/tensorf.py:538",
+        max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+        library_ms=lib,
+    )
+
+
+CP_WIDTHS = (96, 288)  # TensorCP's published n_lamb_sigma, n_lamb_sh
+
+
+def _grid_sample_cp(xn, lines_nc1, nd):
+    """Library yardstick of kernel C: F.grid_sample (align_corners=True)
+    over the three lines as [1, C, L, 1] images, then the product, the
+    density sum and the app channels."""
+    import torch
+    import torch.nn.functional as F
+    from text2nerf_tpu_torch.ops.kernels.cp_features import VEC_MODE
+
+    n = xn.shape[0]
+    prod = None
+    for i in range(3):
+        gl = torch.stack([torch.zeros_like(xn[:, 0]), xn[:, VEC_MODE[i]]], -1).view(1, n, 1, 2)
+        lf = F.grid_sample(lines_nc1[i], gl, align_corners=True).view(-1, n)
+        prod = lf if prod is None else prod * lf
+    return prod[:nd].sum(0), prod[nd:].T
+
+
+def phase_cp_kernels(dev, report, rays, aabb, gen, flush):
+    """Kernels C and C' against their plain versions: a TensorCP field at
+    the published widths (96 density and 288 app components) on the 300^3
+    grid, 1M samples at the train step's shape (16384 rays x 64
+    consecutive steps), both compute types and three output modes; C'
+    also on adversarial inputs (every edge, one cell, a 1-component CP,
+    accumulation, lines too long for shared memory: the generic route);
+    with times, the grid_sample yardsticks and the bounds."""
+    import torch
+    from text2nerf_tpu_torch.models import tensorf as tf
+    from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
+
+    cfg = tf.TensoRFConfig(model_name="cp", density_n_comp=(CP_WIDTHS[0],),
+                           app_n_comp=(CP_WIDTHS[1],), shading_mode="MLP_Fea", fea_pe=2)
+    field = tf.init_params(cfg, FULL_RESO, generator=gen, device=dev).requires_grad_(False)
+    lines, nd = tuple(field.lines), CP_WIDTHS[0]
+    n = N_RAYS_TRAIN * K_TRAIN
+    xn = _chunk_samples(rays, aabb, field, n, gen, K_TRAIN)
+    bf = torch.bfloat16
+    for dtype_name, dtype in (("fp32", None), ("bf16", bf)):
+        for mode, sig, app in (("fused", True, True), ("density", True, False),
+                               ("app", False, True)):
+            got = cpk.cp_features(xn, lines, nd, sigma=sig, app=app, dtype=dtype)
+            ref = cpk.cp_features_plain(xn, lines, nd, sigma=sig, app=app, dtype=dtype)
+            torch.cuda.synchronize()
+            scale = max(float(r.abs().max()) for r in ref if r is not None)
+            err = max(float((g - r).abs().max()) for g, r in zip(got, ref) if g is not None)
+            print(f"kernel C {dtype_name:4s} {mode:7s} max_abs_err {err:.3e} (tol "
+                  f"{TOL['cp'] * scale:.3e}: {TOL['cp']:g} of max |value| {scale:.4g})",
+                  flush=True)
+            _require(err <= TOL["cp"] * scale, f"kernel C {dtype_name} {mode}: {err}")
+            if dtype is None and mode == "fused":
+                err_c = err
+
+    c = lines[0].shape[1]
+    na = c - nd
+    ms_c = _time_ms(lambda: cpk.cp_features(xn, lines, nd), 10, flush)
+    plain_c = _time_ms(lambda: cpk.cp_features_plain(xn, lines, nd), 3, flush)
+    lines_nc1 = [l.T[None, :, :, None].contiguous() for l in lines]
+    lib_sig, lib_app = _grid_sample_cp(xn, lines_nc1, nd)
+    ref_sig, ref_app = cpk.cp_features_plain(xn, lines, nd)
+    lib_err = max(float((lib_sig - ref_sig).abs().max()), float((lib_app - ref_app).abs().max()))
+    lib_c = _time_ms(lambda: _grid_sample_cp(xn, lines_nc1, nd), 3, flush)
+    del lib_sig, lib_app, ref_sig, ref_app
+    line_bytes = sum(l.numel() * 4 for l in lines)
+    bytes_c = n * 12 + n * 4 * (1 + na) + line_bytes
+    flops_c = n * c * 14  # 3 lerps of 4 ops, 2 products
+    bound_c, by_c = _bound(bytes_c, flops_c)
+    print(f"kernel C fused fp32: {ms_c:.3f} ms, plain {plain_c:.3f} ms, grid_sample "
+          f"{lib_c:.3f} ms (vs plain {lib_err:.3e}), bound {bound_c:.3f} ms by {by_c} "
+          f"({bytes_c / 1e6:.1f} MB: {n * 4 * (1 + na) / 1e6:.1f} MB output, "
+          f"{line_bytes / 1e6:.2f} MB lines; {flops_c / 1e9:.2f} GFLOP) for {n} samples, "
+          f"{c} channels", flush=True)
+    report["cp_features"] = dict(
+        name="cp_features", route="cuda", source="text2nerf_tpu_torch/csrc/cp_features.cu",
+        replaces="text2nerf_tpu/models/tensorf.py:548",
+        max_abs_err=err_c, ms=ms_c, plain_ms=plain_c, bound_ms=bound_c, bound_by=by_c,
+        library_ms=lib_c,
+    )
+
+    # --- kernel C': adversarial inputs, then the main shape ------------
+    def cp_lines(reso, dens, app):
+        f = tf.init_params(dataclasses.replace(cfg, density_n_comp=(dens,), app_n_comp=(app,)),
+                           reso, generator=gen, device=dev).requires_grad_(False)
+        return tuple(f.lines)
+
+    def grads(m, width):
+        return (torch.randn(m, generator=gen, device=dev),
+                torch.randn(m, width, generator=gen, device=dev))
+
+    edge = torch.rand(4096, 3, generator=gen, device=dev) * 2 - 1
+    edge[:8] = torch.tensor([[1.0, 1, 1], [-1, -1, -1], [1, -1, 1], [-1, 1, -1],
+                             [1, 0.3, -0.2], [0.1, 1, 0.4], [-0.6, 0.2, 1], [1, 1, -1]])
+    edge[200:264] = 1.0
+    cell = torch.full((300, 3), 0.1, device=dev) + 1e-3 * torch.rand(300, 3, generator=gen,
+                                                                      device=dev)
+    zero_sig, zero_app = grads(4096, 13)
+    zero_sig[::3] = 0.0
+    zero_app[::2] = 0.0
+    cases = [
+        ("upper edges, 5/13", cp_lines((48, 40, 56), 5, 13), 5, edge, *grads(4096, 13),
+         "shared", False),
+        ("one cell", cp_lines((48, 40, 56), 5, 13), 5, cell, *grads(300, 13), "shared", False),
+        ("1-component CP, odd n", cp_lines((33, 35, 37), 1, 1), 1, edge[:4093],
+         *grads(4093, 1), "shared", False),
+        ("zero gradients mixed in", cp_lines((48, 40, 56), 5, 13), 5, edge, zero_sig, zero_app,
+         "shared", False),
+        ("accumulate (out=)", cp_lines((48, 40, 56), 5, 13), 5, edge, *grads(4096, 13),
+         "shared", True),
+        ("generic route (3 x 700 rows)", cp_lines((700, 700, 700), 3, 29), 3, edge,
+         *grads(4096, 29), "generic", False),
+    ]
+    worst = 0.0
+    for name, lc, ndc, x, ds_all, da_all, route, acc in cases:
+        for dtype_name, dtype in (("fp32", None), ("bf16", bf)):
+            for mode, ds, da in (("fused", ds_all, da_all), ("density", ds_all, None),
+                                 ("app", None, da_all)):
+                ref = cpk.cp_features_backward_plain(x, lc, ndc, ds, da, dtype)
+                if acc:
+                    base = tuple(0.5 * t for t in ref)
+                    out = tuple(t.clone() for t in base)
+                    for _ in range(2):
+                        cpk.cp_features_backward(x, lc, ndc, ds, da, dtype=dtype, out=out)
+                    got = out
+                    ref = tuple(b + 2 * r for b, r in zip(base, ref))
+                else:
+                    got = cpk.cp_features_backward(x, lc, ndc, ds, da, dtype=dtype)
+                torch.cuda.synchronize()
+                _require(cpk.BWD_LAST_GRID[0] == route,
+                         f"kernel C' {name}: route {cpk.BWD_LAST_GRID[0]}, not {route}")
+                err = _bwd_rel_err(((), got), ((), ref), f"kernel C' {name} {dtype_name} {mode}")
+                worst = max(worst, err)
+                _require(err <= TOL["bwd"], f"kernel C' {name} {dtype_name} {mode}: {err}")
+    print(f"kernel C' adversarial cases: worst {worst:.3e} of each line's largest over two "
+          f"compute types and three modes (tol {TOL['bwd']:g})", flush=True)
+
+    d_sig, d_app = grads(n, na)
+    for dtype_name, dtype in (("fp32", None), ("bf16", bf)):
+        for mode, ds, da in (("fused", d_sig, d_app), ("density", d_sig, None),
+                             ("app", None, d_app)):
+            got = cpk.cp_features_backward(xn, lines, nd, ds, da, dtype=dtype)
+            ref = cpk.cp_features_backward_plain(xn, lines, nd, ds, da, dtype)
+            torch.cuda.synchronize()
+            err = _bwd_rel_err(((), got), ((), ref), f"kernel C' {dtype_name} {mode}")
+            if dtype is None and mode == "fused":
+                abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+                grid = cpk.BWD_LAST_GRID
+            print(f"kernel C' {dtype_name:4s} {mode:7s} max_abs_err {err:.3e} of each line's "
+                  f"largest (tol {TOL['bwd']:g})", flush=True)
+            _require(err <= TOL["bwd"], f"kernel C' {dtype_name} {mode}: {err}")
+    del got, ref
+    ms = _time_ms(lambda: cpk.cp_features_backward(xn, lines, nd, d_sig, d_app), 10, flush)
+    ms_bf = _time_ms(lambda: cpk.cp_features_backward(xn, lines, nd, d_sig, d_app, dtype=bf),
+                     10, flush)
+    plain = _time_ms(lambda: cpk.cp_features_backward_plain(xn, lines, nd, d_sig, d_app), 3,
+                     flush)
+    lines_g = [l.T[None, :, :, None].contiguous().requires_grad_(True) for l in lines]
+    with torch.enable_grad():
+        lib_sig, lib_app = _grid_sample_cp(xn, lines_g, nd)
+    lib = _time_ms(lambda: torch.autograd.grad((lib_sig, lib_app), lines_g, (d_sig, d_app),
+                                               retain_graph=True), 3, flush)
+    del lib_sig, lib_app, lines_g
+    bytes_b = n * (12 + 4 + 4 * na) + line_bytes
+    flops_b = n * c * 32  # the forward's 14, the chain's 4 products, 6 row terms, 6 adds
+    bound, by = _bound(bytes_b, flops_b)
+    print(f"kernel C' fused fp32: {ms:.3f} ms (bf16 {ms_bf:.3f} ms), plain {plain:.3f} ms, "
+          f"grid_sample backward {lib:.3f} ms, bound {bound:.3f} ms by {by} "
+          f"({bytes_b / 1e6:.1f} MB: xn and the output gradients read, the lines written; "
+          f"{flops_b / 1e9:.2f} GFLOP); {grid[0]} route, {grid[1]} blocks x {grid[2]} threads",
+          flush=True)
+    report["cp_features_bwd"] = dict(
+        name="cp_features_bwd", route="cuda", source="text2nerf_tpu_torch/csrc/cp_features.cu",
+        replaces="text2nerf_tpu/models/tensorf.py:548",
+        max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+        library_ms=lib, ms_bf16=ms_bf,
     )
 
 
@@ -1016,12 +1295,15 @@ class _StepProbe:
                       dtype=torch.bfloat16 if bf16 else None)
         return self.launch0[0](xn, planes, lines, nd, sigma, app, bf16)
 
-    def _tap_a_bwd(self, xn, planes, lines, nd, d_sigma, d_app_raw, out):
+    def _tap_a_bwd(self, xn, planes, lines, nd, d_sigma, d_app_raw, bf16, out):
+        import torch
+
         mode = "fused" if d_sigma is not None and d_app_raw is not None else (
             "density" if d_sigma is not None else "app")
-        self._capture("A'", mode, xn=xn, planes=tuple(planes), lines=tuple(lines), nd=nd,
-                      d_sigma=d_sigma, d_app_raw=d_app_raw)
-        return self.launch0[1](xn, planes, lines, nd, d_sigma, d_app_raw, out)
+        self._capture("A'", mode + (" bf16" if bf16 else ""), xn=xn, planes=tuple(planes),
+                      lines=tuple(lines), nd=nd, d_sigma=d_sigma, d_app_raw=d_app_raw,
+                      dtype=torch.bfloat16 if bf16 else None)
+        return self.launch0[1](xn, planes, lines, nd, d_sigma, d_app_raw, bf16, out)
 
     def _tap_b(self, mlp, features, fea_pe):
         weights = {k: mlp[k] for k in ("w1", "b1", "w2", "b2", "w3", "b3")}
@@ -1123,8 +1405,8 @@ def _hold_seed_fit_kernels(captured, report, held=SEED_FIT_HELD, label="seed fit
             tol, n, what = TOL["bf16" if c["dtype"] else "fp32"], c["xn"].shape[0], "max_abs_err"
         elif kernel == "A'":
             args = (c["xn"], c["planes"], c["lines"], c["nd"], c["d_sigma"], c["d_app_raw"])
-            got = ff.factor_features_backward(*args)
-            ref = ff.factor_features_backward_plain(*args)
+            got = ff.factor_features_backward(*args, dtype=c["dtype"])
+            ref = ff.factor_features_backward_plain(*args, c["dtype"])
             torch.cuda.synchronize()
             err = _bwd_rel_err(got, ref, f"{label} {where} kernel A' {mode}")
             tol, n, what = TOL["bwd"], c["xn"].shape[0], "of each table's largest"
@@ -1552,7 +1834,7 @@ def _final_psnrs(cfg, scene, logfolder, n_samples, eval_kw):
     psnr = renderer.evaluation(
         f1, aabb1, scene.rays_gen_split[:n_gen], scene.hw, gt_rgbs=scene.rgbs_gen_split,
         n_samples=n_samples, alpha_mask=mask1, compact_k=cfg.eval_compact_k,
-        eval_z_min=ss.supervised_z_floor(scene), **eval_kw)["psnr"]
+        eval_z_min=ss.supervised_z_floor(scene), ndc=cfg.ndc_ray, **eval_kw)["psnr"]
     return psnr, loop
 
 
@@ -2150,23 +2432,30 @@ LPIPS_FILES = {"alex": "alexnet-owt-7be5be79.pth", "vgg": "vgg16-397923af.pth"}
 
 def _counts_zeroed():
     import torch
+    from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
     from text2nerf_tpu_torch.ops.kernels import factor_features as ff
     from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
 
     torch.cuda.synchronize()
-    ff.LAUNCHES = ff.BWD_LAUNCHES = sm.LAUNCHES = 0
+    ff.LAUNCHES = ff.BWD_LAUNCHES = sm.LAUNCHES = cpk.LAUNCHES = cpk.BWD_LAUNCHES = 0
+    for k in ff.BWD_DTYPES:
+        ff.BWD_DTYPES[k] = 0
 
 
 def _read_counts(report, path, need):
     """The kernel counts of the run just driven, added to the report under
-    ``path``; each kernel of ``need`` must have been launched."""
+    ``path``; each kernel of ``need`` must have been launched (kernel A'
+    counted by compute type: fp32 as factor_features_bwd, bf16 as
+    factor_features_bwd_bf16)."""
     import torch
+    from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
     from text2nerf_tpu_torch.ops.kernels import factor_features as ff
     from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
 
     torch.cuda.synchronize()
-    launches = {"factor_features": ff.LAUNCHES, "factor_features_bwd": ff.BWD_LAUNCHES,
-                "shading_mlp": sm.LAUNCHES}
+    launches = {"factor_features": ff.LAUNCHES, "factor_features_bwd": ff.BWD_DTYPES["fp32"],
+                "factor_features_bwd_bf16": ff.BWD_DTYPES["bf16"], "shading_mlp": sm.LAUNCHES,
+                "cp_features": cpk.LAUNCHES, "cp_features_bwd": cpk.BWD_LAUNCHES}
     for name, count in launches.items():
         _require(count > 0 or name not in need, f"{name} was not launched on {path}")
         if count:
@@ -2403,6 +2692,241 @@ SEED_FIT_VARIANTS = {
 }
 
 
+# phase 11: the TensoRF family's other configurations through the CLI
+# (name, flags, kernels the run must launch, seed-view margin over the
+# untrained field in dB)
+FAMILY_RUNS = (
+    ("cp", ["--model_name", "TensorCP", "--n_lamb_sigma", str(CP_WIDTHS[0]),
+            "--n_lamb_sh", str(CP_WIDTHS[1]), "--shadingMode", "MLP_Fea", "--fea_pe", "2",
+            "--view_pe", "2", "--L1_weight_inital", "1e-5", "--L1_weight_rest", "1e-5"],
+     ("cp_features", "cp_features_bwd"), 5.0),
+    ("vm", ["--model_name", "TensorVM", "--n_lamb_sigma", "16", "--n_lamb_sh", "48",
+            "--shadingMode", "SH"], ("factor_features", "factor_features_bwd"), 5.0),
+    ("bf16", ["--train_compute_dtype", "bf16"],
+     ("factor_features", "factor_features_bwd_bf16", "shading_mlp"), 5.0),
+    ("ndc", ["--ndc_ray", "1"], ("factor_features", "factor_features_bwd", "shading_mlp"), 0.0),
+)
+# the phase's one cut: one sub-batch a dense step (the CLI's default is 32;
+# the masks' pool 3 keeps every step dense, and 32 host-bound sub-batches
+# a step (~275 ms, phase 8) would take ~3 times the phase's budget)
+FAMILY_FLAGS = ["--train_microbatch", "1"]
+TOL.update({
+    # one bf16 step on the card vs the CPU plain versions: kernel A is bit
+    # for bit in bf16, but the basis product rounds its fp32 sums to bf16
+    # after cuBLAS's and the CPU's orders of summation, so an app feature
+    # may differ by one bf16 ulp (2^-8 relative) and each gradient term
+    # behind it likewise
+    "train_loss_bf16": 2 ** -8,
+    "train_grad_bf16": 5e-2,
+})
+
+
+def _family_argv(workdir, flags):
+    """Phase 7's fit (module docstring) as the port's command line on the
+    procedural services, with a run's flags.  The CLI's masks (pool 3)
+    keep every step dense, so phase 7's stage-3 compaction flags would
+    only widen the dense steps' app_k: the CLI's default (64) stays."""
+    return ["--config", "configs/text2nerf_scenes.txt", "--expname", "seed",
+            "--basedir", f"{workdir}/log", "--datadir", f"{workdir}/scene",
+            "--prompt", "a beautiful garden with flowers",
+            "--hw", str(SEED_FIT_HW[0]), str(SEED_FIT_HW[1]),
+            "--pose_traj", PROGRESSIVE_SCENE["pose_traj"],
+            "--num_training", str(PROGRESSIVE_SCENE["num_training"]),
+            "--n_stage1", str(PROGRESSIVE_EPOCHS[0]), "--n_stage2", str(PROGRESSIVE_EPOCHS[1]),
+            "--n_stage3", str(PROGRESSIVE_EPOCHS[2]), "--seed", "11",
+            "--eval_compact_k", "-1", "--N_vis", str(CLI_TEST_FRAMES),
+            *FAMILY_FLAGS, *flags]
+
+
+def _render_only_matches(cli, argv, cfg, scene, logfolder, dev):
+    """The render-only branch on the fit's final checkpoint (the fit's scene
+    snapshot beside it): (wall s, max |frame - the fit's frame| / 255)."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch.data import scene_state as ss
+    from text2nerf_tpu_torch.ops import render as render_ops
+    from text2nerf_tpu_torch.utils.png import read_png
+
+    test_dir = f"{logfolder}/imgs_test_all"
+    names = sorted(os.listdir(f"{test_dir}/rgbs"))
+    _require(len(names) == CLI_TEST_FRAMES, f"the fit wrote test frames {names}")
+    fit_frames = [read_png(f"{test_dir}/rgbs/{n}") for n in names]
+    shutil.move(test_dir, f"{logfolder}/imgs_test_fit")
+    ss.save_scene_snapshot(f"{logfolder}/scene_snapshot.npz", scene)
+    render_ops._ADAPTIVE_PROBE_CACHE.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(argv + ["--render_only", "1", "--render_test", "1", "--ckpt",
+                          f"{logfolder}/{cfg.expname}_final.npz"], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _require(rc == 0 and sorted(os.listdir(f"{test_dir}/rgbs")) == names,
+             f"render-only returned {rc} with frames {os.listdir(test_dir)}")
+    dev_max = max(float(np.abs(read_png(f"{test_dir}/rgbs/{n}").astype(np.float64)
+                               - f.astype(np.float64)).max()) / 255.0
+                  for n, f in zip(names, fit_frames))
+    return wall, dev_max
+
+
+def _family_run(dev, card, report, workdir, name, flags, need, margin_db):
+    """One run of phase 11 through main: the kernel counts set to 0 just
+    before and read just after, the wall and ms per step, the seed view's
+    PSNR against the untrained field's, finite frames."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch import main as cli
+    from text2nerf_tpu_torch.data import scene_state as ss
+    from text2nerf_tpu_torch.engine import renderer, trainer
+    from text2nerf_tpu_torch.engine import train_step as ts
+    from text2nerf_tpu_torch.models import tensorf as tf
+    from text2nerf_tpu_torch.ops.kernels import factor_features as ff
+    from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
+
+    argv = _family_argv(workdir, flags)
+    got = {}
+    recon0 = trainer.reconstruction
+
+    def reconstruction(cfg, scene_cfg, services, ex, *, device=None):
+        got["cfg"], got["scene_cfg"] = cfg, scene_cfg
+        got["out"] = recon0(cfg, scene_cfg, services, ex, device=device)
+        return got["out"]
+
+    trainer.reconstruction = reconstruction
+    try:
+        with _StepProbe(ts, ff, sm) as probe:
+            _counts_zeroed()
+            t0 = time.perf_counter()
+            rc = cli.main(argv, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read_counts(report, f"family_{name}", need)
+    finally:
+        trainer.reconstruction = recon0
+    _require(rc == 0, f"main returned {rc} on the {name} run")
+    cfg, scene_cfg = got["cfg"], got["scene_cfg"]
+    mcfg, field, aabb, scene, logfolder = got["out"]
+    steps = probe.ms["dense"] + probe.ms["compact"]
+    print(f"family {name}: {' '.join(flags)}; model {mcfg.model_name} "
+          f"{tf.component_counts(mcfg)} {mcfg.shading_mode}, grid "
+          f"{tf.grid_resolution(field)}, ndc {cfg.ndc_ray}, train dtype "
+          f"{cfg.train_compute_dtype}; launches {launches}", flush=True)
+
+    eval_kw = _eval_kw(cfg, scene_cfg, scene, dev)
+    _, f0, aabb0, _ = trainer.init_field(cfg, scene, device=dev)
+    f0.requires_grad_(False)
+    n_samples = tf.default_n_samples(tf.grid_resolution(f0), f0.cfg.step_ratio,
+                                     cfg.n_samples_cap)
+    z_floor = ss.supervised_z_floor(scene)
+    psnr0 = renderer.evaluation(
+        f0, aabb0, scene.rays_gen_split[:1], scene.hw, gt_rgbs=scene.rgbs_gen_split,
+        eval_z_min=z_floor, n_samples=n_samples, ndc=cfg.ndc_ray, **eval_kw)["psnr"][0]
+    del f0
+    psnr, loop = _final_psnrs(cfg, scene, logfolder, n_samples, eval_kw)
+    frames = [read for read in os.listdir(f"{logfolder}/imgs_test_all/rgbs")]
+    _require(len(frames) == CLI_TEST_FRAMES, f"the {name} run wrote test frames {frames}")
+    rec = {"wall": wall, "steps": len(steps), "dense_ms": _median(probe.ms["dense"]),
+           "compact_ms": _median(probe.ms["compact"]) if probe.ms["compact"] else None,
+           "dense_busy_ms": probe.busy, "psnr0": psnr0, "psnr": psnr, "launches": launches}
+    busy = "not measured" if probe.busy is None else (
+        f"{probe.busy[0]:.2f} ms busy in {probe.busy[1]:.2f} ms")
+    print(f"family {name}: wall {wall:.3f} s; {len(probe.ms['dense'])} dense steps median "
+          f"{rec['dense_ms']:.2f} ms, {len(probe.ms['compact'])} compacted median "
+          f"{rec['compact_ms'] if rec['compact_ms'] is None else round(rec['compact_ms'], 2)} "
+          f"ms (each between device syncs); one dense step under the profiler: {busy}; "
+          f"seed view PSNR untrained {psnr0:.4f} dB, final "
+          f"{psnr[0]:.4f} dB, generated view {psnr[1]:.4f} dB (step {loop['global_step']}); "
+          f"on {card}", flush=True)
+    _require(all(np.isfinite(psnr)) and np.isfinite(psnr0), f"{name}: PSNR {psnr0} {psnr}")
+    _require(psnr[0] > psnr0 + margin_db,
+             f"{name}: seed view PSNR {psnr[0]} is not {margin_db} dB above {psnr0}")
+    if name == "cp":
+        rec["render_only_s"], rec["render_only_max_dev"] = _render_only_matches(
+            cli, argv, cfg, scene, logfolder, dev)
+        print(f"family cp render-only: {CLI_TEST_FRAMES} test frames in "
+              f"{rec['render_only_s']:.2f} s, max |frame - fit's frame| "
+              f"{rec['render_only_max_dev']:.3e} (tol {TOL['render_only']:g})", flush=True)
+        _require(rec["render_only_max_dev"] <= TOL["render_only"],
+                 f"cp render-only frames differ by {rec['render_only_max_dev']}")
+    return rec
+
+
+def _bf16_step_checks(dev, card, train):
+    """Phase 5's configuration in bf16: ms/step beside fp32 (both timed here,
+    the same steps), and one crop step on the card against the CPU."""
+    import torch
+    from text2nerf_tpu_torch.data import synthetic as syn
+    from text2nerf_tpu_torch.engine import checkpoints as ckpt
+    from text2nerf_tpu_torch.engine import train_step as ts
+
+    rays, rgb, depth = syn.training_targets(dev)
+    field, aabb, mask, cfg, kw = syn.training_setup(dev)
+    kw_bf = dict(kw, compute_dtype="bf16")
+    sampler = ts.PermutationSampler(rays.shape[0], cfg.batch_size, seed=cfg.seed)
+    ids = torch.as_tensor(sampler.next_ids()[:CROP_RAYS], device=dev)
+    batch = {"rays": rays[ids], "rgb": rgb[ids], "depth": depth[ids]}
+    loss_err, grad_errs, _ = crop_step_check(field, aabb, mask, batch, cfg, kw_bf, dev)
+    grad_err = max(grad_errs.values())
+    print(f"bf16 train step on the card vs the CPU plain versions, {CROP_RAYS} rays: loss "
+          f"within {loss_err:.3e} relative (tol {TOL['train_loss_bf16']:.3e}), gradients within "
+          f"{grad_err:.3e} of each leaf's largest (tol {TOL['train_grad_bf16']:g})", flush=True)
+    _require(loss_err <= TOL["train_loss_bf16"], f"bf16 train loss differs: {loss_err}")
+    _require(grad_err <= TOL["train_grad_bf16"], f"bf16 train gradients differ: {grad_errs}")
+    ms = {}
+    flat = ckpt.params_to_jax(field)
+    for dtype in ("fp32", "bf16", "bf16", "fp32"):
+        f = ckpt.params_from_jax(flat, field.cfg, device=dev)
+        state, opt = ts.make_train_state(f, cfg.lr_init, cfg.lr_basis, runtime_decay=True)
+        step = ts.make_train_step(f.cfg, opt, device=dev, **dict(kw, compute_dtype=dtype))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        smp = ts.PermutationSampler(rays.shape[0], cfg.batch_size, seed=cfg.seed)
+
+        def one(state):
+            ids = torch.as_tensor(smp.next_ids(), device=dev)
+            b = {"rays": rays[ids], "rgb": rgb[ids], "depth": depth[ids]}
+            return step(state, aabb, b, gen, alpha_mask=mask)
+
+        for _ in range(TRAIN_WARMUP):
+            state, _ = one(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            state, m = one(state)
+        torch.cuda.synchronize()
+        ms.setdefault(dtype, []).append((time.perf_counter() - t0) / TRAIN_STEPS * 1e3)
+        del f, state, opt, step
+    print(f"train ms/step, phase 5's configuration (compacted K {kw['compact_k']}, batch "
+          f"{cfg.batch_size}), in turns fp32, bf16, bf16, fp32: fp32 "
+          f"{[round(v, 3) for v in ms['fp32']]}, bf16 {[round(v, 3) for v in ms['bf16']]} "
+          f"(phase 5's fp32 {train['train_ms_per_step']:.2f}) on {card}", flush=True)
+    return {"bf16_step_ms": ms["bf16"], "fp32_step_ms": ms["fp32"],
+            "bf16_crop_loss_err": loss_err, "bf16_crop_grad_err": grad_err}
+
+
+def phase_model_family(dev, card, report, workdir, train):
+    """Phase 11 (module docstring): four runs of phase 7's fit through the
+    CLI, TensorCP, TensorVM, the bf16 train step and NDC rays, each with
+    its gates; the bf16 step's card-vs-CPU check and times."""
+    rec = {}
+    t0 = time.perf_counter()
+    for name, flags, need, margin in FAMILY_RUNS:
+        run_dir = f"{workdir}/{name}"
+        shutil.rmtree(run_dir, ignore_errors=True)
+        try:
+            rec[name] = _family_run(dev, card, report, run_dir, name, flags, need, margin)
+        finally:
+            shutil.rmtree(run_dir, ignore_errors=True)
+        if name == "bf16":
+            rec[name].update(_bf16_step_checks(dev, card, train))
+    wall = time.perf_counter() - t0
+    print(f"phase 11 wall {wall:.1f} s", flush=True)
+    out = {"family_wall_s": wall}
+    for name, r in rec.items():
+        for k, v in r.items():
+            if k != "launches":
+                out[f"family_{name}_{k}"] = v
+    return out
+
+
 def phase_seed_fit_variants(dev, names, hw=(256, 256)):
     """The seed fit at the JAX benchmark's 256^2 once per variant of stage
     3's compaction settings, with an eval of the seed view after every
@@ -2517,11 +3041,19 @@ def main(argv):
     finally:
         for d in (prog_dir, resume_dir):
             shutil.rmtree(d, ignore_errors=True)
+    family_dir = _build.BUILD_DIR / "model_family"
+    try:
+        family = phase_model_family(dev, card, report, str(family_dir), train)
+    finally:
+        shutil.rmtree(family_dir, ignore_errors=True)
     wall_s = time.perf_counter() - t_start
     print(f"chip_smoke wall {wall_s:.1f} s on {card}", flush=True)
     print(json.dumps({"rays_per_s": rays_s, "max_dev": max_dev, **train, **seed, **prog, **gen,
-                      **depth, **resumed, "card": card, "wall_s": wall_s}), flush=True)
-    kernels = [report[k] for k in ("factor_features", "shading_mlp", "factor_features_bwd")]
+                      **depth, **resumed, **family, "card": card, "wall_s": wall_s}), flush=True)
+    kernels = [report[k] for k in ("factor_features", "shading_mlp", "factor_features_bwd",
+                                   "factor_features_bwd_bf16", "cp_features", "cp_features_bwd")]
+    for k in kernels:
+        k.setdefault("launches", 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

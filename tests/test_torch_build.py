@@ -57,6 +57,7 @@ def test_the_port_sources_and_their_headers():
         "factor_features": ["factor_features.cu", "factor_common.cuh"],
         "factor_features_bwd": ["factor_features_bwd.cu", "factor_common.cuh"],
         "shading_mlp": ["shading_mlp.cu", "hopper.cuh"],
+        "cp_features": ["cp_features.cu", "factor_common.cuh"],
     }
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast" in f for f in _build.NVCC_FLAGS)  # no fast math

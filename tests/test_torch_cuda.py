@@ -2,7 +2,9 @@
 train step, the metrics and the pools of a resume on the card against the
 CPU.  Kernel A' also on adversarial
 inputs: a run inside one cell, every upper edge, runs that cross rays, a
-ragged n, zero gradients, accumulation, and both of its routes.
+ragged n, zero gradients, accumulation, and both of its routes, in fp32
+and bf16; kernels C and C' (TensorCP) at the published, odd and
+1-component widths, both compute types, both of C''s routes.
 
 These skip without an NVIDIA GPU.  The module imports no JAX, so on a
 machine with a card and no JAX it runs with
@@ -20,6 +22,7 @@ from text2nerf_tpu_torch.engine.checkpoints import params_from_jax, params_to_ja
 from text2nerf_tpu_torch.models import tensorf as ptf
 from text2nerf_tpu_torch.ops import rays as PR
 from text2nerf_tpu_torch.ops import render as PRd
+from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
 from text2nerf_tpu_torch.ops.kernels import factor_features as ff
 from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
 
@@ -247,6 +250,110 @@ def test_factor_features_backward_kernel_accumulates(cuda):
     ref = ff.factor_features_backward_plain(xn, planes, lines, nd, d_sig, d_app)
     twice = (tuple(2 * r for r in ref[0]), tuple(2 * r for r in ref[1]))
     assert _rel_err(out, twice) <= BWD_TOL
+
+
+@pytest.mark.parametrize("widths", [((16, 16, 16), (48, 48, 48)), ((4, 5, 6), (8, 7, 9))])
+@pytest.mark.parametrize("n", [1, 4099])
+def test_factor_features_backward_kernel_bf16_matches_plain(cuda, widths, n):
+    # the bf16 mode on both routes: the same bf16-rounded terms, fp32 sums
+    # in another order
+    cfg = ptf.TensoRFConfig(density_n_comp=widths[0], app_n_comp=widths[1])
+    field = _field(cfg, (21, 17, 30), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    xn = _edge_samples(n, gen, cuda)
+    planes, lines, nd = tuple(field.planes), tuple(field.lines), field.nd
+    d_sig = torch.randn(n, generator=gen, device=cuda)
+    d_app = torch.randn(n, sum(widths[1]), generator=gen, device=cuda)
+    for ds, da in ((d_sig, d_app), (d_sig, None), (None, d_app)):
+        before = ff.BWD_DTYPES["bf16"]
+        got = ff.factor_features_backward(xn, planes, lines, nd, ds, da, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert ff.BWD_DTYPES["bf16"] == before + 1
+        ref = ff.factor_features_backward_plain(xn, planes, lines, nd, ds, da, torch.bfloat16)
+        assert _rel_err(got, ref) <= BWD_TOL
+
+
+def _cp_lines(nd, na, reso, device, seed=0):
+    cfg = ptf.TensoRFConfig(model_name="cp", density_n_comp=(nd,), app_n_comp=(na,))
+    return tuple(_field(cfg, reso, device, seed).lines)
+
+
+CP_WIDTHS = [(96, 288), (5, 13), (1, 1)]  # published, odd, 1-component
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("widths", CP_WIDTHS)
+def test_cp_features_kernel_matches_plain(cuda, widths, dtype):
+    nd, na = widths
+    lines = _cp_lines(nd, na, (21, 17, 30), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    xn = _edge_samples(5001, gen, cuda)
+    for sig, app in ((True, True), (True, False), (False, True)):
+        before = cpk.LAUNCHES
+        got = cpk.cp_features(xn, lines, nd, sigma=sig, app=app, dtype=dtype)
+        assert cpk.LAUNCHES == before + 1
+        ref = cpk.cp_features_plain(xn, lines, nd, sigma=sig, app=app, dtype=dtype)
+        for g, r in zip(got, ref):
+            assert (g is None) == (r is None)
+            if g is not None:
+                # the same operations in the same order; the density sum
+                # exact in fp64 unless its terms span more than 2^29
+                assert g.shape == r.shape
+                assert float((g - r).abs().max()) <= 1e-6 * float(r.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("widths", CP_WIDTHS)
+@pytest.mark.parametrize("n", [1, 4099])
+def test_cp_features_backward_kernel_matches_plain(cuda, widths, n, dtype):
+    nd, na = widths
+    lines = _cp_lines(nd, na, (21, 17, 30), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    xn = _edge_samples(n, gen, cuda)
+    d_sig = torch.randn(n, generator=gen, device=cuda)
+    d_app = torch.randn(n, na, generator=gen, device=cuda)
+    for ds, da in ((d_sig, d_app), (d_sig, None), (None, d_app)):
+        before = cpk.BWD_LAUNCHES
+        got = cpk.cp_features_backward(xn, lines, nd, ds, da, dtype=dtype)
+        torch.cuda.synchronize()
+        assert cpk.BWD_LAUNCHES == before + 1 and cpk.BWD_LAST_GRID[0] == "shared"
+        ref = cpk.cp_features_backward_plain(xn, lines, nd, ds, da, dtype)
+        assert _rel_err((got, ()), (ref, ())) <= BWD_TOL
+        if ds is None:  # app-only: the density channels get nothing
+            assert all(float(g[:, :nd].abs().max()) == 0 for g in got)
+
+
+def test_cp_features_backward_generic_route_and_accumulation(cuda):
+    # three 700-row lines do not fit a block's shared memory at 32 channels
+    lines = _cp_lines(3, 29, (700, 700, 700), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xn = _edge_samples(3001, gen, cuda)
+    d_sig = torch.randn(3001, generator=gen, device=cuda)
+    d_app = torch.randn(3001, 29, generator=gen, device=cuda)
+    out = tuple(torch.zeros_like(l) for l in lines)
+    for _ in range(2):
+        cpk.cp_features_backward(xn, lines, 3, d_sig, d_app, out=out)
+    assert cpk.BWD_LAST_GRID[0] == "generic"
+    ref = cpk.cp_features_backward_plain(xn, lines, 3, d_sig, d_app)
+    assert _rel_err((out, ()), (tuple(2 * r for r in ref), ())) <= BWD_TOL
+
+
+def test_cp_field_trains_through_kernels_c(cuda):
+    # the field's features with a gradient: kernel C forward, C' backward
+    cfg = ptf.TensoRFConfig(model_name="cp", density_n_comp=(8,), app_n_comp=(24,),
+                            shading_mode="MLP_Fea", fea_pe=2)
+    field = _field(cfg, (21, 17, 30), cuda).requires_grad_(True)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    xn = _edge_samples(777, gen, cuda)
+    a0, b0 = cpk.LAUNCHES, cpk.BWD_LAUNCHES
+    s, a = field.fused_features(xn)
+    (s.sum() + a.square().sum()).backward()
+    assert cpk.LAUNCHES == a0 + 1 and cpk.BWD_LAUNCHES == b0 + 1
+    cpu = params_from_jax(params_to_jax(field), cfg, device="cpu")
+    s2, a2 = cpu.fused_features(xn.cpu())
+    (s2.sum() + a2.square().sum()).backward()
+    for g, r in zip(field.lines, cpu.lines):
+        assert float((g.grad.cpu() - r.grad).abs().max()) <= BWD_TOL * float(r.grad.abs().max())
 
 
 def _bwd_case(case, gen, device):

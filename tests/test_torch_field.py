@@ -14,7 +14,7 @@ from text2nerf_tpu.models import tensorf as tf
 from text2nerf_tpu.ops import rays as R
 from text2nerf_tpu_torch.data import trajectories as ptraj
 from text2nerf_tpu_torch.engine import metrics as PM
-from text2nerf_tpu_torch.engine.checkpoints import params_from_jax
+from text2nerf_tpu_torch.engine.checkpoints import params_from_jax, params_to_jax
 from text2nerf_tpu_torch.models import tensorf as ptf
 from text2nerf_tpu_torch.ops import rays as PR
 
@@ -40,8 +40,13 @@ def test_full_width_config():
     assert ptf.default_n_samples(reso, cfg.step_ratio) == 259
     assert cfg.to_dict() == tf.TensoRFConfig().to_dict()
     assert ptf.TensoRFConfig.from_dict(cfg.to_dict()) == cfg
-    with pytest.raises(NotImplementedError):
-        ptf.TensoRF(ptf.TensoRFConfig(model_name="cp"), (8, 8, 8))
+    # TensorCP at TensoRF's published widths: the port's parameters carry
+    # the JAX init's keys and shapes
+    cp = ptf.TensoRFConfig(model_name="cp", density_n_comp=(96,), app_n_comp=(288,))
+    want = _flatten(tf.init_params(jax.random.PRNGKey(0), tf.TensoRFConfig(**cp.to_dict()),
+                                   (8, 9, 10)))
+    got = params_to_jax(ptf.TensoRF(cp, (8, 9, 10)))
+    assert {k: v.shape for k, v in got.items()} == {k: np.shape(v) for k, v in want.items()}
 
 
 @pytest.mark.parametrize("pool", [3, 5])

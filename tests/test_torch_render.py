@@ -178,6 +178,10 @@ def test_select_impl_and_bad_options_raise():
     np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
     np.testing.assert_array_equal(sel.numpy(), np.asarray(want_sel))
     assert PRd.adaptive_compact_k(17) == Rd.adaptive_compact_k(17) == 32
+    # NDC rays: the dense renderer's NDC sampler, as JAX renders them
     cfg, params, field, n_s = _field(0.02)
-    with pytest.raises(NotImplementedError):
-        PRd.render_rays(field, AABB_T, torch.zeros(4, 6), n_samples=8, ndc=True)
+    rays = _rays()[:64]
+    want = Rd.render_rays(cfg, params, AABB, rays, n_samples=24, app_k=8, ndc=True)
+    got = PRd.render_rays(field, AABB_T, torch.from_numpy(np.array(rays)), n_samples=24,
+                          app_k=8, ndc=True)
+    _close(got, want)

@@ -278,7 +278,7 @@ def test_kernel_a_backward_plain_matches_jax_grad(fields, mode, case):
 
 def test_factor_features_backward_wrapper(fields):
     # the plain backward behind the wrapper: accumulation into given
-    # tables, shape checks, no gradient for xn, bf16 refused
+    # tables, shape checks, no gradient for xn, the bf16 backward
     field = _port(fields)
     planes, lines, nd = tuple(field.planes), tuple(field.lines), field.nd
     xn = torch.from_numpy(_edge_xn(200, seed=4))
@@ -301,11 +301,27 @@ def test_factor_features_backward_wrapper(fields):
     s, _ = field.fused_features(x)
     s.sum().backward()
     assert x.grad is None and field.planes[0].grad is not None
-    with pytest.raises(NotImplementedError, match="bf16"):
-        field.fused_features(xn, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        pts.make_train_step(field.cfg, torch.optim.SGD(field.parameters(), lr=1.0),
-                            n_samples=8, compute_dtype="bf16", device="cpu")
+    # bf16: the forward equals JAX's eager bf16 features; the backward (bf16
+    # products, fp32 sums) is within 3e-2 of each leaf's largest of JAX's
+    # gradient, whose scatter-add sums in bf16 (1.4e-2 seen)
+    d_sig, d_ap = d_sigma[:200].numpy(), d_app[:200, :CFG.app_dim].numpy()
+
+    def jloss(p):
+        s_, a_ = tf.compute_fused_features_packed(CFG, tf.pack_params_fused(CFG, p),
+                                                  jnp.asarray(xn.numpy()), dtype=jnp.bfloat16)
+        return jnp.sum(s_ * d_sig) + jnp.sum(a_ * d_ap), (s_, a_)
+
+    (_, (ws, wa)), wg = jax.value_and_grad(jloss, has_aux=True)(fields)
+    field = _port(fields)
+    s, a = field.fused_features(xn, torch.bfloat16)
+    np.testing.assert_array_equal(s.detach().numpy(), np.asarray(ws))
+    np.testing.assert_array_equal(a.detach().numpy(), np.asarray(wa))
+    ((s * torch.from_numpy(d_sig)).sum() + (a * torch.from_numpy(d_ap)).sum()).backward()
+    got = _grads(field)
+    for key, g in _flatten(wg).items():
+        _close(got[key], g, 3e-2, f"bf16 {key}")
+    pts.make_train_step(field.cfg, torch.optim.SGD(field.parameters(), lr=1.0),
+                        n_samples=8, compute_dtype="bf16", device="cpu")
 
 
 @pytest.mark.parametrize("k", [1, 5, 16])

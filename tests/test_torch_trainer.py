@@ -327,13 +327,23 @@ def test_write_video_falls_back_to_mjpeg_avi(tmp_path):
 
 def test_unported_options_raise_before_any_work(tmp_path):
     scene = _scene(pss.SceneConfig, tmp_path / "d")
-    for kw, what in ((dict(checkpoint_backend="orbax"), "orbax"),
-                     (dict(train_compute_dtype="bf16"), "bf16"),
-                     (dict(ndc_ray=True), "NDC")):
-        cfg = PT.TrainConfig(basedir=str(tmp_path / "log"), **kw)
-        with pytest.raises(NotImplementedError, match=what):
-            PT.reconstruction(cfg, scene, device="cpu")
+    cfg = PT.TrainConfig(basedir=str(tmp_path / "log"), checkpoint_backend="orbax")
+    with pytest.raises(NotImplementedError, match="orbax"):
+        PT.reconstruction(cfg, scene, device="cpu")
     assert not os.path.exists(tmp_path / "log") and not os.path.exists(tmp_path / "d")
+    # the bf16 train step and NDC rays run (their fits are held against
+    # JAX in test_torch_model_family.py): accepted, and the trainer builds
+    # its step with them as the JAX trainer does
+    for kw in (dict(train_compute_dtype="bf16"), dict(ndc_ray=True)):
+        PT._check_ported(PT.TrainConfig(**kw))
+        want = JT._step_kwargs(JT.TrainConfig(**kw), n_samples=32, group=1, block=4,
+                               white_bg=True)
+        got = PT._step_kwargs(PT.TrainConfig(**kw), n_samples=32, group=1, block=4,
+                              white_bg=True)
+        assert {k: v for k, v in got.items() if k != "weights"} == \
+            {k: v for k, v in want.items() if k != "weights"}
+        assert (got["compute_dtype"], got["ndc"]) == (kw.get("train_compute_dtype", "fp32"),
+                                                      kw.get("ndc_ray", False))
 
 
 def test_render_test_reads_the_snapshot_z_floor(fits):

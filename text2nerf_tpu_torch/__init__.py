@@ -8,10 +8,13 @@ the final checkpoint), on the procedural services or on the Stable
 Diffusion 2, CLIP and boosted LeReS depth networks
 (``models/diffusion.py``, ``models/clip.py``, ``models/leres.py``,
 ``services/``), started from the command line (``python -m
-text2nerf_tpu_torch.main``).  Three hand-written CUDA kernels carry them
-(``ops/kernels``): the factor-feature gather, its scatter-add backward,
-and the fused ``MLP_Fea_noview`` shading head.  Every kernel keeps a plain
-PyTorch version beside it, which runs only for tensors on the CPU.
+text2nerf_tpu_torch.main``), for every decomposition of the TensoRF family
+(``vm_split``, ``vm``, ``cp``), shading mode, NDC rays and the bf16 train
+step.  Hand-written CUDA kernels carry them (``ops/kernels``): the
+plane × line factor-feature gather and its scatter-add backward, the CP
+lines' triple product and its backward, and the fused ``MLP_Fea_noview``
+shading head.  Every kernel keeps a plain PyTorch version beside it,
+which runs only for tensors on the CPU.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (see :mod:`text2nerf_tpu_torch.device`).

@@ -52,8 +52,16 @@
 //    train step's samples) is skipped after a warp vote: adding +0
 //    changes no entry of a finite table.
 // Generic route (other widths, or a line too long for shared memory): one
-// warp per sample, lanes stride the channels, scalar atomics.  fp32 only
-// (the bf16 backward is not ported).
+// warp per sample, lanes stride the channels, scalar atomics.
+// bf16 mode (the JAX package's bf16 train step, text2nerf_tpu/engine/
+// train_step.py:116-148, which gathers from packed.astype(bf16)): the
+// gradient g, the recomputed values, the lerp weights and every product
+// of the chain below are rounded to bfloat16 where JAX's autodiff of its
+// bf16 gather rounds them; the contributions are then accumulated in
+// fp32.  JAX's XLA scatter-adds them in bf16 (each add rounded, so the
+// sum depends on the order) and casts the table to fp32 afterwards; fp32
+// accumulation is free of the order up to fp32 rounding and is the
+// stated difference (PERF.md, tests/test_torch_model_family.py).
 // The atomics add in an order that changes from run to run, so the result
 // is held against the plain version (factor_features_backward_plain) to a
 // tolerance.
@@ -98,25 +106,29 @@ __device__ __forceinline__ void add4(float* addr, float4 v) {
 }
 
 // one channel: the gradients of the four plane corners and the two line
-// rows, every op separately rounded (no FMA contraction)
+// rows, every op separately rounded (no FMA contraction); BF16 rounds the
+// table values, g and every product to bfloat16 (geo's weights are
+// rounded by geometry<BF16>)
+template <bool BF16>
 __device__ __forceinline__ void channel_grads(float p00, float p01, float p10, float p11,
                                               float q0, float q1, float g, const AxisGeo& geo,
                                               float (&dp)[4], float (&dl)[2]) {
-  const float top = lerp<false>(p00, p01, geo.tx);
-  const float bot = lerp<false>(p10, p11, geo.tx);
-  const float pf = lerp<false>(top, bot, geo.ty);
-  const float lf = lerp<false>(q0, q1, geo.tl);
-  const float dpf = __fmul_rn(g, lf);
-  const float dlf = __fmul_rn(g, pf);
-  const float d_top = __fmul_rn(dpf, __fsub_rn(1.0f, geo.ty));
-  const float d_bot = __fmul_rn(dpf, geo.ty);
-  const float wx = __fsub_rn(1.0f, geo.tx);
-  dp[0] = __fmul_rn(d_top, wx);
-  dp[1] = __fmul_rn(d_top, geo.tx);
-  dp[2] = __fmul_rn(d_bot, wx);
-  dp[3] = __fmul_rn(d_bot, geo.tx);
-  dl[0] = __fmul_rn(dlf, __fsub_rn(1.0f, geo.tl));
-  dl[1] = __fmul_rn(dlf, geo.tl);
+  const float top = lerp<BF16>(rnd<BF16>(p00), rnd<BF16>(p01), geo.tx);
+  const float bot = lerp<BF16>(rnd<BF16>(p10), rnd<BF16>(p11), geo.tx);
+  const float pf = lerp<BF16>(top, bot, geo.ty);
+  const float lf = lerp<BF16>(rnd<BF16>(q0), rnd<BF16>(q1), geo.tl);
+  g = rnd<BF16>(g);
+  const float dpf = rnd<BF16>(__fmul_rn(g, lf));
+  const float dlf = rnd<BF16>(__fmul_rn(g, pf));
+  const float d_top = rnd<BF16>(__fmul_rn(dpf, rnd<BF16>(__fsub_rn(1.0f, geo.ty))));
+  const float d_bot = rnd<BF16>(__fmul_rn(dpf, geo.ty));
+  const float wx = rnd<BF16>(__fsub_rn(1.0f, geo.tx));
+  dp[0] = rnd<BF16>(__fmul_rn(d_top, wx));
+  dp[1] = rnd<BF16>(__fmul_rn(d_top, geo.tx));
+  dp[2] = rnd<BF16>(__fmul_rn(d_bot, wx));
+  dp[3] = rnd<BF16>(__fmul_rn(d_bot, geo.tx));
+  dl[0] = rnd<BF16>(__fmul_rn(dlf, rnd<BF16>(__fsub_rn(1.0f, geo.tl))));
+  dl[1] = rnd<BF16>(__fmul_rn(dlf, geo.tl));
 }
 
 // Shared route.  Warp g of the grid walks runs [g*R/G, (g+1)*R/G) of the R
@@ -125,7 +137,7 @@ __device__ __forceinline__ void channel_grads(float p00, float p01, float p10, f
 // [L][2][32] (lane-major within each half of a row, so a warp's shared
 // atomics hit 32 banks): entry (row, c) at row*64 + (c&1)*32 + c/2.
 // Lanes whose channels the mode does not touch stay idle.
-template <bool SIGMA, bool APP>
+template <bool BF16, bool SIGMA, bool APP>
 __global__ void __launch_bounds__(kWalkThreads, 2)
 factor_features_bwd_walk_kernel(const float* __restrict__ xn, int n, Tables tab, Dims d,
                                 int app_stride, const float* __restrict__ d_sigma,
@@ -171,7 +183,7 @@ factor_features_bwd_walk_kernel(const float* __restrict__ xn, int n, Tables tab,
       PackedGeo mine;
       {
         AxisGeo gg;
-        geometry<false>(x, i, d, gg);
+        geometry<BF16>(x, i, d, gg);
         mine = pack(gg);
       }
       // sample j's geometry, gradient and table rows; the next sample's are
@@ -200,8 +212,10 @@ factor_features_bwd_walk_kernel(const float* __restrict__ xn, int n, Tables tab,
         if (j + 1 < cnt) fetch(j + 1, next_geo, next_gv, next_pv, next_lv);
         if (!__any_sync(0xffffffffu, gv.x != 0.0f || gv.y != 0.0f)) continue;
         float dp0[4], dl0[2], dp1[4], dl1[2];
-        channel_grads(pv[0].x, pv[1].x, pv[2].x, pv[3].x, lv[0].x, lv[1].x, gv.x, geo, dp0, dl0);
-        channel_grads(pv[0].y, pv[1].y, pv[2].y, pv[3].y, lv[0].y, lv[1].y, gv.y, geo, dp1, dl1);
+        channel_grads<BF16>(pv[0].x, pv[1].x, pv[2].x, pv[3].x, lv[0].x, lv[1].x, gv.x, geo,
+                            dp0, dl0);
+        channel_grads<BF16>(pv[0].y, pv[1].y, pv[2].y, pv[3].y, lv[0].y, lv[1].y, gv.y, geo,
+                            dp1, dl1);
         if (on) {
           const int64_t p = geo.p00;
           add2(dplane + p * kWalkC + ch, dp0[0], dp1[0]);
@@ -240,7 +254,7 @@ factor_features_bwd_walk_kernel(const float* __restrict__ xn, int n, Tables tab,
 }
 
 // Generic route: one warp per sample, lanes stride the channels.
-template <bool SIGMA, bool APP>
+template <bool BF16, bool SIGMA, bool APP>
 __global__ void factor_features_bwd_kernel(const float* __restrict__ xn, int n, Tables tab,
                                            Dims d, int app_stride,
                                            const float* __restrict__ d_sigma,
@@ -254,7 +268,7 @@ __global__ void factor_features_bwd_kernel(const float* __restrict__ xn, int n, 
   for (int i = 0; i < 3; ++i) {
     const int c = d.c[i], nd = d.nd[i];
     AxisGeo geo;
-    geometry<false>(x, i, d, geo);
+    geometry<BF16>(x, i, d, geo);
     const int64_t r[4] = {geo.p00, geo.p00 + geo.dx, geo.p00 + geo.dyw,
                           geo.p00 + geo.dyw + geo.dx};
     const int64_t q[2] = {geo.l0, geo.l0 + geo.dl};
@@ -265,7 +279,7 @@ __global__ void factor_features_bwd_kernel(const float* __restrict__ xn, int n, 
     for (int ch = c_lo + lane; ch < c_hi; ch += 32) {
       const float g = ch < nd ? gsig : __ldg(d_app + s * app_stride + d.app_off[i] + (ch - nd));
       float dp[4], dl[2];
-      channel_grads(__ldg(plane + r[0] * c + ch), __ldg(plane + r[1] * c + ch),
+      channel_grads<BF16>(__ldg(plane + r[0] * c + ch), __ldg(plane + r[1] * c + ch),
                     __ldg(plane + r[2] * c + ch), __ldg(plane + r[3] * c + ch),
                     __ldg(line + q[0] * c + ch), __ldg(line + q[1] * c + ch), g, geo, dp, dl);
 #pragma unroll
@@ -281,7 +295,7 @@ __global__ void factor_features_bwd_kernel(const float* __restrict__ xn, int n, 
 // fit in shared memory).  The device attributes and the kernel's shared
 // memory limit are set up once per device and mode, the occupancy once per
 // size, so a launch after the first only looks them up.
-template <bool SIGMA, bool APP>
+template <bool BF16, bool SIGMA, bool APP>
 cudaError_t walk_grid(size_t smem, int* sms, int* per_sm) {
   struct Device {
     int sms = 0, smem_max = 0;
@@ -289,7 +303,7 @@ cudaError_t walk_grid(size_t smem, int* sms, int* per_sm) {
   };
   static std::mutex mu;
   static std::map<int, Device> devices;
-  const auto kernel = factor_features_bwd_walk_kernel<SIGMA, APP>;
+  const auto kernel = factor_features_bwd_walk_kernel<BF16, SIGMA, APP>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -323,21 +337,21 @@ cudaError_t walk_grid(size_t smem, int* sms, int* per_sm) {
   return cudaSuccess;
 }
 
-template <bool SIGMA, bool APP>
+template <bool BF16, bool SIGMA, bool APP>
 cudaError_t launch(const float* xn, int n, bool walk, const Tables& tab, const Dims& d,
                    int app_stride, const float* d_sigma, const float* d_app,
                    const GradTables& out, cudaStream_t stream, int* info) {
   int sms = 0, per_sm = 0;
   const size_t smem = sizeof(float) * kWalkC * std::max(d.l[0], std::max(d.l[1], d.l[2]));
   if (walk) {
-    const cudaError_t err = walk_grid<SIGMA, APP>(smem, &sms, &per_sm);
+    const cudaError_t err = walk_grid<BF16, SIGMA, APP>(smem, &sms, &per_sm);
     if (err != cudaSuccess) return err;
   }
   if (per_sm < 1) {
     constexpr int kThreads = 256;  // 8 warps, one sample each
     const unsigned blocks = static_cast<unsigned>((static_cast<int64_t>(n) * 32 + kThreads - 1) /
                                                   kThreads);
-    factor_features_bwd_kernel<SIGMA, APP><<<blocks, kThreads, 0, stream>>>(
+    factor_features_bwd_kernel<BF16, SIGMA, APP><<<blocks, kThreads, 0, stream>>>(
         xn, n, tab, d, app_stride, d_sigma, d_app, out);
     info[0] = kRouteGeneric;
     info[1] = static_cast<int>(blocks);
@@ -348,7 +362,7 @@ cudaError_t launch(const float* xn, int n, bool walk, const Tables& tab, const D
   const int64_t wanted = (runs + kWalkWarps - 1) / kWalkWarps;
   const int blocks = static_cast<int>(std::min<int64_t>(static_cast<int64_t>(sms) * per_sm,
                                                         wanted));
-  factor_features_bwd_walk_kernel<SIGMA, APP><<<blocks, kWalkThreads, smem, stream>>>(
+  factor_features_bwd_walk_kernel<BF16, SIGMA, APP><<<blocks, kWalkThreads, smem, stream>>>(
       xn, n, tab, d, app_stride, d_sigma, d_app, out);
   info[0] = kRouteShared;
   info[1] = blocks;
@@ -368,8 +382,9 @@ bool aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
 // tables and d_app are 8-byte aligned with an even app_stride, and the
 // longest line's gradient (L x 64 fp32) fits in a block's shared memory;
 // otherwise the generic route.  info (3 ints) receives the route (1
-// shared, 2 generic), the grid's blocks and the threads per block.  Returns the
-// first CUDA error of the memsets and the launch.
+// shared, 2 generic), the grid's blocks and the threads per block.  bf16 != 0
+// selects the bf16 mode.  Returns the first CUDA error of the memsets and
+// the launch.
 extern "C" int t2n_factor_features_bwd(const float* xn, int n,
                                        const float* plane0, const float* plane1,
                                        const float* plane2, const float* line0,
@@ -377,7 +392,7 @@ extern "C" int t2n_factor_features_bwd(const float* xn, int n,
                                        int app_stride, const float* d_sigma, const float* d_app,
                                        float* dplane0, float* dplane1, float* dplane2,
                                        float* dline0, float* dline1, float* dline2, int zero,
-                                       int* info, void* stream) {
+                                       int bf16, int* info, void* stream) {
   Dims d;
   for (int i = 0; i < 3; ++i) {
     d.h[i] = dims[i];
@@ -408,14 +423,16 @@ extern "C" int t2n_factor_features_bwd(const float* xn, int n,
            static_cast<int64_t>(d.h[i]) * d.w[i] < (1 << 30) && aligned8(tab.plane[i]) &&
            aligned8(tab.line[i]) && aligned8(out.plane[i]) && aligned8(out.line[i]);
   }
-  if (sig && app) {
+  const auto go = [&](auto kernel_launch) {
     return static_cast<int>(
-        launch<true, true>(xn, n, walk, tab, d, app_stride, d_sigma, d_app, out, st, info));
+        kernel_launch(xn, n, walk, tab, d, app_stride, d_sigma, d_app, out, st, info));
+  };
+  if (bf16) {
+    if (sig && app) return go(launch<true, true, true>);
+    if (sig) return go(launch<true, true, false>);
+    return go(launch<true, false, true>);
   }
-  if (sig) {
-    return static_cast<int>(
-        launch<true, false>(xn, n, walk, tab, d, app_stride, d_sigma, d_app, out, st, info));
-  }
-  return static_cast<int>(
-      launch<false, true>(xn, n, walk, tab, d, app_stride, d_sigma, d_app, out, st, info));
+  if (sig && app) return go(launch<false, true, true>);
+  if (sig) return go(launch<false, true, false>);
+  return go(launch<false, false, true>);
 }

@@ -1,12 +1,15 @@
 """npz checkpoints (port of ``save_checkpoint`` / ``load_checkpoint`` from
 ``text2nerf_tpu/engine/checkpoints.py``) and the bridge between the JAX
-parameter pytree and the port's field.
+parameter pytree and the port's field, for the three decompositions.
 
 The format is the JAX package's, so a file written by either package loads
 in the other:
 
 - ``params/<path>``: the parameter pytree flattened with '/'-joined keys
-  (``density_planes/0``, ..., ``basis``, ``mlp/w1``, ...);
+  (``vm_split``: ``density_planes/0``, ..., ``app_lines/2``; ``cp``:
+  ``density_lines/i``, ``app_lines/i``; ``vm``: the stacks ``planes``
+  [3, R, R, na + nd] and ``lines`` [3, R, na + nd], app channels first;
+  then ``basis`` and ``mlp/w1``, ... for the MLP heads);
 - ``aabb``;
 - ``__kwargs__``: the TensoRFConfig as JSON bytes;
 - ``alphaMask.mask`` (np.packbits of the [z, y, x] volume),
@@ -31,41 +34,78 @@ from ..models.tensorf import TensoRF, TensoRFConfig
 from ..utils.atomic_io import atomic_savez
 
 
+_MLP_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
+
+
 def _jax_leaves(field: TensoRF):
     """(parameter, [(JAX key, channel slice)]) for every parameter of the
-    field: a fused table splits into its density and app channels."""
+    field, in a fixed order (planes, lines, basis, the head's weights): a
+    fused table splits into its density and app channels; ``vm``'s tables
+    all feed the stacks ``planes`` / ``lines`` (slice None)."""
+    vm = field.cfg.model_name == "vm"
     out = []
     for name, tables in (("planes", field.planes), ("lines", field.lines)):
         for i, t in enumerate(tables):
-            nd = field.nd[i]
-            out.append((t, [(f"density_{name}/{i}", slice(0, nd)),
-                            (f"app_{name}/{i}", slice(nd, None))]))
+            d = field.nd[i]
+            out.append((t, [(name, None)] if vm else [(f"density_{name}/{i}", slice(0, d)),
+                                                       (f"app_{name}/{i}", slice(d, None))]))
     out.append((field.basis, [("basis", None)]))
-    for k in ("w1", "b1", "w2", "b2", "w3", "b3"):
-        out.append((field.mlp[k], [(f"mlp/{k}", None)]))
+    if field.mlp is not None:
+        out.extend((field.mlp[k], [(f"mlp/{k}", None)]) for k in _MLP_KEYS)
     return out
 
 
-def _split(field: TensoRF, value_of) -> dict:
-    """{JAX key: ndarray} of ``value_of(parameter)`` for every parameter,
-    copies (a training step updates the parameters in place)."""
-    flat = {}
-    for p, keys in _jax_leaves(field):
-        v = value_of(p).detach().cpu()
+def _params(field: TensoRF) -> list:
+    return [p for p, _ in _jax_leaves(field)]
+
+
+def _to_flat(field: TensoRF, values) -> dict:
+    """{JAX key: ndarray} of ``values`` (tensors aligned with
+    :func:`_params`), copies: a fused table splits into its density and
+    app channels, ``vm``'s are stacked over the axes, app channels
+    first."""
+    flat, stacks = {}, {}
+    nd = field.nd[0]
+    for (_, keys), t in zip(_jax_leaves(field), values, strict=True):
+        v = np.array(t.detach().cpu().numpy())
         for key, sl in keys:
-            flat[key] = np.array((v if sl is None else v[..., sl]).numpy())
+            if field.cfg.model_name == "vm" and key in ("planes", "lines"):
+                stacks.setdefault(key, []).append(np.concatenate([v[..., nd:], v[..., :nd]], -1))
+            else:
+                flat[key] = v if sl is None else np.array(v[..., sl])
+    flat.update({k: np.stack(v) for k, v in stacks.items()})
     return flat
+
+
+def _from_flat(cfg: TensoRFConfig, flat: dict) -> list:
+    """Tensors aligned with :func:`_params` of a ``cfg`` field, from the
+    flattened JAX tree ``flat`` (the inverse of :func:`_to_flat`)."""
+
+    def t(x):
+        return torch.from_numpy(np.array(x, np.float32))
+
+    if cfg.model_name == "vm":
+        na = int(cfg.app_n_comp[0])
+        tables = [torch.cat([t(flat[key][i])[..., na:], t(flat[key][i])[..., :na]], -1)
+                  for key in ("planes", "lines") for i in range(3)]
+    else:
+        keys = ("lines",) if cfg.model_name == "cp" else ("planes", "lines")
+        tables = [torch.cat([t(flat[f"density_{key}/{i}"]), t(flat[f"app_{key}/{i}"])], -1)
+                  for key in keys for i in range(3)]
+    mlp = [t(flat[f"mlp/{k}"]) for k in _MLP_KEYS if f"mlp/{k}" in flat]
+    return [*tables, t(flat["basis"]), *mlp]
 
 
 def params_to_jax(field: TensoRF) -> dict:
     """The field as the JAX parameter pytree, flattened: {path: ndarray}."""
-    return _split(field, lambda p: p)
+    return _to_flat(field, _params(field))
 
 
 def grads_to_jax(field: TensoRF) -> dict:
     """The field's ``.grad`` split as :func:`params_to_jax` splits the
     values (zeros for a parameter without a gradient)."""
-    return _split(field, lambda p: torch.zeros_like(p) if p.grad is None else p.grad)
+    return _to_flat(field, [torch.zeros_like(p) if p.grad is None else p.grad
+                            for p in _params(field)])
 
 
 def _flatten_tree(tree, prefix=""):
@@ -128,15 +168,12 @@ def train_state_from_jax(params_flat: dict, opt_state, cfg: Optional[TensoRFConf
     opt = make_optimizer(field, lr_init, lr_basis, factor, runtime_decay)
     count, mu, nu = _adam_moments(opt_state)
 
-    def joined(tree, keys, like):
-        parts = [torch.from_numpy(np.array(tree[k], np.float32)) for k, _ in keys]
-        return torch.cat(parts, -1).to(like.device).reshape(like.shape)
-
-    for p, keys in _jax_leaves(field):
+    cfg = field.cfg
+    for p, m, v in zip(_params(field), _from_flat(cfg, mu), _from_flat(cfg, nu)):
         opt.state[p] = {
             "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": joined(mu, keys, p),
-            "exp_avg_sq": joined(nu, keys, p),
+            "exp_avg": m.to(p.device).reshape(p.shape),
+            "exp_avg_sq": v.to(p.device).reshape(p.shape),
         }
     return TrainState(field, opt, count if step is None else int(step))
 
@@ -145,13 +182,13 @@ def train_state_to_jax(state) -> dict:
     """The state as JAX arrays: ``params`` (flattened), the Adam ``count``
     (int32), ``mu`` / ``nu`` (flattened like the params) and ``step``."""
     field, opt = state.field, state.optimizer
-    counts = {int(opt.state[p]["step"]) for p, _ in _jax_leaves(field) if p in opt.state}
+    counts = {int(opt.state[p]["step"]) for p in _params(field) if p in opt.state}
     if len(counts) > 1:
         raise ValueError(f"parameters disagree on their Adam step: {sorted(counts)}")
 
     def moment(name):
-        return _split(field, lambda p: opt.state[p][name] if p in opt.state
-                      else torch.zeros_like(p))
+        return _to_flat(field, [opt.state[p][name] if p in opt.state else torch.zeros_like(p)
+                                for p in _params(field)])
 
     return {
         "params": params_to_jax(field),
@@ -163,14 +200,27 @@ def train_state_to_jax(state) -> dict:
 
 
 def _infer_cfg(flat: dict) -> TensoRFConfig:
-    nd = tuple(int(flat[f"density_lines/{i}"].shape[1]) for i in range(3))
-    na = tuple(int(flat[f"app_lines/{i}"].shape[1]) for i in range(3))
+    """The decomposition and widths read from the shapes: ``planes`` (a
+    stack) is ``vm``, ``density_planes/*`` ``vm_split``, lines alone
+    ``cp``; a head is ``MLP_Fea_noview`` (its fea_pe from its input
+    width), none ``RGB`` for a 3-wide basis else ``SH``.  The rest keeps
+    the defaults."""
     app_dim = int(flat["basis"].shape[1])
-    in_dim, feature_c = (int(v) for v in flat["mlp/w1"].shape)
-    return TensoRFConfig(
-        density_n_comp=nd, app_n_comp=na, app_dim=app_dim,
-        fea_pe=(in_dim // app_dim - 1) // 2, feature_c=feature_c,
-    )
+    if "planes" in flat:
+        na = int(flat["basis"].shape[0]) // 3
+        nd = int(flat["planes"].shape[-1]) - na
+        kw = dict(model_name="vm", density_n_comp=(nd,) * 3, app_n_comp=(na,) * 3)
+    else:
+        model = "vm_split" if "density_planes/0" in flat else "cp"
+        nd = tuple(int(flat[f"density_lines/{i}"].shape[1]) for i in range(3))
+        na = tuple(int(flat[f"app_lines/{i}"].shape[1]) for i in range(3))
+        kw = dict(model_name=model, density_n_comp=nd, app_n_comp=na)
+    if "mlp/w1" in flat:
+        in_dim, feature_c = (int(v) for v in flat["mlp/w1"].shape)
+        kw.update(fea_pe=(in_dim // app_dim - 1) // 2, feature_c=feature_c)
+    else:
+        kw.update(shading_mode="RGB" if app_dim == 3 else "SH")
+    return TensoRFConfig(app_dim=app_dim, **kw)
 
 
 def params_from_jax(flat: dict, cfg: Optional[TensoRFConfig] = None, *,
@@ -180,25 +230,14 @@ def params_from_jax(flat: dict, cfg: Optional[TensoRFConfig] = None, *,
     shapes and the rest of the config keeps its defaults."""
     dev = resolve_device(device)
     cfg = cfg or _infer_cfg(flat)
-    if cfg.model_name != "vm_split":
-        raise NotImplementedError(f"model_name={cfg.model_name!r} is not ported yet")
-    reso = tuple(int(flat[f"density_lines/{i}"].shape[0]) for i in (2, 1, 0))
+    if cfg.model_name == "vm":
+        reso = (int(flat["planes"].shape[1]),) * 3
+    else:
+        reso = tuple(int(flat[f"density_lines/{i}"].shape[0]) for i in (2, 1, 0))
     field = TensoRF(cfg, reso, device=dev)
-
-    def t(key):
-        return torch.from_numpy(np.array(flat[key], np.float32))
-
     with torch.no_grad():
-        for i in range(3):
-            field.planes[i].copy_(
-                torch.cat([t(f"density_planes/{i}"), t(f"app_planes/{i}")], -1)
-            )
-            field.lines[i].copy_(
-                torch.cat([t(f"density_lines/{i}"), t(f"app_lines/{i}")], -1)
-            )
-        field.basis.copy_(t("basis"))
-        for k in ("w1", "b1", "w2", "b2", "w3", "b3"):
-            field.mlp[k].copy_(t(f"mlp/{k}"))
+        for p, v in zip(_params(field), _from_flat(cfg, flat), strict=True):
+            p.copy_(v)
     return field
 
 

@@ -11,8 +11,11 @@
 
 The field is updated in place (PyTorch parameters), and after a step its
 ``.grad`` holds the gradient that step applied.  The forward and backward
-of the factor features run kernels A and A' on CUDA tensors; the rest is
-plain PyTorch with autograd.
+of the factor features run kernels A and A' (``vm_split``, ``vm``) or C
+and C' (``cp``) on CUDA tensors; the rest is plain PyTorch with
+autograd.  ``compute_dtype='bf16'`` runs the feature value and lerp math
+and its backward in bf16; index math, compositing, losses, params and
+Adam stay fp32.
 """
 
 from __future__ import annotations
@@ -121,22 +124,20 @@ def make_train_step(
       gathers) is accepted and unused: the port gathers per sample.
     - R > 1 averages the gradients of R equal sub-batches; the
       batch-independent regularizers are added once, after the average.
-    - ``jitter`` (B, 1) and ``bg_coin`` (R,) are drawn from the
-      ``torch.Generator`` ``rng`` when not given (one jitter row per ray:
-      sub-batch i takes rows i·B/R to (i+1)·B/R).
+    - ``ndc``: the dense render's NDC sampler, never compacted.
+    - ``jitter`` (B, 1; NDC: (B, n_samples)) and ``bg_coin`` (R,) are
+      drawn from the ``torch.Generator`` ``rng`` when not given (one
+      jitter row per ray: sub-batch i takes rows i·B/R to (i+1)·B/R).
     - ``tv_decay`` None uses ``tv_factor**step``.
+    - ``compute_dtype`` 'fp32' or 'bf16' (the factor features and their
+      backward in bf16).
 
-    ``compute_dtype='bf16'`` and ``ndc`` are not ported (kernel A' has no
-    bf16 backward) and raise.  Runs on ``device`` (cuda unless asked)."""
+    Runs on ``device`` (cuda unless asked)."""
     assert depth_loss_type in ("mse", "ssi", "silog"), depth_loss_type
-    if compute_dtype != "fp32":
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: the bf16 backward is not ported yet"
-        )
-    if ndc:
-        raise NotImplementedError("NDC rays are not ported yet")
+    if compute_dtype not in ("fp32", "bf16"):
+        raise ValueError(f"compute_dtype must be 'fp32' or 'bf16', got {compute_dtype!r}")
     dev = resolve_device(device)
-    compact = compact_k > 0
+    compact = compact_k > 0 and not ndc
     # the depth-anchored window needs per-ray depth supervision to anchor to
     anchor = compact and depth_cap_band > 0 and weights.depth > 0
 
@@ -155,7 +156,7 @@ def make_train_step(
         else:
             out = render_ops.render_rays(
                 field, aabb, batch["rays"], n_samples=n_samples, app_k=app_k,
-                is_train=True, white_bg=white_bg, feature_dtype=compute_dtype,
+                is_train=True, white_bg=white_bg, ndc=ndc, feature_dtype=compute_dtype,
                 jitter=jitter, bg_coin=bg_coin,
             )
         with record_function("t2n.loss"):
@@ -241,9 +242,10 @@ def make_train_step(
             alpha_mask = None
         b = batch["rays"].shape[0]
         r = effective_microbatch(b, mb)
+        width = n_samples if ndc else 1
         if jitter is None:
-            jitter = torch.rand((b, 1), generator=rng, device=dev)
-        jitter = as_tensor(jitter, dev).reshape(b, 1)
+            jitter = torch.rand((b, width), generator=rng, device=dev)
+        jitter = as_tensor(jitter, dev).reshape(b, width)
         if not white_bg and bg_coin is None:
             bg_coin = torch.rand((r,), generator=rng, device=dev)
         coins = [None] * r if bg_coin is None else as_tensor(bg_coin, dev).reshape(r)

@@ -40,8 +40,14 @@ count is recomputed from the restored grid, as in the JAX trainer: a run
 resumed after the first alpha-mask milestone's shrink marches fewer
 samples than the fit did (the reference's behaviour, kept for parity).
 
-Left out, each raising ``NotImplementedError`` before any work:
-``checkpoint_backend="orbax"``, ``ndc_ray`` and the bf16 train step.
+Every decomposition (``vm_split``, ``vm``, ``cp``) and shading mode of the
+model config trains here; the first alpha-mask milestone shrinks the box
+of ``vm_split`` and ``cp`` only (``vm`` has no shrink, as in JAX), and
+switches the L1 weight for all three.  ``ndc_ray`` keeps every ray of the
+pools (no box filter), builds no mask (the steps and renders stay dense)
+and renders with the NDC sampler; ``train_compute_dtype="bf16"`` runs
+the bf16 train step.  Left out, raising ``NotImplementedError`` before
+any work: ``checkpoint_backend="orbax"`` (orbax is built on JAX).
 
 The JAX trainer overlaps the first train step's XLA compile with the
 bootstrap in a warm-up thread that swallows its failures.  PyTorch
@@ -291,12 +297,6 @@ def _check_ported(cfg: TrainConfig) -> None:
     if cfg.checkpoint_backend != "npz":
         raise NotImplementedError(
             f"checkpoint_backend={cfg.checkpoint_backend!r}: only 'npz' is ported")
-    if cfg.ndc_ray:
-        raise NotImplementedError("NDC rays are not ported yet")
-    if cfg.train_compute_dtype != "fp32":
-        raise NotImplementedError(
-            f"train_compute_dtype={cfg.train_compute_dtype!r}: the bf16 backward is not "
-            "ported yet")
 
 
 def log_folder(cfg: TrainConfig, scene_cfg: ss.SceneConfig) -> str:
@@ -373,9 +373,11 @@ def _fit(cfg, scene_cfg, services, expansion_cfg, dev, logfolder, log):
     n_samples = tf.default_n_samples(tf.grid_resolution(field), mcfg.step_ratio,
                                      cfg.n_samples_cap)
 
-    # rays that miss the box never train
-    keep = render_ops.filter_rays_bbox(aabb, scene.all_rays, device=dev)
-    pool_pre = (scene.all_rays[keep], scene.all_rgbs[keep], scene.all_depth[keep])
+    # rays that miss the box never train (NDC rays are all kept)
+    pool_pre = (scene.all_rays, scene.all_rgbs, scene.all_depth)
+    if not cfg.ndc_ray:
+        keep = render_ops.filter_rays_bbox(aabb, scene.all_rays, device=dev)
+        pool_pre = tuple(p[keep] for p in pool_pre)
     sampler_pre = ts.PermutationSampler(len(pool_pre[0]), cfg.batch_size, cfg.seed)
     n_iters_epoch1 = _epoch_iters(len(pool_pre[0]), cfg.batch_size)
     n_iters_stage1 = cfg.n_stage1 * n_iters_epoch1
@@ -425,7 +427,7 @@ def _fit(cfg, scene_cfg, services, expansion_cfg, dev, logfolder, log):
         return eval_mask if cfg.eval_compact_k != 0 else None
 
     def rebuild_eval_mask():
-        if cfg.eval_compact_k == 0 and cfg.train_compact_k <= 0:
+        if (cfg.eval_compact_k == 0 and cfg.train_compact_k <= 0) or cfg.ndc_ray:
             return None
         mask_reso = tuple(min(r, 200) for r in tf.grid_resolution(state.field))
         mask, _ = tf.update_alpha_mask(state.field, aabb, mask_reso,
@@ -627,15 +629,18 @@ def _fit(cfg, scene_cfg, services, expansion_cfg, dev, logfolder, log):
                 alpha_mask, new_aabb = tf.update_alpha_mask(state.field, aabb, mask_reso,
                                                             device=dev)
                 if global_step == cfg.update_alphamask_list[0]:
-                    # the first update shrinks the box and resets the optimizer
-                    field_sh, aabb, grid = tf.shrink(state.field, aabb, new_aabb)
-                    state, opt = ts.make_train_state(field_sh, cfg.lr_init, cfg.lr_basis,
-                                                     factor, runtime_decay=True)
-                    stage_step, lr_decay = 0, 1.0
+                    if mcfg.model_name in ("vm_split", "cp"):
+                        # the first update shrinks the box and resets the
+                        # optimizer (vm has no shrink)
+                        field_sh, aabb, grid = tf.shrink(state.field, aabb, new_aabb)
+                        state, opt = ts.make_train_state(field_sh, cfg.lr_init, cfg.lr_basis,
+                                                         factor, runtime_decay=True)
+                        stage_step, lr_decay = 0, 1.0
+                        log.scalars(global_step, {"shrink_aabb": aabb.cpu().tolist(),
+                                                  "shrink_grid": list(grid)})
+                    # the L1 weight switches for every decomposition
                     weights = weights._replace(l1=cfg.l1_weight_rest)
                     step_fn = make_step(opt)
-                    log.scalars(global_step, {"shrink_aabb": aabb.cpu().tolist(),
-                                              "shrink_grid": list(grid)})
                 # rays that never touch occupied space stop training
                 keep = render_ops.filter_rays_alpha(aabb, pool_pre[0], alpha_mask, device=dev)
                 if keep.any() and not keep.all():

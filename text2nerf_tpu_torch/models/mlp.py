@@ -1,9 +1,14 @@
 """Shading head (port of ``text2nerf_tpu/models/mlp.py``).
 
-``MLP_Fea_noview``, the default Text2NeRF head: input = [app_features,
-PE(app_features, fea_pe)], two hidden ReLU layers, sigmoid RGB.  The other
-shading modes (``MLP_Fea``, ``MLP_PE``, ``MLP``, ``SH``, ``RGB``) are not
-ported yet and raise.
+- ``MLP_Fea_noview``, the default Text2NeRF head: input = [app_features,
+  PE(app_features, fea_pe)], two hidden ReLU layers, sigmoid RGB;
+- ``MLP_Fea``: adds the view directions and their PE;
+- ``MLP_PE``: the sample positions' PE (the renderers pass the normalized
+  coordinates, as the JAX package's do) and the view directions' (the
+  head's input width is the input it gets: see :func:`mlp_input_dim`);
+- ``MLP``: the view directions' PE only;
+- ``SH``: degree-2 real SH of the view direction against 3 × 9
+  coefficients, ReLU(· + 0.5); ``RGB``: the features themselves.
 
 Weights are kept in the JAX package's ``(in, out)`` layout so the two
 packages' parameters map one to one.
@@ -15,6 +20,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from .sh import eval_sh_bases
 
 
 def positional_encoding(x, freqs: int):
@@ -31,7 +38,12 @@ def mlp_input_dim(mode: str, app_dim: int, view_pe: int, fea_pe: int, pos_pe: in
     if mode == "MLP_Fea":
         return 2 * view_pe * 3 + 2 * fea_pe * app_dim + 3 + app_dim
     if mode == "MLP_PE":
-        return (3 + 2 * view_pe * 3) + (3 + 2 * pos_pe * 3) + app_dim
+        # the input :func:`shade` builds: features, view directions and the
+        # PE of both positions and directions.  The JAX package (as the
+        # reference TensoRF's MLPRender_PE) counts 3 more, for raw positions
+        # its head never concatenates, so its MLP_PE field fails at its
+        # first shade; the port sizes the head to its input.
+        return (3 + 2 * view_pe * 3) + 2 * pos_pe * 3 + app_dim
     if mode == "MLP":
         return (3 + 2 * view_pe * 3) + app_dim
     raise ValueError(f"unknown MLP shading mode: {mode}")
@@ -89,8 +101,36 @@ def shade(
     fea_pe: int = 6,
     pos_pe: int = 6,
 ):
-    """Plain shading head; returns (N, 3) rgb in [0, 1]."""
+    """Plain shading head for every mode; returns (N, 3) rgb in [0, 1].
+    ``pts`` are the normalized sample coordinates (``MLP_PE`` only) and
+    ``viewdirs`` the ray directions (every mode but ``MLP_Fea_noview`` and
+    ``RGB``)."""
     if mode == "MLP_Fea_noview":
         x = torch.cat([features, positional_encoding(features, fea_pe)], dim=-1)
         return apply_mlp(mlp_params, x)
-    raise NotImplementedError(f"shading mode {mode!r} is not ported yet")
+    if mode == "MLP_Fea":
+        parts = [features, viewdirs]
+        if fea_pe > 0:
+            parts.append(positional_encoding(features, fea_pe))
+        if view_pe > 0:
+            parts.append(positional_encoding(viewdirs, view_pe))
+        return apply_mlp(mlp_params, torch.cat(parts, dim=-1))
+    if mode == "MLP_PE":
+        parts = [features, viewdirs]
+        if pos_pe > 0:
+            parts.append(positional_encoding(pts, pos_pe))
+        if view_pe > 0:
+            parts.append(positional_encoding(viewdirs, view_pe))
+        return apply_mlp(mlp_params, torch.cat(parts, dim=-1))
+    if mode == "MLP":
+        parts = [features, viewdirs]
+        if view_pe > 0:
+            parts.append(positional_encoding(viewdirs, view_pe))
+        return apply_mlp(mlp_params, torch.cat(parts, dim=-1))
+    if mode == "SH":
+        sh_mult = eval_sh_bases(2, viewdirs)[:, None]
+        rgb_sh = features.reshape(-1, 3, sh_mult.shape[-1])
+        return torch.relu(torch.sum(sh_mult * rgb_sh, dim=-1) + 0.5)
+    if mode == "RGB":
+        return features
+    raise ValueError(f"unknown shading mode: {mode}")

@@ -1,6 +1,12 @@
-"""TensoRF vm_split field as an ``nn.Module`` (port of
+"""TensoRF fields as an ``nn.Module`` (port of
 ``text2nerf_tpu/models/tensorf.py``: the field, its alpha mask, the
-regularizers and the optimizer groups).
+regularizers and the optimizer groups), in the three decompositions:
+
+- ``vm_split`` (TensorVMSplit, the default): separate density and app
+  plane × line factors per axis;
+- ``vm`` (TensorVM): one plane / line stack per axis holding both, on a
+  cubic grid;
+- ``cp`` (TensorCP): rank-1 lines only, Σ_c Π_i line_i[c].
 
 Layouts follow the JAX package: planes are channels-last ``[H, W, C]``,
 lines ``[L, C]``, plane i spans world axes ``MAT_MODE[i]`` (x indexes W,
@@ -8,11 +14,12 @@ y indexes H) and line i spans ``VEC_MODE[i]``.
 
 The field stores each axis's factors channel-fused, density channels
 first: ``planes[i] = density_plane_i ‖ app_plane_i`` and likewise for the
-lines.  This is the value layout of ``pack_params_fused``
-(tensorf.py:481) without the TPU's corner packing, so one table serves
-the density-only, app-only and fused feature paths of kernel A.
-
-Only ``vm_split`` is ported; ``cp`` and ``vm`` raise.
+lines (``cp`` has lines only).  This is the value layout of
+``pack_params_fused`` (tensorf.py:481) without the TPU's corner packing,
+so one table serves the density-only, app-only and fused feature paths:
+kernel A for ``vm_split`` and ``vm`` (whose JAX stack keeps the app
+channels first: :mod:`..engine.checkpoints` reorders them on the way in
+and out), kernel C for ``cp``.
 """
 
 from __future__ import annotations
@@ -27,10 +34,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import check_on, resolve_device
+from ..ops.kernels.cp_features import CPFeatures, cp_features
 from ..ops.kernels.factor_features import (
     MAT_MODE, VEC_MODE, FactorFeatures, factor_features,
 )
 from . import mlp as mlp_mod
+
+MODEL_NAMES = ("vm_split", "vm", "cp")
+SHADING_MODES = ("MLP_Fea_noview", "MLP_Fea", "MLP_PE", "MLP", "SH", "RGB")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,42 +129,64 @@ def feature2density(cfg: TensoRFConfig, feat):
 # ---------------------------------------------------------------------------
 
 
+def component_counts(cfg: TensoRFConfig):
+    """(density, app) components per axis: the config's for ``vm_split``;
+    the first entry's on every axis for ``vm`` and ``cp``, as the JAX
+    package reads them."""
+    if cfg.model_name == "vm_split":
+        return tuple(int(v) for v in cfg.density_n_comp), tuple(int(v) for v in cfg.app_n_comp)
+    nd, na = int(cfg.density_n_comp[0]), int(cfg.app_n_comp[0])
+    return (nd,) * 3, (na,) * 3
+
+
 class TensoRF(nn.Module):
-    """vm_split factors (channel-fused per axis), the basis and the head."""
+    """The factors (channel-fused per axis), the basis and, for the MLP
+    shading modes, the head (``mlp`` is None for ``SH`` and ``RGB``).
+    ``vm`` builds a cubic grid of ``grid_size[0]`` per axis, as the JAX
+    package's init does."""
 
     def __init__(self, cfg: TensoRFConfig, grid_size, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        if cfg.model_name != "vm_split":
-            raise NotImplementedError(
-                f"model_name={cfg.model_name!r} is not ported yet (vm_split only)"
-            )
-        if not cfg.shading_mode.startswith("MLP"):
-            raise NotImplementedError(
-                f"shading_mode={cfg.shading_mode!r} is not ported yet"
-            )
+        if cfg.model_name not in MODEL_NAMES:
+            raise ValueError(f"unknown model_name: {cfg.model_name!r}")
+        if cfg.shading_mode not in SHADING_MODES:
+            raise ValueError(f"unknown shading mode: {cfg.shading_mode!r}")
         self.cfg = cfg
         gs = tuple(int(g) for g in grid_size)
-        nd, na = cfg.density_n_comp, cfg.app_n_comp
+        if cfg.model_name == "vm":
+            gs = (gs[0],) * 3
+        nd, na = component_counts(cfg)
         kw = dict(device=device, dtype=dtype)
-        self.planes = nn.ParameterList(
-            nn.Parameter(torch.empty(gs[MAT_MODE[i][1]], gs[MAT_MODE[i][0]],
-                                     nd[i] + na[i], **kw))
-            for i in range(3)
-        )
+        if cfg.model_name == "cp":
+            self.planes = nn.ParameterList()
+        else:
+            self.planes = nn.ParameterList(
+                nn.Parameter(torch.empty(gs[MAT_MODE[i][1]], gs[MAT_MODE[i][0]],
+                                         nd[i] + na[i], **kw))
+                for i in range(3)
+            )
         self.lines = nn.ParameterList(
             nn.Parameter(torch.empty(gs[VEC_MODE[i]], nd[i] + na[i], **kw))
             for i in range(3)
         )
-        self.basis = nn.Parameter(torch.empty(sum(na), cfg.app_dim, **kw))
-        in_dim = mlp_mod.mlp_input_dim(
-            cfg.shading_mode, cfg.app_dim, cfg.view_pe, cfg.fea_pe, cfg.pos_pe
-        )
-        self.mlp = mlp_mod.ShadingMLP(in_dim, cfg.feature_c, **kw)
+        n_app = na[0] if cfg.model_name == "cp" else sum(na)
+        self.basis = nn.Parameter(torch.empty(n_app, cfg.app_dim, **kw))
+        self.mlp = None
+        if cfg.shading_mode.startswith("MLP"):
+            in_dim = mlp_mod.mlp_input_dim(
+                cfg.shading_mode, cfg.app_dim, cfg.view_pe, cfg.fea_pe, cfg.pos_pe
+            )
+            self.mlp = mlp_mod.ShadingMLP(in_dim, cfg.feature_c, **kw)
 
     @property
-    def nd(self) -> Tuple[int, int, int]:
-        return tuple(int(v) for v in self.cfg.density_n_comp)
+    def is_cp(self) -> bool:
+        return self.cfg.model_name == "cp"
+
+    @property
+    def nd(self) -> Tuple[int, ...]:
+        """Density channels of each axis's fused table."""
+        return component_counts(self.cfg)[0]
 
     def density_planes(self):
         return tuple(p[..., :d] for p, d in zip(self.planes, self.nd))
@@ -169,8 +202,14 @@ class TensoRF(nn.Module):
 
     def _factors(self, xn, sigma, app, dtype):
         planes, lines = tuple(self.planes), tuple(self.lines)
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (*planes, *lines)):
-            # training: kernel A forward, kernel A' (the scatter-add) backward
+        train = torch.is_grad_enabled() and any(t.requires_grad for t in (*planes, *lines))
+        if self.is_cp:
+            # kernel C forward; in training kernel C' (the scatter-add) backward
+            if train:
+                return CPFeatures.apply(xn, self.nd[0], sigma, app, dtype, *lines)
+            return cp_features(xn, lines, self.nd[0], sigma=sigma, app=app, dtype=dtype)
+        if train:
+            # kernel A forward, kernel A' (the scatter-add) backward
             return FactorFeatures.apply(xn, self.nd, sigma, app, dtype, *planes, *lines)
         return factor_features(xn, planes, lines, self.nd, sigma=sigma, app=app, dtype=dtype)
 
@@ -196,20 +235,23 @@ class TensoRF(nn.Module):
 
 def init_params(cfg: TensoRFConfig, grid_size, *, generator: torch.Generator,
                 device=None, dtype=torch.float32) -> TensoRF:
-    """A randomly initialised field: 0.1·randn factors, a bias-free basis
-    U[±1/sqrt(fan_in)] and the head's Linear init.  The statistics of the
-    JAX init, not its bits.  ``generator`` must live on ``device``."""
+    """A randomly initialised field: 0.1·randn plane and line factors
+    (0.2·randn for the CP lines), a bias-free basis U[±1/sqrt(fan_in)] and
+    the head's Linear init.  The statistics of the JAX init, not its bits.
+    ``generator`` must live on ``device``."""
     dev = resolve_device(device)
     field = TensoRF(cfg, grid_size, device=dev, dtype=dtype)
+    scale = 0.2 if field.is_cp else 0.1
     with torch.no_grad():
         for p in (*field.planes, *field.lines):
-            p.normal_(0.0, 0.1, generator=generator)
-        bound = 1.0 / math.sqrt(sum(cfg.app_n_comp))
+            p.normal_(0.0, scale, generator=generator)
+        bound = 1.0 / math.sqrt(field.basis.shape[0])
         field.basis.uniform_(-bound, bound, generator=generator)
-    field.mlp = mlp_mod.init_mlp(
-        field.mlp.w1.shape[0], cfg.feature_c, generator=generator,
-        device=dev, dtype=dtype,
-    )
+    if field.mlp is not None:
+        field.mlp = mlp_mod.init_mlp(
+            field.mlp.w1.shape[0], cfg.feature_c, generator=generator,
+            device=dev, dtype=dtype,
+        )
     return field
 
 
@@ -223,9 +265,10 @@ def param_groups(field: TensoRF):
     """Optimizer groups: the factor planes and lines are ``spatial`` (lr
     0.02), the basis and the head ``network`` (lr 1e-3), as the JAX
     package's ``param_group_labels``."""
+    mlp = [] if field.mlp is None else list(field.mlp.parameters())
     return [
         {"name": "spatial", "params": [*field.planes, *field.lines]},
-        {"name": "network", "params": [field.basis, *field.mlp.parameters()]},
+        {"name": "network", "params": [field.basis, *mlp]},
     ]
 
 
@@ -254,7 +297,8 @@ def grouping_block(aabb, grid_size, step_ratio: float, group: int = 2, max_block
 
 # ---------------------------------------------------------------------------
 # Regularizers, on the density and app channel slices of the fused tables
-# (TV divides by each group's own channel count)
+# (TV divides by each group's own channel count); CP's TV is over its
+# lines, weighted 1e-3
 # ---------------------------------------------------------------------------
 
 
@@ -266,16 +310,28 @@ def _tv_plane(plane):
     return 2.0 * (h_tv / ((h - 1) * w * c) + w_tv / (h * (w - 1) * c))
 
 
+def _tv_line(line):
+    """TV of one (L, C) line: 2·sum of squared steps / ((L - 1)·C)."""
+    l, c = line.shape
+    return 2.0 * torch.sum((line[1:] - line[:-1]) ** 2) / ((l - 1) * c)
+
+
 def tv_loss_density(field: TensoRF):
+    if field.is_cp:
+        return sum(_tv_line(l) for l in field.density_lines()) * 1e-3
     return sum(_tv_plane(p) for p in field.density_planes()) * 1e-2
 
 
 def tv_loss_app(field: TensoRF):
+    if field.is_cp:
+        return sum(_tv_line(l) for l in field.app_lines()) * 1e-3
     return sum(_tv_plane(p) for p in field.app_planes()) * 1e-2
 
 
 def density_l1(field: TensoRF):
-    """Mean |.| of the density factors."""
+    """Mean |.| of the density factors (CP: of its lines)."""
+    if field.is_cp:
+        return sum(torch.mean(torch.abs(l)) for l in field.density_lines())
     return sum(
         torch.mean(torch.abs(p)) + torch.mean(torch.abs(l))
         for p, l in zip(field.density_planes(), field.density_lines())
@@ -284,7 +340,12 @@ def density_l1(field: TensoRF):
 
 def vector_comp_diffs(field: TensoRF):
     """Orthogonality regularizer: mean |off-diagonal| of each line's
-    component Gram matrix."""
+    component Gram matrix, over the density and the app lines.  The ``vm``
+    decomposition keeps no separate density and app lines and raises, as
+    the JAX package's does (its parameters have no such keys)."""
+    if field.cfg.model_name == "vm":
+        raise ValueError("vector_comp_diffs: the vm decomposition has no separate "
+                         "density and app lines")
 
     def one(lines):
         total = 0.0
@@ -443,8 +504,9 @@ def _with_tables(field: TensoRF, grid_size, planes, lines) -> TensoRF:
         for dst, src in zip((*new.planes, *new.lines), (*planes, *lines)):
             dst.copy_(src)
         new.basis.copy_(field.basis)
-        for k in ("w1", "b1", "w2", "b2", "w3", "b3"):
-            new.mlp[k].copy_(field.mlp[k])
+        if field.mlp is not None:
+            for k in ("w1", "b1", "w2", "b2", "w3", "b3"):
+                new.mlp[k].copy_(field.mlp[k])
     return new
 
 
@@ -474,21 +536,28 @@ def upsample_volume_grid(field: TensoRF, res_target) -> TensoRF:
     the JAX package's separate density and app tables; the arithmetic is
     its grid sampler's, W before H (equal bit for bit at test sizes; at a
     300-entry axis XLA's linspace rounds some coordinates by an ulp
-    otherwise)."""
+    otherwise).  ``vm`` resizes every axis to ``res_target[0]`` (its grid
+    stays cubic); ``cp`` has lines only."""
     res = tuple(int(r) for r in res_target)
-    planes, lines = [], []
-    for i in range(3):
+    if field.cfg.model_name == "vm":
+        res = (res[0],) * 3
+    planes = []
+    for i, plane in enumerate(field.planes):
         m0, m1 = MAT_MODE[i]
-        planes.append(_resize_axis(_resize_axis(field.planes[i], 1, res[m0]), 0, res[m1]))
-        lines.append(_resize_axis(field.lines[i], 0, res[VEC_MODE[i]]))
+        planes.append(_resize_axis(_resize_axis(plane, 1, res[m0]), 0, res[m1]))
+    lines = [_resize_axis(field.lines[i], 0, res[VEC_MODE[i]]) for i in range(3)]
     return _with_tables(field, res, planes, lines)
 
 
 @torch.no_grad()
 def shrink(field: TensoRF, aabb, new_aabb):
     """Crop the factor tables to a tighter AABB, snapped to the voxel
-    lattice.  Returns (field, corrected aabb (2, 3) fp32 on the field's
-    device, new grid size)."""
+    lattice (``cp``: its lines).  Returns (field, corrected aabb (2, 3)
+    fp32 on the field's device, new grid size).  ``vm`` raises: a per-axis
+    crop would break its cubic grid, and the JAX package has no vm shrink
+    either."""
+    if field.cfg.model_name == "vm":
+        raise ValueError("shrink: the vm decomposition has no shrink (its grid is cubic)")
     aabb = np.asarray(torch.as_tensor(aabb).cpu(), np.float32)
     new_aabb = np.asarray(torch.as_tensor(new_aabb).cpu(), np.float32)
     gs = np.asarray(grid_resolution(field))
@@ -497,12 +566,11 @@ def shrink(field: TensoRF, aabb, new_aabb):
     b_r = np.round((new_aabb[1] - aabb[0]) / units).astype(np.int64) + 1
     b_r = np.minimum(b_r, gs)
 
-    planes, lines = [], []
-    for i in range(3):
+    lines = [field.lines[i][t_l[VEC_MODE[i]]: b_r[VEC_MODE[i]]] for i in range(3)]
+    planes = []
+    for i, plane in enumerate(field.planes):
         m0, m1 = MAT_MODE[i]
-        v = VEC_MODE[i]
-        lines.append(field.lines[i][t_l[v]: b_r[v]])
-        planes.append(field.planes[i][t_l[m1]: b_r[m1], t_l[m0]: b_r[m0]])
+        planes.append(plane[t_l[m1]: b_r[m1], t_l[m0]: b_r[m0]])
     new_gs = tuple(int(x) for x in (b_r - t_l))
 
     t_l_r = t_l / (gs - 1)

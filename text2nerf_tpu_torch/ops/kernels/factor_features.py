@@ -5,8 +5,9 @@
 Kernel A replaces the XLA-lowered fused factor gather of
 ``text2nerf_tpu/models/tensorf.py:538`` (and its density-only :335 and
 app-only :575 forms); kernel A' replaces XLA's autodiff of it, the
-scatter-add into the tables.  Inputs are the fused (density ‖ app) tables
-of the vm_split field: three planes ``[H_i, W_i, C_i]`` and three lines
+scatter-add into the tables, in fp32 or (the bf16 train step) with its
+products rounded to bf16 and fp32 accumulation.  Inputs are the fused
+(density ‖ app) tables of the vm_split and vm fields: three planes ``[H_i, W_i, C_i]`` and three lines
 ``[L_i, C_i]`` whose first ``nd_i`` channels are density.
 :class:`FactorFeatures` joins the two for autograd.
 
@@ -36,6 +37,8 @@ LAUNCHES = 0
 #: one warp per sample for the others)
 BWD_LAUNCHES = 0
 BWD_MODES = {"fused": 0, "density": 0, "app": 0}
+#: kernel A' launches by compute type (bf16: the bf16 train step's backward)
+BWD_DTYPES = {"fp32": 0, "bf16": 0}
 BWD_ROUTES = {"shared": 0, "generic": 0}
 #: (route, blocks, threads per block) of the last kernel A' launch
 BWD_LAST_GRID = None
@@ -183,7 +186,7 @@ def _channel_grads(n, c, nd, d_sigma, d_app_raw, app_off, like):
 
 
 def factor_features_backward_plain(xn, planes, lines, nd: Sequence[int], d_sigma,
-                                   d_app_raw):
+                                   d_app_raw, dtype: Optional[torch.dtype] = None):
     """Plain PyTorch version of kernel A': ``(d_planes, d_lines)``, fp32
     tables in the fused layout, for the gradients ``d_sigma`` (N,) and
     ``d_app_raw`` (N, Σna) of :func:`factor_features`' outputs (either may
@@ -191,8 +194,9 @@ def factor_features_backward_plain(xn, planes, lines, nd: Sequence[int], d_sigma
     ``lf`` are recomputed as the forward computes them; ``g·lf`` goes to
     the four bilinear corners and ``g·pf`` to the two line rows, in the
     order of reverse-mode autodiff of the lerps, scattered with
-    ``index_add_``.  An edge-clamped upper index lands both weights in one
-    row."""
+    ``index_add_`` in fp32.  An edge-clamped upper index lands both
+    weights in one row.  ``dtype=torch.bfloat16`` rounds g, the values,
+    the weights and every product to bf16 (the accumulation stays fp32)."""
     n = xn.shape[0]
     d_planes, d_lines = [], []
     app_off = 0
@@ -201,41 +205,50 @@ def factor_features_backward_plain(xn, planes, lines, nd: Sequence[int], d_sigma
         h, w, c = plane.shape
         length = line.shape[0]
         g = _channel_grads(n, c, nd[i], d_sigma, d_app_raw, app_off, plane)
+        if dtype is not None:
+            g = g.to(dtype)
         app_off += c - nd[i]
         m0, m1 = MAT_MODE[i]
-        pf = sample_plane(plane, xn[:, m0], xn[:, m1])
-        lf = sample_line(line, xn[:, VEC_MODE[i]])
+        pf = sample_plane(plane, xn[:, m0], xn[:, m1], dtype)
+        lf = sample_line(line, xn[:, VEC_MODE[i]], dtype)
         dpf, dlf = g * lf, g * pf
         x0, tx = _coords(xn[:, m0], w)
         y0, ty = _coords(xn[:, m1], h)
+        l0, tl = _coords(xn[:, VEC_MODE[i]], length)
+        if dtype is not None:
+            tx, ty, tl = tx.to(dtype), ty.to(dtype), tl.to(dtype)
         x1 = torch.clamp(x0 + 1, max=w - 1)
         y1 = torch.clamp(y0 + 1, max=h - 1)
         tx, ty = tx[:, None], ty[:, None]
         d_top, d_bot = dpf * (1.0 - ty), dpf * ty
         dp = plane.new_zeros((h * w, c))
-        dp.index_add_(0, y0 * w + x0, d_top * (1.0 - tx))
-        dp.index_add_(0, y0 * w + x1, d_top * tx)
-        dp.index_add_(0, y1 * w + x0, d_bot * (1.0 - tx))
-        dp.index_add_(0, y1 * w + x1, d_bot * tx)
-        l0, tl = _coords(xn[:, VEC_MODE[i]], length)
+        dp.index_add_(0, y0 * w + x0, (d_top * (1.0 - tx)).float())
+        dp.index_add_(0, y0 * w + x1, (d_top * tx).float())
+        dp.index_add_(0, y1 * w + x0, (d_bot * (1.0 - tx)).float())
+        dp.index_add_(0, y1 * w + x1, (d_bot * tx).float())
         l1 = torch.clamp(l0 + 1, max=length - 1)
         tl = tl[:, None]
         dl = line.new_zeros((length, c))
-        dl.index_add_(0, l0, dlf * (1.0 - tl))
-        dl.index_add_(0, l1, dlf * tl)
+        dl.index_add_(0, l0, (dlf * (1.0 - tl)).float())
+        dl.index_add_(0, l1, (dlf * tl).float())
         d_planes.append(dp.reshape(h, w, c))
         d_lines.append(dl)
     return tuple(d_planes), tuple(d_lines)
 
 
 def factor_features_backward(xn, planes, lines, nd: Sequence[int], d_sigma=None,
-                             d_app_raw=None, *, out=None):
+                             d_app_raw=None, *, dtype: Optional[torch.dtype] = None,
+                             out=None):
     """Gradients of the tables for the output gradients ``d_sigma`` (N,)
     and ``d_app_raw`` (N, Σna) (either may be None, not both): fp32 tables
-    in the fused layout.  ``out=(d_planes, d_lines)`` accumulates into
-    those tables instead of fresh zeroed ones."""
+    in the fused layout.  ``dtype=torch.bfloat16`` is the backward of the
+    bf16 forward (products rounded to bf16, accumulated in fp32).
+    ``out=(d_planes, d_lines)`` accumulates into those tables instead of
+    fresh zeroed ones."""
     nd = tuple(int(v) for v in nd)
-    _check(xn, planes, lines, nd, d_sigma is not None, d_app_raw is not None, None)
+    _check(xn, planes, lines, nd, d_sigma is not None, d_app_raw is not None, dtype)
+    if dtype == torch.float32:
+        dtype = None
     n = xn.shape[0]
     na_total = sum(p.shape[2] - d for p, d in zip(planes, nd))
     if d_sigma is not None and (d_sigma.shape != (n,) or d_sigma.dtype != torch.float32):
@@ -251,7 +264,8 @@ def factor_features_backward(xn, planes, lines, nd: Sequence[int], d_sigma=None,
             if t.shape != ref.shape or t.dtype != torch.float32 or t.device != xn.device:
                 raise ValueError("out tables must match the tables' shapes, fp32, same device")
     if xn.device.type == "cpu":
-        got = factor_features_backward_plain(xn, planes, lines, nd, d_sigma, d_app_raw)
+        got = factor_features_backward_plain(xn, planes, lines, nd, d_sigma, d_app_raw,
+                                             dtype)
         if out is None:
             return got
         for t, g in zip((*out[0], *out[1]), (*got[0], *got[1])):
@@ -259,10 +273,11 @@ def factor_features_backward(xn, planes, lines, nd: Sequence[int], d_sigma=None,
         return out
     if xn.device.type != "cuda":
         raise ValueError(f"factor_features_backward: no kernel for device {xn.device}")
-    return _launch_backward(xn, planes, lines, nd, d_sigma, d_app_raw, out)
+    return _launch_backward(xn, planes, lines, nd, d_sigma, d_app_raw,
+                            dtype == torch.bfloat16, out)
 
 
-def _launch_backward(xn, planes, lines, nd, d_sigma, d_app_raw, out):
+def _launch_backward(xn, planes, lines, nd, d_sigma, d_app_raw, bf16, out):
     global BWD_LAUNCHES, BWD_LAST_GRID
     d_sigma = None if d_sigma is None else d_sigma.contiguous()
     d_app_raw = None if d_app_raw is None else d_app_raw.contiguous()
@@ -300,13 +315,14 @@ def _launch_backward(xn, planes, lines, nd, d_sigma, d_app_raw, out):
             ctypes.cast(dims, ctypes.c_void_p), sum(na),
             _build.ptr(d_sigma), _build.ptr(d_app_raw),
             *(_build.ptr(t) for t in out[0]), *(_build.ptr(t) for t in out[1]),
-            int(zero), ctypes.cast(info, ctypes.c_void_p), _build.stream_of(xn),
+            int(zero), int(bf16), ctypes.cast(info, ctypes.c_void_p), _build.stream_of(xn),
         )
     _build.check(err, "factor_features_backward launch")
     BWD_LAUNCHES += 1
     mode = "fused" if d_sigma is not None and d_app_raw is not None else (
         "density" if d_sigma is not None else "app")
     BWD_MODES[mode] += 1
+    BWD_DTYPES["bf16" if bf16 else "fp32"] += 1
     route = _ROUTE_NAMES[info[0]]
     BWD_ROUTES[route] += 1
     BWD_LAST_GRID = (route, info[1], info[2])
@@ -319,7 +335,7 @@ def _lib_backward():
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         fn.argtypes = [vp, ctypes.c_int, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int,
-                       vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int, vp, vp]
+                       vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, vp, vp]
         fn.restype = ctypes.c_int
     return lib
 
@@ -336,10 +352,6 @@ class FactorFeatures(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xn, nd, sigma, app, dtype, *tables):
-        if dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "kernel A' has no bf16 backward: train with compute dtype fp32"
-            )
         planes, lines = tables[:3], tables[3:]
         with torch.no_grad():
             out = factor_features(
@@ -347,7 +359,7 @@ class FactorFeatures(torch.autograd.Function):
                 nd, sigma=sigma, app=app, dtype=dtype,
             )
         ctx.save_for_backward(xn, *tables)
-        ctx.nd = tuple(int(v) for v in nd)
+        ctx.nd, ctx.dtype = tuple(int(v) for v in nd), dtype
         ctx.set_materialize_grads(False)
         return out
 
@@ -359,6 +371,7 @@ class FactorFeatures(torch.autograd.Function):
             return (None,) * (5 + len(tables))
         d_planes, d_lines = factor_features_backward(
             xn, tuple(tables[:3]), tuple(tables[3:]), ctx.nd, d_sigma, d_app_raw,
+            dtype=ctx.dtype,
         )
         grads = [g if need else None for g, need in zip((*d_planes, *d_lines), needs)]
         return (None, None, None, None, None, *grads)

@@ -1,4 +1,5 @@
-"""Camera rays (port of part of ``text2nerf_tpu/ops/rays.py``).
+"""Camera rays (port of part of ``text2nerf_tpu/ops/rays.py``), the AABB
+slab test and the NDC helpers.
 
 Pinhole camera looking along +z with image y down: the direction of pixel
 (i, j) is ``[(i + .5 - cx)/fx, (j + .5 - cy)/fy, 1]``, L2-normalized.
@@ -109,3 +110,52 @@ def aabb_slab_interval(rays_o, rays_d, aabb):
     t_min = torch.amax(torch.minimum(rate_a, rate_b), dim=-1)
     t_max = torch.amin(torch.maximum(rate_a, rate_b), dim=-1)
     return t_min, t_max
+
+
+def ndc_rays(h: int, w: int, focal, near, rays_o, rays_d, blender: bool = False):
+    """Rays projected to NDC space.  ``blender=True`` takes the sign
+    convention of ``ndc_rays_blender`` (origins moved to z = -near), else
+    ``ndc_rays`` (z = near).  Returns (rays_o, rays_d), each (..., 3)."""
+    sgn = -1.0 if blender else 1.0
+    if blender:
+        t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    else:
+        t = (near - rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    o0 = sgn / (w / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = sgn / (h / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 - sgn * 2.0 * near / rays_o[..., 2]
+    d0 = sgn / (w / (2.0 * focal)) * (
+        rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2]
+    )
+    d1 = sgn / (h / (2.0 * focal)) * (
+        rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2]
+    )
+    d2 = sgn * 2.0 * near / rays_o[..., 2]
+    return torch.stack([o0, o1, o2], -1), torch.stack([d0, d1, d2], -1)
+
+
+def ndc_bbox(all_rays):
+    """AABB (2, 3) of the rays' near points (origins) and far points
+    (origin + direction) in NDC space."""
+    o = all_rays[..., :3].reshape(-1, 3)
+    far = (all_rays[..., :3] + all_rays[..., 3:6]).reshape(-1, 3)
+    lo = torch.minimum(o.amin(dim=0), far.amin(dim=0))
+    hi = torch.maximum(o.amax(dim=0), far.amax(dim=0))
+    return torch.stack([lo, hi])
+
+
+def depth2dist(z_vals, cos_angle):
+    """Sample depths → inter-sample distances (the last 1e10) scaled by the
+    ray's angle."""
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], -1)
+    return dists * cos_angle[..., None]
+
+
+def ndc2dist(ndc_pts, cos_angle):
+    """An NDC point chain (B, S, 3) → distances (B, S), the last one
+    1e10·cos_angle."""
+    dists = torch.linalg.norm(ndc_pts[:, 1:] - ndc_pts[:, :-1], dim=-1)
+    return torch.cat([dists, 1e10 * cos_angle[..., None]], -1)

@@ -18,10 +18,15 @@
   training pool meet the box / the mask's occupied space (host bool
   arrays, for the trainer's pool filtering).
 
-Factor features go through kernel A (and, in training, its backward
-kernel A') on CUDA tensors, and the eval ``MLP_Fea_noview`` head through
-kernel B; the train head is plain ``torch`` matmuls under autograd, as the
-JAX package's training runs its XLA head.  Sample placement, occupancy,
+Factor features go through kernel A (``vm_split`` and ``vm``) or kernel C
+(``cp``), and in training through their backward kernels A' and C', on
+CUDA tensors; the eval ``MLP_Fea_noview`` head goes through kernel B.  The
+train head, and every other shading mode, is plain ``torch`` under
+autograd, as the JAX package runs its XLA head; the heads get the
+normalized sample coordinates and the view directions.  ``ndc=True``
+takes the NDC sampler of the dense renderer (``linspace(near, far)``
+depths, a per-sample jitter in training, distances scaled by the ray
+norm); the compacted renderers take world rays only.  Sample placement, occupancy,
 the live selection, compositing and the escalation bookkeeping are plain
 PyTorch in this port slice.  Randomness (jitter, the background coin) is
 drawn from a ``torch.Generator`` unless the caller passes it in.
@@ -50,17 +55,20 @@ class RenderOutput(NamedTuple):
     acc: torch.Tensor      # (B,) accumulated opacity
 
 
-def _shade(cfg, field, app_feat, is_train: bool = False):
-    """Shading head: in eval kernel B on CUDA tensors (its plain version on
-    the CPU); in training the autograd head."""
-    if cfg.shading_mode != "MLP_Fea_noview":
-        raise NotImplementedError(
-            f"shading mode {cfg.shading_mode!r} is not ported yet"
-        )
-    if is_train:
-        return mlp_mod.shade(cfg.shading_mode, field.mlp, None, None, app_feat,
-                             fea_pe=cfg.fea_pe)
-    return shading_mlp.shade_fea_noview(field.mlp, app_feat, cfg.fea_pe)
+def _shade(cfg, field, xn, dirs, app_feat, is_train: bool = False):
+    """Shading head at normalized coords ``xn`` (N, 3) along directions
+    ``dirs`` (N, 3): the eval ``MLP_Fea_noview`` head is kernel B on CUDA
+    tensors (its plain version on the CPU); training and every other mode
+    run the plain head (under autograd in training)."""
+    if not is_train and cfg.shading_mode == "MLP_Fea_noview":
+        return shading_mlp.shade_fea_noview(field.mlp, app_feat, cfg.fea_pe)
+    return mlp_mod.shade(cfg.shading_mode, field.mlp, xn, dirs, app_feat,
+                         view_pe=cfg.view_pe, fea_pe=cfg.fea_pe, pos_pe=cfg.pos_pe)
+
+
+def _dirs(rays_d, k: int):
+    """Each ray's direction repeated for its ``k`` shaded samples, (B·k, 3)."""
+    return rays_d[:, None].expand(-1, k, 3).reshape(-1, 3)
 
 
 def _feature_dtype(feature_dtype: str):
@@ -117,17 +125,37 @@ def _composite(cfg, weights, acc, w_top, rgb_a, z, rays, white_bg, train=False,
     return rgb, depth
 
 
-def _draws(b, device, jitter, bg_coin, generator, white_bg):
-    """The train renders' per-ray jitter (B, 1) and background coin: the
-    caller's, else drawn from ``generator`` (torch's default one if
-    None)."""
+def _draws(b, device, jitter, bg_coin, generator, white_bg, width: int = 1):
+    """The train renders' jitter (B, ``width``: one per ray, or one per
+    sample for NDC) and background coin: the caller's, else drawn from
+    ``generator`` (torch's default one if None)."""
     if jitter is None:
-        jitter = torch.rand((b, 1), generator=generator, device=device)
+        jitter = torch.rand((b, width), generator=generator, device=device)
     if not white_bg and bg_coin is None:
         bg_coin = torch.rand((), generator=generator, device=device)
     if bg_coin is not None:
         bg_coin = torch.as_tensor(bg_coin, dtype=torch.float32, device=device)
-    return jitter.to(device=device, dtype=torch.float32).reshape(b, 1), bg_coin
+    return jitter.to(device=device, dtype=torch.float32).reshape(b, width), bg_coin
+
+
+def _march_ndc(cfg, rays, n_samples, jitter=None):
+    """The NDC sampler: depths ``linspace(near, far)`` for every ray, in
+    training each sample offset by ``jitter`` (B, S) · (far - near) / S;
+    the view directions are the normalized ray directions and the
+    distances are scaled by the ray norm."""
+    rays_o, rays_d = rays[:, :3], rays[:, 3:6]
+    near = torch.tensor(cfg.near, dtype=torch.float32, device=rays.device)
+    far = torch.tensor(cfg.far, dtype=torch.float32, device=rays.device)
+    z_vals = tf._linspace(near, far, n_samples)[None, :].expand(rays.shape[0], -1)
+    if jitter is not None:
+        z_vals = z_vals + jitter * ((cfg.far - cfg.near) / n_samples)
+    rays_norm = torch.sqrt(torch.sum(rays_d * rays_d, dim=-1, keepdim=True))
+    viewdirs = rays_d / rays_norm
+    pts = rays_o[:, None] + rays_d[:, None] * z_vals[..., None]
+    dists = torch.cat(
+        [z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1
+    ) * rays_norm
+    return viewdirs, z_vals, pts, dists
 
 
 def render_rays(
@@ -153,27 +181,31 @@ def render_rays(
 
     Eval (``is_train=False``, under no_grad): samples at z <=
     ``eval_z_min`` are culled too, and the head is kernel B.
-    Train: each ray's steps are offset by ``jitter`` (B, 1) in [0, 1), no
-    z-cull, the autograd head, and with ``white_bg=False`` a white
-    background when ``bg_coin`` < 0.5; both are drawn from ``generator``
-    when not given.  Density is gathered per sample: the JAX package's
-    grouped density gathers (``density_group`` > 1) read the same values
-    up to one ulp of its hat weights."""
-    if ndc:
-        raise NotImplementedError("NDC rays are not ported yet")
+    Train: each ray's steps are offset by ``jitter`` (B, 1) in [0, 1)
+    (NDC: each sample's, (B, S)), no z-cull, the autograd head, and with
+    ``white_bg=False`` a white background when ``bg_coin`` < 0.5; both are
+    drawn from ``generator`` when not given.  Density is gathered per
+    sample: the JAX package's grouped density gathers (``density_group`` >
+    1) read the same values up to one ulp of its hat weights."""
     cfg = field.cfg
     fdt = _feature_dtype(feature_dtype)
     b = rays.shape[0]
     if is_train:
-        jitter, bg_coin = _draws(b, rays.device, jitter, bg_coin, generator, white_bg)
+        jitter, bg_coin = _draws(b, rays.device, jitter, bg_coin, generator, white_bg,
+                                 n_samples if ndc else 1)
     with torch.no_grad(), record_function("t2n.select"):
-        rays_o, rays_d, _, _, z_vals = _march(
-            cfg, field, aabb, rays, n_samples, jitter if is_train else None
-        )
-        pts = rays_o[:, None] + rays_d[:, None] * z_vals[..., None]
-        dists = torch.cat(
-            [z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1
-        )
+        if ndc:
+            viewdirs, z_vals, pts, dists = _march_ndc(
+                cfg, rays, n_samples, jitter if is_train else None)
+        else:
+            rays_o, rays_d, _, _, z_vals = _march(
+                cfg, field, aabb, rays, n_samples, jitter if is_train else None
+            )
+            viewdirs = rays_d
+            pts = rays_o[:, None] + rays_d[:, None] * z_vals[..., None]
+            dists = torch.cat(
+                [z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1
+            )
         valid = _in_aabb(pts, aabb)
         if alpha_mask is not None:
             am = _nearest_alpha_lookup(alpha_mask, pts.reshape(-1, 3)).reshape(b, -1)
@@ -198,7 +230,8 @@ def render_rays(
         with record_function("t2n.features"):
             app_feat = field.app_feature(xn_k.reshape(-1, 3), fdt)
         with record_function("t2n.head"):
-            rgb_k = _shade(cfg, field, app_feat, is_train).reshape(b, k, 3)
+            rgb_k = _shade(cfg, field, xn_k.reshape(-1, 3), _dirs(viewdirs, k), app_feat,
+                           is_train).reshape(b, k, 3)
         with record_function("t2n.composite"):
             rgb, depth = _composite(cfg, weights, acc, w_top, rgb_k, z_vals, rays, white_bg,
                                     is_train, bg_coin)
@@ -400,13 +433,14 @@ def _render_rays_compact(
 
     if shade_all:
         k2 = k
-        w_top = weights
+        w_top, xn_a = weights, xn_k
     else:
         k2 = min(app_k, k)
         w_top, aidx = torch.topk(weights, k2, dim=-1)
         xn_a = torch.gather(xn_k, 1, aidx[..., None].expand(-1, -1, 3))
         app_feat = field.app_feature(xn_a.reshape(-1, 3), fdt)
-    rgb_a = _shade(cfg, field, app_feat).reshape(b, k2, 3)
+    rgb_a = _shade(cfg, field, xn_a.reshape(-1, 3), _dirs(rays_d, k2), app_feat).reshape(
+        b, k2, 3)
     rgb, depth = _composite(cfg, weights, acc, w_top, rgb_a, z_k, rays, white_bg)
     out = RenderOutput(rgb=rgb, depth=depth, z_vals=z_k, weights=weights, acc=acc)
     if overflow_tol is not None:
@@ -541,7 +575,7 @@ def _render_rays_train_compact(
 
     if shade_all:
         k2 = kg * g
-        w_top = weights
+        w_top, xn_a = weights, xn_k
     else:
         k2 = min(app_k, kg * g)
         with record_function("t2n.select"):
@@ -550,7 +584,8 @@ def _render_rays_train_compact(
         with record_function("t2n.features"):
             app_feat = field.app_feature(xn_a.reshape(-1, 3), fdt)
     with record_function("t2n.head"):
-        rgb_a = _shade(cfg, field, app_feat, is_train=True).reshape(b, k2, 3)
+        rgb_a = _shade(cfg, field, xn_a.reshape(-1, 3), _dirs(rays_d, k2), app_feat,
+                       is_train=True).reshape(b, k2, 3)
     with record_function("t2n.composite"):
         rgb, depth = _composite(cfg, weights, acc, w_top, rgb_a, z_k, rays, white_bg, True,
                                 bg_coin)
