@@ -21,13 +21,20 @@ Phases (any failure exits nonzero before the last line):
    tolerance relative to each table's largest gradient, with the
    reductions it issues counted on the host); kernel A' in bf16 on the
    same adversarial inputs and at the train step's shape; kernels C and
-   C' on a TensorCP field at its published widths (96 / 288) on the 300^3
-   grid, 1M samples at the train step's shape, fp32 and bf16, three
-   output modes, C' also on adversarial inputs (every edge, one cell, a
-   1-component CP, zero gradients, accumulation, the generic route);
-   with times, the library yardstick and the bound (kernel B's on the
-   3xTF32 tensor-core route it takes, the fp32 CUDA-core bound printed
-   beside it);
+   C' on adversarial inputs (every edge, one cell, a 1-component CP, rays
+   of 259 steps with an odd n, whole runs of zero gradient, each ray's
+   samples shuffled, no gradient at all, accumulation, the generic
+   route), then on a TensorCP field at its published widths (96 / 288)
+   on the 300^3 grid at three shapes: 1M samples at the train step's
+   shape, and a TensorCP dense step's two launches (density-only over
+   16384 rays x 259 ray-ordered samples, app-only over each ray's top 64
+   samples by weight), fp32 and bf16, three output modes, C bit for bit
+   reported, each shape timed in its own mode with the line traffic
+   worked out from the samples; then C and C' beside their first design
+   (tools/kernel_baselines/cp_features_v1.cu), both timed by
+   tools/kernel_variants.py in one run; with times, the library yardstick
+   and the bound (kernel B's on the 3xTF32 tensor-core route it takes,
+   the fp32 CUDA-core bound printed beside it);
 4. serving path: the serving configuration of text2nerf_tpu_torch/data/
    synthetic.py, a full-width room-shell field from a seeded generator,
    saved and loaded through the npz checkpoint, a 200^3 pool-5 alpha mask,
@@ -155,7 +162,9 @@ Phases (any failure exits nonzero before the last line):
    at TensoRF's published widths (--n_lamb_sigma 96 --n_lamb_sh 288,
    MLP_Fea, fea_pe / view_pe 2, L1 1e-5): kernels C and C' launched, the
    seed view 5 dB above the untrained field, the render-only branch's
-   frames equal to the fit's; (2) TensorVM (16 / 48, SH on the cubic
+   frames equal to the fit's, its profiled dense step's device time
+   split into kernels C and C', the head, topk and the rest; (2)
+   TensorVM (16 / 48, SH on the cubic
    300^3 grid): kernels A and A' launched, the same PSNR gate; (3) the
    shipped config with --train_compute_dtype bf16: kernels A, A' in bf16
    and B launched, the same PSNR gate, then phase 5's configuration in
@@ -312,7 +321,8 @@ def _bound(bytes_moved, flops, peak_flops=FP32_FLOPS):
 
 def _chunk_samples(rays, aabb, field, n, gen, k=K_A):
     """xn at a main path's sample layout: n / k rays of k consecutive
-    march steps each, from a seeded start step per ray."""
+    march steps each, from a seeded start step per ray (the first step
+    when k is the whole march)."""
     import torch
     from text2nerf_tpu_torch.models import tensorf as tf
     from text2nerf_tpu_torch.ops.rays import aabb_slab_entry
@@ -322,7 +332,10 @@ def _chunk_samples(rays, aabb, field, n, gen, k=K_A):
     step = tf.step_size(aabb, reso, field.cfg.step_ratio)
     n_samples = tf.default_n_samples(reso, field.cfg.step_ratio)
     t_min = aabb_slab_entry(r[:, :3], r[:, 3:], aabb, field.cfg.near, field.cfg.far)
-    s0 = torch.randint(0, n_samples - k, (r.shape[0], 1), generator=gen, device=r.device)
+    if k < n_samples:
+        s0 = torch.randint(0, n_samples - k, (r.shape[0], 1), generator=gen, device=r.device)
+    else:
+        s0 = torch.zeros((r.shape[0], 1), dtype=torch.int64, device=r.device)
     steps = (s0 + torch.arange(k, device=r.device)).float()
     z = t_min[:, None] + step * steps
     pts = r[:, None, :3] + r[:, None, 3:] * z[..., None]
@@ -483,7 +496,7 @@ def phase_kernels(dev, report):
         bound_by=by_b, library_ms=lib_b,
     )
     phase_backward(field, aabb, rays, gen, flush, report)
-    phase_cp_kernels(dev, report, rays, aabb, gen, flush)
+    phase_cp_kernels(dev, report, rays, aabb, gen, flush, field)
     del field, flush_buf, x
     torch.cuda.empty_cache()
 
@@ -795,6 +808,15 @@ def phase_backward_bf16(field, aabb, rays, gen, flush, report, xn, bound, by):
 
 
 CP_WIDTHS = (96, 288)  # TensorCP's published n_lamb_sigma, n_lamb_sh
+CP_APP_K = 64  # the CLI's app_k: a dense step shades each ray's top 64 samples by weight
+CP_PLAIN_CHUNK = 1 << 19  # samples per call of a plain version at the large shapes
+# the output modes kernels C and C' take at each shape of phase 3: the
+# fused 1M samples, then a TensorCP dense step's two launches
+CP_SHAPE_MODES = {"fused": (True, True), "density": (True, False), "app": (False, True)}
+CP_MODES = (("fused", True, True), ("density", True, False), ("app", False, True))
+# the first design of kernels C and C', timed beside this one by
+# tools/kernel_variants.py (the package with csrc/cp_features.cu replaced)
+CP_BASELINE = "tools/kernel_baselines/cp_features_v1.cu"
 
 
 def _grid_sample_cp(xn, lines_nc1, nd):
@@ -814,67 +836,151 @@ def _grid_sample_cp(xn, lines_nc1, nd):
     return prod[:nd].sum(0), prod[nd:].T
 
 
-def phase_cp_kernels(dev, report, rays, aabb, gen, flush):
-    """Kernels C and C' against their plain versions: a TensorCP field at
-    the published widths (96 density and 288 app components) on the 300^3
-    grid, 1M samples at the train step's shape (16384 rays x 64
-    consecutive steps), both compute types and three output modes; C'
-    also on adversarial inputs (every edge, one cell, a 1-component CP,
-    accumulation, lines too long for shared memory: the generic route);
-    with times, the grid_sample yardsticks and the bounds."""
-    import torch
+def _cp_field(dev, gen):
+    """A TensorCP field at the published widths (96 density and 288 app
+    components, MLP_Fea) on the 300^3 grid, seeded random weights."""
     from text2nerf_tpu_torch.models import tensorf as tf
-    from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
 
     cfg = tf.TensoRFConfig(model_name="cp", density_n_comp=(CP_WIDTHS[0],),
                            app_n_comp=(CP_WIDTHS[1],), shading_mode="MLP_Fea", fea_pe=2)
-    field = tf.init_params(cfg, FULL_RESO, generator=gen, device=dev).requires_grad_(False)
-    lines, nd = tuple(field.lines), CP_WIDTHS[0]
-    n = N_RAYS_TRAIN * K_TRAIN
-    xn = _chunk_samples(rays, aabb, field, n, gen, K_TRAIN)
-    bf = torch.bfloat16
-    for dtype_name, dtype in (("fp32", None), ("bf16", bf)):
-        for mode, sig, app in (("fused", True, True), ("density", True, False),
-                               ("app", False, True)):
+    return tf.init_params(cfg, FULL_RESO, generator=gen, device=dev).requires_grad_(False)
+
+
+def _cp_shapes(field, shell, aabb, rays, gen):
+    """Kernels C and C''s samples at three shapes, {name: xn}: "fused",
+    1M samples at the compacted train step's shape (16384 rays of one view
+    x 64 consecutive steps); "density", a TensorCP dense step's
+    density-only launches (ops/render.py render_rays_train, one
+    sub-batch): 16384 rays of the train sampler, each with every one of
+    its 259 march steps, in ray order; "app", its app-only launches: each
+    of those rays' top CP_APP_K samples by weight in torch.topk's order
+    (ops/render.py:228), the weights composited from the room shell's
+    density (phase 3's serving field, a far wall), so a ray's top samples
+    gather at a surface as a fitted scene's do."""
+    import torch
+    from text2nerf_tpu_torch.data import synthetic as syn
+    from text2nerf_tpu_torch.engine.train_step import PermutationSampler
+    from text2nerf_tpu_torch.models import tensorf as tf
+    from text2nerf_tpu_torch.ops.kernels import factor_features as ff
+    from text2nerf_tpu_torch.ops.render import raw2alpha
+
+    dev = rays.device
+    shapes = {"fused": _chunk_samples(rays, aabb, field, N_RAYS_TRAIN * K_TRAIN, gen, K_TRAIN)}
+    pool = syn.training_rays(dev)
+    ids = torch.as_tensor(PermutationSampler(pool.shape[0], N_RAYS_TRAIN, seed=1).next_ids(),
+                          device=dev)
+    reso = tf.grid_resolution(field)
+    n_samples = tf.default_n_samples(reso, field.cfg.step_ratio)
+    xn = _chunk_samples(pool[ids], aabb, field, N_RAYS_TRAIN * n_samples, gen, n_samples)
+    shapes["density"] = xn
+    planes, lines, nd = tuple(shell.planes), tuple(shell.lines), shell.nd
+    feat = torch.cat([ff.factor_features_plain(x, planes, lines, nd, app=False)[0]
+                      for x in xn.split(CP_PLAIN_CHUNK)])
+    sigma = tf.feature2density(shell.cfg, feat)
+    sigma = torch.where((xn.abs() < 1.0).all(1), sigma, 0.0).view(N_RAYS_TRAIN, n_samples)
+    step = float(tf.step_size(aabb, reso, field.cfg.step_ratio))
+    dists = torch.full_like(sigma, step * shell.cfg.distance_scale)
+    dists[:, -1] = 0.0
+    _, weights, _ = raw2alpha(sigma, dists)
+    idx = torch.topk(weights, CP_APP_K, dim=-1)[1]
+    shapes["app"] = torch.gather(xn.view(N_RAYS_TRAIN, n_samples, 3), 1,
+                                 idx[..., None].expand(-1, -1, 3)).reshape(-1, 3).contiguous()
+    return shapes
+
+
+def _cp_grads(xn, na, gen, shape):
+    """Random output gradients (d_sigma, d_app_raw); at a dense step's
+    shapes zero on the samples clamped to a face of the box (the step's
+    samples outside it, which it leaves out of sigma)."""
+    import torch
+
+    n = xn.shape[0]
+    d_sig = torch.randn(n, generator=gen, device=xn.device)
+    d_app = torch.randn(n, na, generator=gen, device=xn.device)
+    if shape != "fused":
+        outside = (xn.abs() == 1.0).any(1)
+        d_sig[outside] = 0.0
+        d_app[outside] = 0.0
+    return d_sig, d_app
+
+
+def _cp_plain(xn, lines, nd, sig, app, dtype=None):
+    """cp_features_plain over chunks of the samples (each sample's values
+    are its own, so the same bits)."""
+    import torch
+    from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
+
+    parts = [cpk.cp_features_plain(x, lines, nd, sigma=sig, app=app, dtype=dtype)
+             for x in xn.split(CP_PLAIN_CHUNK)]
+    return tuple(None if parts[0][k] is None else torch.cat([p[k] for p in parts])
+                 for k in range(2))
+
+
+def _cp_plain_backward(xn, lines, nd, d_sig, d_app, dtype=None):
+    """cp_features_backward_plain summed over chunks of the samples."""
+    from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
+
+    total = None
+    for lo in range(0, xn.shape[0], CP_PLAIN_CHUNK):
+        sl = slice(lo, lo + CP_PLAIN_CHUNK)
+        part = cpk.cp_features_backward_plain(
+            xn[sl], lines, nd, None if d_sig is None else d_sig[sl],
+            None if d_app is None else d_app[sl], dtype)
+        total = part if total is None else tuple(t.add_(p) for t, p in zip(total, part))
+    return total
+
+
+def _cp_hold(what, xn, lines, nd, d_sig, d_app, route, accumulate=False):
+    """Kernel C against its plain version (bit for bit is reported, the gate
+    is TOL["cp"] of the largest value) and kernel C' within TOL["bwd"] of
+    each line's largest gradient, in both compute types and three modes,
+    C' on ``route``; with ``accumulate`` C' adds twice into tables that
+    hold half the plain gradient.  Returns (C's worst |error|, C' worst relative error, C bit-equal
+    everywhere)."""
+    import torch
+    from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
+
+    worst_c = worst_b = 0.0
+    exact = True
+    for dtype_name, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        for mode, sig, app in CP_MODES:
             got = cpk.cp_features(xn, lines, nd, sigma=sig, app=app, dtype=dtype)
-            ref = cpk.cp_features_plain(xn, lines, nd, sigma=sig, app=app, dtype=dtype)
+            ref = _cp_plain(xn, lines, nd, sig, app, dtype)
             torch.cuda.synchronize()
             scale = max(float(r.abs().max()) for r in ref if r is not None)
             err = max(float((g - r).abs().max()) for g, r in zip(got, ref) if g is not None)
-            print(f"kernel C {dtype_name:4s} {mode:7s} max_abs_err {err:.3e} (tol "
-                  f"{TOL['cp'] * scale:.3e}: {TOL['cp']:g} of max |value| {scale:.4g})",
-                  flush=True)
-            _require(err <= TOL["cp"] * scale, f"kernel C {dtype_name} {mode}: {err}")
-            if dtype is None and mode == "fused":
-                err_c = err
+            exact = exact and all(torch.equal(g, r) for g, r in zip(got, ref) if g is not None)
+            _require(err <= TOL["cp"] * scale,
+                     f"kernel C {what} {dtype_name} {mode}: {err} > {TOL['cp']} x {scale}")
+            worst_c = max(worst_c, err)
+            del got, ref
+            ds, da = (d_sig if sig else None), (d_app if app else None)
+            ref = _cp_plain_backward(xn, lines, nd, ds, da, dtype)
+            if accumulate:
+                base = tuple(0.5 * t for t in ref)
+                out = tuple(t.clone() for t in base)
+                for _ in range(2):
+                    cpk.cp_features_backward(xn, lines, nd, ds, da, dtype=dtype, out=out)
+                got = out
+                ref = tuple(b + 2 * r for b, r in zip(base, ref))
+            else:
+                got = cpk.cp_features_backward(xn, lines, nd, ds, da, dtype=dtype)
+            torch.cuda.synchronize()
+            _require(cpk.BWD_LAST_GRID[0] == route,
+                     f"kernel C' {what}: route {cpk.BWD_LAST_GRID[0]}, not {route}")
+            err = _bwd_rel_err(((), got), ((), ref), f"kernel C' {what} {dtype_name} {mode}")
+            _require(err <= TOL["bwd"], f"kernel C' {what} {dtype_name} {mode}: {err}")
+            worst_b = max(worst_b, err)
+            del got, ref
+    return worst_c, worst_b, exact
 
-    c = lines[0].shape[1]
-    na = c - nd
-    ms_c = _time_ms(lambda: cpk.cp_features(xn, lines, nd), 10, flush)
-    plain_c = _time_ms(lambda: cpk.cp_features_plain(xn, lines, nd), 3, flush)
-    lines_nc1 = [l.T[None, :, :, None].contiguous() for l in lines]
-    lib_sig, lib_app = _grid_sample_cp(xn, lines_nc1, nd)
-    ref_sig, ref_app = cpk.cp_features_plain(xn, lines, nd)
-    lib_err = max(float((lib_sig - ref_sig).abs().max()), float((lib_app - ref_app).abs().max()))
-    lib_c = _time_ms(lambda: _grid_sample_cp(xn, lines_nc1, nd), 3, flush)
-    del lib_sig, lib_app, ref_sig, ref_app
-    line_bytes = sum(l.numel() * 4 for l in lines)
-    bytes_c = n * 12 + n * 4 * (1 + na) + line_bytes
-    flops_c = n * c * 14  # 3 lerps of 4 ops, 2 products
-    bound_c, by_c = _bound(bytes_c, flops_c)
-    print(f"kernel C fused fp32: {ms_c:.3f} ms, plain {plain_c:.3f} ms, grid_sample "
-          f"{lib_c:.3f} ms (vs plain {lib_err:.3e}), bound {bound_c:.3f} ms by {by_c} "
-          f"({bytes_c / 1e6:.1f} MB: {n * 4 * (1 + na) / 1e6:.1f} MB output, "
-          f"{line_bytes / 1e6:.2f} MB lines; {flops_c / 1e9:.2f} GFLOP) for {n} samples, "
-          f"{c} channels", flush=True)
-    report["cp_features"] = dict(
-        name="cp_features", route="cuda", source="text2nerf_tpu_torch/csrc/cp_features.cu",
-        replaces="text2nerf_tpu/models/tensorf.py:548",
-        max_abs_err=err_c, ms=ms_c, plain_ms=plain_c, bound_ms=bound_c, bound_by=by_c,
-        library_ms=lib_c,
-    )
 
-    # --- kernel C': adversarial inputs, then the main shape ------------
+def _cp_cases(cfg, dev, gen):
+    """Adversarial inputs for kernels C and C' (name, lines, nd, xn,
+    d_sigma, d_app, C''s route, accumulate into given tables)."""
+    import torch
+    from text2nerf_tpu_torch.models import tensorf as tf
+
     def cp_lines(reso, dens, app):
         f = tf.init_params(dataclasses.replace(cfg, density_n_comp=(dens,), app_n_comp=(app,)),
                            reso, generator=gen, device=dev).requires_grad_(False)
@@ -883,6 +989,13 @@ def phase_cp_kernels(dev, report, rays, aabb, gen, flush):
     def grads(m, width):
         return (torch.randn(m, generator=gen, device=dev),
                 torch.randn(m, width, generator=gen, device=dev))
+
+    def rays(n_rays, k, reso):  # ray-major, half-voxel steps
+        o = torch.rand(n_rays, 1, 3, generator=gen, device=dev) * 1.6 - 0.8
+        d = torch.randn(n_rays, 1, 3, generator=gen, device=dev)
+        steps = torch.arange(k, device=dev, dtype=torch.float32)[None, :, None]
+        x = o + d / d.norm(dim=-1, keepdim=True) * steps * (1.0 / (reso - 1))
+        return torch.clamp(x, -1, 1).reshape(-1, 3).contiguous()
 
     edge = torch.rand(4096, 3, generator=gen, device=dev) * 2 - 1
     edge[:8] = torch.tensor([[1.0, 1, 1], [-1, -1, -1], [1, -1, 1], [-1, 1, -1],
@@ -893,83 +1006,235 @@ def phase_cp_kernels(dev, report, rays, aabb, gen, flush):
     zero_sig, zero_app = grads(4096, 13)
     zero_sig[::3] = 0.0
     zero_app[::2] = 0.0
-    cases = [
-        ("upper edges, 5/13", cp_lines((48, 40, 56), 5, 13), 5, edge, *grads(4096, 13),
-         "shared", False),
-        ("one cell", cp_lines((48, 40, 56), 5, 13), 5, cell, *grads(300, 13), "shared", False),
+    # rays of 259 steps, 37 of them: odd n, rays and warps' spans ending mid-run
+    walk = rays(37, 259, 56)
+    walk_sig, walk_app = grads(walk.shape[0], 13)
+    run_sig, run_app = walk_sig.clone(), walk_app.clone()
+    run_sig[64:96] = 0.0  # a whole run with no gradient, and a ragged stretch
+    run_app[64:96] = 0.0
+    run_sig[1000:1100] = 0.0
+    run_app[1000:1100] = 0.0
+    # each ray's samples in a random order (top-weight order)
+    perm = torch.argsort(torch.rand(37, 259, generator=gen, device=dev), dim=1)
+    shuffled = torch.gather(walk.view(37, 259, 3), 1, perm[..., None].expand(-1, -1, 3))
+    main = cp_lines((48, 40, 56), 5, 13)
+    wide = cp_lines((48, 40, 56), 8, 24)
+    return [
+        ("upper edges, 5/13", main, 5, edge, *grads(4096, 13), "shared", False),
+        ("one cell", main, 5, cell, *grads(300, 13), "shared", False),
         ("1-component CP, odd n", cp_lines((33, 35, 37), 1, 1), 1, edge[:4093],
          *grads(4093, 1), "shared", False),
-        ("zero gradients mixed in", cp_lines((48, 40, 56), 5, 13), 5, edge, zero_sig, zero_app,
-         "shared", False),
-        ("accumulate (out=)", cp_lines((48, 40, 56), 5, 13), 5, edge, *grads(4096, 13),
-         "shared", True),
+        ("zero gradients mixed in", main, 5, edge, zero_sig, zero_app, "shared", False),
+        ("rays of 259 steps, odd n", main, 5, walk, walk_sig, walk_app, "shared", False),
+        ("a whole run of zero gradients", main, 5, walk, run_sig, run_app, "shared", False),
+        ("each ray's samples shuffled, 8/24 (16-byte lanes)", wide, 8,
+         shuffled.reshape(-1, 3).contiguous(), *grads(walk.shape[0], 24), "shared", False),
+        ("all gradients zero", main, 5, walk, torch.zeros_like(walk_sig),
+         torch.zeros_like(walk_app), "shared", False),
+        ("accumulate (out=)", main, 5, walk, walk_sig, walk_app, "shared", True),
         ("generic route (3 x 700 rows)", cp_lines((700, 700, 700), 3, 29), 3, edge,
          *grads(4096, 29), "generic", False),
     ]
-    worst = 0.0
-    for name, lc, ndc, x, ds_all, da_all, route, acc in cases:
-        for dtype_name, dtype in (("fp32", None), ("bf16", bf)):
-            for mode, ds, da in (("fused", ds_all, da_all), ("density", ds_all, None),
-                                 ("app", None, da_all)):
-                ref = cpk.cp_features_backward_plain(x, lc, ndc, ds, da, dtype)
-                if acc:
-                    base = tuple(0.5 * t for t in ref)
-                    out = tuple(t.clone() for t in base)
-                    for _ in range(2):
-                        cpk.cp_features_backward(x, lc, ndc, ds, da, dtype=dtype, out=out)
-                    got = out
-                    ref = tuple(b + 2 * r for b, r in zip(base, ref))
-                else:
-                    got = cpk.cp_features_backward(x, lc, ndc, ds, da, dtype=dtype)
-                torch.cuda.synchronize()
-                _require(cpk.BWD_LAST_GRID[0] == route,
-                         f"kernel C' {name}: route {cpk.BWD_LAST_GRID[0]}, not {route}")
-                err = _bwd_rel_err(((), got), ((), ref), f"kernel C' {name} {dtype_name} {mode}")
-                worst = max(worst, err)
-                _require(err <= TOL["bwd"], f"kernel C' {name} {dtype_name} {mode}: {err}")
-    print(f"kernel C' adversarial cases: worst {worst:.3e} of each line's largest over two "
-          f"compute types and three modes (tol {TOL['bwd']:g})", flush=True)
 
-    d_sig, d_app = grads(n, na)
-    for dtype_name, dtype in (("fp32", None), ("bf16", bf)):
-        for mode, ds, da in (("fused", d_sig, d_app), ("density", d_sig, None),
-                             ("app", None, d_app)):
-            got = cpk.cp_features_backward(xn, lines, nd, ds, da, dtype=dtype)
-            ref = cpk.cp_features_backward_plain(xn, lines, nd, ds, da, dtype)
-            torch.cuda.synchronize()
-            err = _bwd_rel_err(((), got), ((), ref), f"kernel C' {dtype_name} {mode}")
-            if dtype is None and mode == "fused":
-                abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-                grid = cpk.BWD_LAST_GRID
-            print(f"kernel C' {dtype_name:4s} {mode:7s} max_abs_err {err:.3e} of each line's "
-                  f"largest (tol {TOL['bwd']:g})", flush=True)
-            _require(err <= TOL["bwd"], f"kernel C' {dtype_name} {mode}: {err}")
-    del got, ref
-    ms = _time_ms(lambda: cpk.cp_features_backward(xn, lines, nd, d_sig, d_app), 10, flush)
-    ms_bf = _time_ms(lambda: cpk.cp_features_backward(xn, lines, nd, d_sig, d_app, dtype=bf),
-                     10, flush)
-    plain = _time_ms(lambda: cpk.cp_features_backward_plain(xn, lines, nd, d_sig, d_app), 3,
-                     flush)
-    lines_g = [l.T[None, :, :, None].contiguous().requires_grad_(True) for l in lines]
-    with torch.enable_grad():
-        lib_sig, lib_app = _grid_sample_cp(xn, lines_g, nd)
-    lib = _time_ms(lambda: torch.autograd.grad((lib_sig, lib_app), lines_g, (d_sig, d_app),
-                                               retain_graph=True), 3, flush)
-    del lib_sig, lib_app, lines_g
-    bytes_b = n * (12 + 4 + 4 * na) + line_bytes
-    flops_b = n * c * 32  # the forward's 14, the chain's 4 products, 6 row terms, 6 adds
-    bound, by = _bound(bytes_b, flops_b)
-    print(f"kernel C' fused fp32: {ms:.3f} ms (bf16 {ms_bf:.3f} ms), plain {plain:.3f} ms, "
-          f"grid_sample backward {lib:.3f} ms, bound {bound:.3f} ms by {by} "
-          f"({bytes_b / 1e6:.1f} MB: xn and the output gradients read, the lines written; "
-          f"{flops_b / 1e9:.2f} GFLOP); {grid[0]} route, {grid[1]} blocks x {grid[2]} threads",
-          flush=True)
-    report["cp_features_bwd"] = dict(
-        name="cp_features_bwd", route="cuda", source="text2nerf_tpu_torch/csrc/cp_features.cu",
-        replaces="text2nerf_tpu/models/tensorf.py:548",
-        max_abs_err=abs_err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-        library_ms=lib, ms_bf16=ms_bf,
-    )
+
+def _cp_row_traffic(xn, lines, width):
+    """(bytes of line rows a launch requests through L1: 6 rows x width
+    fp32 per sample; bytes of the rows distinct within each run of 32
+    consecutive samples: what reaches L1 from L2 if L1 keeps a run's rows
+    and nothing longer)."""
+    import torch
+    from text2nerf_tpu_torch.ops.fused_gather import _coords
+    from text2nerf_tpu_torch.ops.kernels.cp_features import VEC_MODE
+
+    n = xn.shape[0]
+    runs = (n + 31) // 32
+    distinct = 0
+    for i, ln in enumerate(lines):
+        length = ln.shape[0]
+        l0, _ = _coords(xn[:, VEC_MODE[i]], length)
+        rows = torch.stack([l0, torch.clamp(l0 + 1, max=length - 1)], 1)
+        rows = torch.nn.functional.pad(rows.view(-1), (0, 64 * runs - 2 * n), value=-1)
+        srt = rows.view(runs, 64).sort(dim=1).values
+        distinct += int(((srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] >= 0)).sum()
+                        + (srt[:, 0] >= 0).sum())
+    return n * 6 * width * 4, distinct * width * 4
+
+
+def _cp_shared_adds(xn, lines):
+    """Shared-memory adds per channel of kernel C''s shared route, by the
+    host's count of its rules (every sample kept, the samples in one
+    sequence): six per sample without the window; with it, one per row a
+    window leaves (two when it jumps) and two per axis at the end."""
+    from text2nerf_tpu_torch.ops.fused_gather import _coords
+    from text2nerf_tpu_torch.ops.kernels.cp_features import VEC_MODE
+
+    window = 0
+    for i, ln in enumerate(lines):
+        l0, _ = _coords(xn[:, VEC_MODE[i]], ln.shape[0])
+        step = (l0[1:] - l0[:-1]).abs()
+        window += int((step == 1).sum()) + 2 * int((step > 1).sum()) + 2
+    return 6 * xn.shape[0], window
+
+
+def _cp_vs_baseline():
+    """tools/kernel_variants.py on kernels C and C': this checkout and the
+    package with CP_BASELINE as its csrc/cp_features.cu, timed in one run
+    (this, baseline, baseline, this).  Returns its JSON result."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, os.path.join(here, "tools", "kernel_variants.py"), "--kernels", "cp",
+         f"v1:csrc/cp_features.cu={CP_BASELINE}"],
+        capture_output=True, text=True, cwd=here, timeout=900)
+    if out.returncode:
+        print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError(f"kernel_variants exited {out.returncode}")
+    for line in out.stdout.splitlines():
+        if not line.startswith("{"):
+            print(f"  {line}", flush=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phase_cp_kernels(dev, report, rays, aabb, gen, flush, shell):
+    """Kernels C and C' against their plain versions on a TensorCP field at
+    the published widths on the 300^3 grid: adversarial cases (C' in
+    both routes), then the three shapes of _cp_shapes in both compute
+    types and three output modes; each shape timed in its own mode, fp32
+    and bf16, beside the plain version, the grid_sample yardstick, the
+    bound and the line traffic; then the first design of the two kernels
+    and this one timed by tools/kernel_variants.py in one run."""
+    import torch
+    from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
+
+    field = _cp_field(dev, gen)
+    lines, nd = tuple(field.lines), CP_WIDTHS[0]
+    c = lines[0].shape[1]
+    na = c - nd
+    bf = torch.bfloat16
+
+    routes0 = dict(cpk.BWD_ROUTES)
+    worst_c = worst_b = 0.0
+    for name, lc, ndc, x, ds, da, route, acc in _cp_cases(field.cfg, dev, gen):
+        err_c, err_b, _ = _cp_hold(name, x, lc, ndc, ds, da, route, acc)
+        worst_c, worst_b = max(worst_c, err_c), max(worst_b, err_b)
+    routes = {k: cpk.BWD_ROUTES[k] - routes0[k] for k in routes0}
+    _require(all(v > 0 for v in routes.values()), f"a kernel C' route was not checked: {routes}")
+    print(f"kernels C / C' adversarial cases: C within {worst_c:.3e}, C' within {worst_b:.3e} "
+          f"of each line's largest (tols {TOL['cp']:g} of the largest value, "
+          f"{TOL['bwd']:g}) over two compute types and three modes; C' launches by route "
+          f"{routes}", flush=True)
+
+    shapes = _cp_shapes(field, shell, aabb, rays, gen)
+    grads = {k: _cp_grads(x, na, gen, k) for k, x in shapes.items()}
+    line_bytes = sum(l.numel() * 4 for l in lines)
+    rep_c = dict(name="cp_features", route="cuda",
+                 source="text2nerf_tpu_torch/csrc/cp_features.cu",
+                 replaces="text2nerf_tpu/models/tensorf.py:548")
+    rep_b = dict(rep_c, name="cp_features_bwd")
+    for key in ("ms_by_shape", "ms_bf16_by_shape", "plain_ms_by_shape", "library_ms_by_shape",
+                "bound_ms_by_shape"):
+        rep_c[key], rep_b[key] = {}, {}
+    rep_c["bit_equal_by_shape"], rep_b["max_rel_err_by_shape"] = {}, {}
+    for shape, xn in shapes.items():
+        n = xn.shape[0]
+        d_sig, d_app = grads[shape]
+        err_c, err_b, exact = _cp_hold(shape, xn, lines, nd, d_sig, d_app, "shared")
+        rep_c["bit_equal_by_shape"][shape] = exact
+        rep_b["max_rel_err_by_shape"][shape] = err_b
+        print(f"kernels C / C' at {shape} ({n} samples): C within {err_c:.3e} (bit-equal "
+              f"{exact}), C' within {err_b:.3e} of each line's largest, both compute types, "
+              f"three modes", flush=True)
+        sig, app = CP_SHAPE_MODES[shape]
+        ds, da = (d_sig if sig else None), (d_app if app else None)
+        if shape == "fused":
+            got = cpk.cp_features(xn, lines, nd)
+            ref = _cp_plain(xn, lines, nd, True, True)
+            rep_c["max_abs_err"] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            got = cpk.cp_features_backward(xn, lines, nd, d_sig, d_app)
+            ref = _cp_plain_backward(xn, lines, nd, d_sig, d_app)
+            rep_b["max_abs_err"] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            del got, ref
+        lo, hi = (0 if sig else nd), (c if app else nd)
+        width = hi - lo
+        times = {
+            "C": _time_ms(lambda: cpk.cp_features(xn, lines, nd, sigma=sig, app=app), 10, flush),
+            "C bf16": _time_ms(lambda: cpk.cp_features(xn, lines, nd, sigma=sig, app=app,
+                                                       dtype=bf), 10, flush),
+            "C'": _time_ms(lambda: cpk.cp_features_backward(xn, lines, nd, ds, da), 10, flush),
+            "C' bf16": _time_ms(lambda: cpk.cp_features_backward(xn, lines, nd, ds, da,
+                                                                 dtype=bf), 10, flush),
+        }
+        grid = cpk.BWD_LAST_GRID
+        plain_c = _time_ms(lambda: _cp_plain(xn, lines, nd, sig, app), 3, flush)
+        plain_b = _time_ms(lambda: _cp_plain_backward(xn, lines, nd, ds, da), 3, flush)
+        # the yardstick on the mode's channels only
+        sub = [l[:, lo:hi].T[None, :, :, None].contiguous() for l in lines]
+        nd_sub = nd if sig else 0
+        if shape == "fused":
+            lib_sig, lib_app = _grid_sample_cp(xn, sub, nd_sub)
+            ref_sig, ref_app = _cp_plain(xn, lines, nd, True, True)
+            lib_err = max(float((lib_sig - ref_sig).abs().max()),
+                          float((lib_app - ref_app).abs().max()))
+            print(f"kernel C library (grid_sample) vs plain at fused: {lib_err:.3e}", flush=True)
+            del lib_sig, lib_app, ref_sig, ref_app
+        lib_c = _time_ms(lambda: _grid_sample_cp(xn, sub, nd_sub), 3, flush)
+        sub_g = [t.requires_grad_(True) for t in sub]
+        with torch.enable_grad():
+            lib_sig, lib_app = _grid_sample_cp(xn, sub_g, nd_sub)
+        outs = ([lib_sig] if sig else []) + ([lib_app] if app else [])
+        cots = ([d_sig] if sig else []) + ([d_app] if app else [])
+        lib_b = _time_ms(lambda: torch.autograd.grad(outs, sub_g, cots, retain_graph=True), 3,
+                         flush)
+        del lib_sig, lib_app, outs, sub, sub_g
+        mode_lines = line_bytes * width // c
+        out_bytes = n * 4 * ((1 if sig else 0) + (na if app else 0))
+        bound_c = _bound(n * 12 + out_bytes + mode_lines, n * width * 14)
+        # C': xn, the output gradients and the lines read, the gradient lines
+        # written; the forward's 14 operations, the chain's 4 products, 6 row
+        # terms and 6 adds per channel
+        bound_b = _bound(n * 12 + out_bytes + 2 * mode_lines, n * width * 32)
+        requested, distinct = _cp_row_traffic(xn, lines, width)
+        per_channel, windowed = _cp_shared_adds(xn, lines)
+        print(f"kernel C {shape} ({n} samples, {width} channels): {times['C']:.3f} ms (bf16 "
+              f"{times['C bf16']:.3f}), plain {plain_c:.3f} ms, grid_sample {lib_c:.3f} ms, "
+              f"bound {bound_c[0]:.4f} ms by {bound_c[1]} ({bound_c[0] / times['C']:.3f} of it); "
+              f"line rows through L1 {requested / 1e9:.3f} GB in {6 * n * -(-width // 128)} "
+              f"16-byte-lane loads (the first design: {6 * n * -(-width // 32)} 4-byte-lane "
+              f"loads), rows distinct within a run {distinct / 1e6:.1f} MB", flush=True)
+        ms_b, ms_b_bf = times["C'"], times["C' bf16"]
+        print(f"kernel C' {shape}: {ms_b:.3f} ms (bf16 {ms_b_bf:.3f}), plain {plain_b:.3f} ms, "
+              f"grid_sample backward {lib_b:.3f} ms, bound {bound_b[0]:.4f} ms by {bound_b[1]} "
+              f"({bound_b[0] / ms_b:.3f} of it); {grid[0]} route, {grid[1]} "
+              f"blocks x {grid[2]} threads; shared adds per channel by the host's count of the "
+              f"window's rules {windowed} vs {per_channel} without it", flush=True)
+        rep_c["ms_by_shape"][shape], rep_c["ms_bf16_by_shape"][shape] = times["C"], times["C bf16"]
+        rep_b["ms_by_shape"][shape] = times["C'"]
+        rep_b["ms_bf16_by_shape"][shape] = times["C' bf16"]
+        rep_c["plain_ms_by_shape"][shape], rep_b["plain_ms_by_shape"][shape] = plain_c, plain_b
+        rep_c["library_ms_by_shape"][shape], rep_b["library_ms_by_shape"][shape] = lib_c, lib_b
+        rep_c["bound_ms_by_shape"][shape] = bound_c[0]
+        rep_b["bound_ms_by_shape"][shape] = bound_b[0]
+        if shape == "fused":
+            for rep, key, plain, lib, bound in ((rep_c, "C", plain_c, lib_c, bound_c),
+                                                (rep_b, "C'", plain_b, lib_b, bound_b)):
+                rep.update(ms=times[key], ms_bf16=times[key + " bf16"], plain_ms=plain,
+                           library_ms=lib, bound_ms=bound[0], bound_by=bound[1])
+    del shapes, grads, field
+    torch.cuda.empty_cache()
+
+    res = _cp_vs_baseline()
+    for kernel, rep in (("C", rep_c), ("C'", rep_b)):
+        rep["baseline_ms_by_shape"] = {}
+        for shape in CP_SHAPE_MODES:
+            runs = {name: [r["cp_ms"][shape][kernel] for r in res["runs"] if r["name"] == name]
+                    for name in ("this checkout", "v1")}
+            rep["baseline_ms_by_shape"][shape] = runs["v1"]
+            bound = rep["bound_ms_by_shape"][shape]
+            print(f"kernel {kernel} {shape}, one kernel_variants run: first design "
+                  f"{[round(v, 4) for v in runs['v1']]} ms, this design "
+                  f"{[round(v, 4) for v in runs['this checkout']]} ms; bound {bound:.4f} ms, "
+                  f"share of the bound {bound / min(runs['v1']):.3f} -> "
+                  f"{bound / min(runs['this checkout']):.3f}", flush=True)
+    report["cp_features"], report["cp_features_bwd"] = rep_c, rep_b
 
 
 def _adaptive_vs_untruncated(field, aabb, rays, mask, n_samples, dev, name):
@@ -1251,6 +1516,7 @@ class _StepProbe:
         self.routes = {"dense": {}, "compact": {}}
         self.fwd = {"dense": 0, "compact": 0}
         self.busy = None
+        self.split = None  # the profiled step's device ms by part (_step_split)
         self.captured = {}  # (where, kernel, mode) -> the launch's inputs
         self._tag = None  # where launches are captured now, or None
         self.tag_next = None  # where the next step's launches are captured
@@ -1352,7 +1618,9 @@ class _StepProbe:
         self.fwd[kind] += ff.LAUNCHES - fwd0
         if self._prof is not None:
             self._prof.stop()
-            self.busy = (_busy_ms(self._prof.events()), (end - self._last_end) * 1e3)
+            events = self._prof.events()
+            self.busy = (_busy_ms(events), (end - self._last_end) * 1e3)
+            self.split = _step_split(events)
             self._prof = None
         elif kind == "dense" and n_dense == self.PROFILED_DENSE - 1:
             acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1369,6 +1637,22 @@ def _busy_ms(events):
     return sum(e.time_range.end - e.time_range.start for e in events
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation
                and not e.name.startswith(("t2n.", "Optimizer."))) / 1e3
+
+
+def _step_split(events):
+    """Device ms of one profiled step by part: kernels A, A', C, C', the
+    head (forward and backward), torch.topk and the rest, by
+    text2nerf_tpu_torch/profile_train.py's rules."""
+    from text2nerf_tpu_torch import profile_train as pt
+
+    layers, _ = pt.device_time_by_layer(events)
+    parts = (("kernel A'", "A'"), ("kernel A:", "A"), ("kernel C'", "C'"), ("kernel C:", "C"),
+             ("head", "head"), ("topk", "topk"))
+    split = {name: 0.0 for _, name in parts}
+    split["rest"] = max(0.0, _busy_ms(events) * 1e3 - sum(layers.values()))
+    for layer, us in layers.items():
+        split[next((p for frag, p in parts if layer.startswith(frag)), "rest")] += us
+    return {k: v / 1e3 for k, v in split.items()}
 
 
 def _median(xs):
@@ -2828,7 +3112,9 @@ def _family_run(dev, card, report, workdir, name, flags, need, margin_db):
            "compact_ms": _median(probe.ms["compact"]) if probe.ms["compact"] else None,
            "dense_busy_ms": probe.busy, "psnr0": psnr0, "psnr": psnr, "launches": launches}
     busy = "not measured" if probe.busy is None else (
-        f"{probe.busy[0]:.2f} ms busy in {probe.busy[1]:.2f} ms")
+        f"{probe.busy[0]:.2f} ms busy in {probe.busy[1]:.2f} ms ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in probe.split.items()) + " ms)")
+    rec["dense_split_ms"] = probe.split
     print(f"family {name}: wall {wall:.3f} s; {len(probe.ms['dense'])} dense steps median "
           f"{rec['dense_ms']:.2f} ms, {len(probe.ms['compact'])} compacted median "
           f"{rec['compact_ms'] if rec['compact_ms'] is None else round(rec['compact_ms'], 2)} "

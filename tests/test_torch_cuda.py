@@ -338,6 +338,83 @@ def test_cp_features_backward_generic_route_and_accumulation(cuda):
     assert _rel_err((out, ()), (tuple(2 * r for r in ref), ())) <= BWD_TOL
 
 
+def _cp_step_like(layout, n_rays, k, reso, gen, device):
+    """A dense step's CP samples at small size: n_rays rays of k half-voxel
+    march steps, ray-major (the density-only launches), every fourth ray
+    moved to start near the box's upper corner, so it runs out of the box
+    and its clamped samples take the edge-clamped rows; "weight": each
+    ray's samples in a random order (the app-only launches' top-weight
+    order)."""
+    x = _ray_major(n_rays, k, 2 * reso, gen, device).view(n_rays, k, 3)
+    x[::4] = torch.clamp(x[::4] - x[::4, :1] + 0.9, -1.0, 1.0)
+    if layout == "weight":
+        perm = torch.argsort(torch.rand(n_rays, k, generator=gen, device=device), dim=1)
+        x = torch.gather(x, 1, perm[..., None].expand(-1, -1, 3))
+    return x.reshape(-1, 3).contiguous()
+
+
+# kernels C and C' on step-like samples: (widths, grid, rays, steps a ray);
+# 23 x 259 = 5957 samples, odd, so the last run is partial and rays and
+# the warps' spans end mid-run; 3 x 700-row lines take C''s generic route
+CP_STEP_CASES = {
+    "published": ((96, 288), (40, 44, 48), 23, 259, "shared"),
+    "odd widths": ((5, 13), (40, 44, 48), 23, 259, "shared"),
+    "generic route": ((3, 29), (700, 700, 700), 9, 259, "generic"),
+}
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["ray", "weight"])
+@pytest.mark.parametrize("case", list(CP_STEP_CASES))
+def test_cp_kernels_on_step_like_samples(cuda, case, layout, dtype, accumulate):
+    (nd, na), reso, n_rays, k, route = CP_STEP_CASES[case]
+    lines = _cp_lines(nd, na, reso, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    xn = _cp_step_like(layout, n_rays, k, reso[0], gen, cuda)
+    n = xn.shape[0]
+    d_sig = torch.randn(n, generator=gen, device=cuda)
+    d_app = torch.randn(n, na, generator=gen, device=cuda)
+    for lo, hi in ((64, 96), (1000, 1100), (n - 37, n)):  # a whole run, a stretch, the tail
+        d_sig[lo:hi] = 0.0
+        d_app[lo:hi] = 0.0
+    for sig, app in ((True, True), (True, False), (False, True)):
+        got = cpk.cp_features(xn, lines, nd, sigma=sig, app=app, dtype=dtype)
+        ref = cpk.cp_features_plain(xn, lines, nd, sigma=sig, app=app, dtype=dtype)
+        for g, r in zip(got, ref):
+            if r is not None:
+                # the plain version's operations in its order; the density
+                # sum in fp64
+                assert torch.equal(g, r), float((g - r).abs().max())
+        ds, da = (d_sig if sig else None), (d_app if app else None)
+        ref = cpk.cp_features_backward_plain(xn, lines, nd, ds, da, dtype)
+        if accumulate:
+            out = tuple(0.5 * r for r in ref)
+            for _ in range(2):
+                cpk.cp_features_backward(xn, lines, nd, ds, da, dtype=dtype, out=out)
+            ref = tuple(2.5 * r for r in ref)
+        else:
+            out = cpk.cp_features_backward(xn, lines, nd, ds, da, dtype=dtype)
+        torch.cuda.synchronize()
+        assert cpk.BWD_LAST_GRID[0] == route
+        assert _rel_err((out, ()), (ref, ())) <= BWD_TOL
+
+
+def test_cp_backward_kernel_with_no_gradient(cuda):
+    # every gradient zero: the tables come out zero, or as they were
+    lines = _cp_lines(96, 288, (40, 44, 48), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    xn = _cp_step_like("ray", 23, 259, 40, gen, cuda)
+    zero_sig = torch.zeros(xn.shape[0], device=cuda)
+    zero_app = torch.zeros(xn.shape[0], 288, device=cuda)
+    for ds, da in ((zero_sig, zero_app), (zero_sig, None), (None, zero_app)):
+        got = cpk.cp_features_backward(xn, lines, 96, ds, da)
+        assert all(not g.any() for g in got)
+        out = tuple(torch.ones_like(l) for l in lines)
+        cpk.cp_features_backward(xn, lines, 96, ds, da, out=out)
+        assert all(bool((t == 1).all()) for t in out)
+
+
 def test_cp_field_trains_through_kernels_c(cuda):
     # the field's features with a gradient: kernel C forward, C' backward
     cfg = ptf.TensoRFConfig(model_name="cp", density_n_comp=(8,), app_n_comp=(24,),

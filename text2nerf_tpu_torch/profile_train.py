@@ -13,9 +13,10 @@ the device time per step by layer, largest first, then by kernel.
 Layers come from the ``t2n.*`` profiler ranges of the train renders and
 the step (selection, features, head, composite, losses, TV), from the
 optimizer's own ``Optimizer.step`` range (Adam), and from the kernels'
-names (kernel A, kernel A').  A backward kernel belongs to the layer of
-the forward op its autograd node was made by (the profiler's sequence
-numbers link the two), and is listed as that layer's backward.
+names (kernels A, A', C, C' and torch.topk's).  A backward kernel
+belongs to the layer of the forward op its autograd node was made by
+(the profiler's sequence numbers link the two), and is listed as that
+layer's backward.
 Needs one GPU.
 """
 
@@ -46,11 +47,15 @@ RANGES = (
 KERNELS = (
     ("factor_features_bwd", "kernel A': factor features backward"),
     ("factor_features", "kernel A: factor features"),
+    ("cp_features_bwd", "kernel C': CP features backward"),
+    ("cp_features", "kernel C: CP features"),
+    ("topk", "topk (a dense step's app samples)"),
 )
 BACKWARD = "autograd::engine::evaluate_function"
 #: autograd node name fragment -> layer, for nodes no forward range owns
 NODES = (
     ("FactorFeaturesBackward", "kernel A': factor features backward"),
+    ("CPFeaturesBackward", "kernel C': CP features backward"),
     ("AccumulateGrad", "gradient accumulation"),
 )
 

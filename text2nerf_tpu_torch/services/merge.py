@@ -11,10 +11,13 @@ The loop is plain Python on the device: forward at ``net_size``², the
 masked MSE of the output nearest-resized to ``outsize``, backward,
 ``torch.optim.Adam``.
 
-The generator starts from a ``merge_model_sc.npz`` in the JAX package's
-layout (flax params under ``UnetSkipBlock_i/...``, see
-:func:`..models.pix2pix.state_from_flax`) when one is given, else from a
-seeded random init.  Torch checkpoints of the reference, offline
+The generator starts from the checkpoint given, else from a seeded
+random init: a ``merge_model_sc.npz`` in the JAX package's layout (flax
+params under ``UnetSkipBlock_i/...``, see
+:func:`..models.pix2pix.state_from_flax`), or the reference's torch
+checkpoint (``.pth`` / ``.pt`` / ``.tar`` / ``.safetensors``, such as
+``latest_net_G.pth``) read through ``unet_generator_name_map`` with every
+parameter it lacks zero, as the JAX package reads it.  Offline
 pretraining and saving are not ported.
 """
 
@@ -29,6 +32,9 @@ import torch
 
 from ..device import resolve_device
 from ..models.pix2pix import UnetGenerator, minmax_normalize, state_from_flax
+
+#: suffixes of the reference's torch checkpoints (the JAX package's list)
+TORCH_SUFFIXES = (".pth", ".pt", ".tar", ".safetensors")
 
 
 def nearest_resize(img, size):
@@ -45,6 +51,28 @@ def nearest_resize(img, size):
     return img[index(img.shape[0], out_h)][:, index(img.shape[1], out_w)]
 
 
+def state_from_torch(path: str, model: UnetGenerator, num_downs: int) -> dict:
+    """``model``'s state dict from the reference's torch checkpoint at
+    ``path``: each entry of ``unet_generator_name_map(num_downs)`` under
+    its port name (both keep torch's layouts), every entry the checkpoint
+    lacks zero (the JAX package's ``fill_missing_params``).  A shape that
+    differs raises."""
+    from .weights import load_torch_checkpoint, pix2pix_key, unet_generator_name_map
+
+    ckpt = load_torch_checkpoint(path)
+    state = {k: torch.zeros_like(v) for k, v in model.state_dict().items()}
+    for tname, fpath in unet_generator_name_map(num_downs).items():
+        if tname not in ckpt:
+            continue
+        key = pix2pix_key(fpath)
+        val = torch.as_tensor(ckpt[tname]).float()
+        if val.shape != state[key].shape:
+            raise ValueError(f"{path}: {tname} has shape {tuple(val.shape)}, the generator's "
+                             f"{key} {tuple(state[key].shape)}")
+        state[key] = val
+    return state
+
+
 class DepthMergeService:
     """The generator and its base parameters.  Each call finetunes a copy
     of the base parameters on ``device`` (cuda unless asked), resolved at
@@ -54,11 +82,6 @@ class DepthMergeService:
     def __init__(self, ckpt_path: Optional[str] = None, net_size: int = 1024,
                  num_downs: int = 10, seed: int = 0, compute_dtype=torch.bfloat16,
                  device=None):
-        if ckpt_path is not None and os.path.exists(ckpt_path) \
-                and not ckpt_path.endswith(".npz"):
-            raise NotImplementedError(
-                f"{ckpt_path}: only the npz layout of flax params is read; torch "
-                "checkpoints of the merge net are not ported yet")
         self.ckpt_path = ckpt_path
         self.net_size = net_size
         self.num_downs = num_downs
@@ -76,8 +99,12 @@ class DepthMergeService:
             model = UnetGenerator(1, 1, self.num_downs,
                                   generator=torch.Generator().manual_seed(self.seed))
             if self.ckpt_path is not None and os.path.exists(self.ckpt_path):
-                with np.load(self.ckpt_path) as data:
-                    model.load_state_dict(state_from_flax(dict(data)))
+                if self.ckpt_path.endswith(TORCH_SUFFIXES):
+                    state = state_from_torch(self.ckpt_path, model, self.num_downs)
+                else:
+                    with np.load(self.ckpt_path) as data:
+                        state = state_from_flax(dict(data))
+                model.load_state_dict(state)
             self._model = model.requires_grad_(False)
         return self._model
 
