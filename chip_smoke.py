@@ -60,7 +60,8 @@ Phases (any failure exits nonzero before the last line):
    procedural services, the JAX package's benchmark fit (bench.py
    fit_seed_scene) at 512^2: the seed image and its 8 warped support
    views, 150^3 -> 300^3 at step 10, the alpha mask and the AABB shrink at
-   step 30, 2 stage-1 epochs of dense steps, 1 stage-3 epoch of compacted
+   step 30, 1 stage-1 epoch of dense steps (cut from 2 to keep the smoke's
+   wall under 1000 s), 1 stage-3 epoch of compacted
    steps on the pool-5 stamped mask (K 256 from the first live sample, all
    shaded), batch 16384.  Each step is timed between device syncs (so
    the fit's wall is that of a loop whose steps do not overlap); one
@@ -171,7 +172,41 @@ Phases (any failure exits nonzero before the last line):
    bf16 and fp32, in turns, ms per step printed beside phase 5's, and one
    bf16 crop step on the card held against the CPU; (4) --ndc_ray 1:
    finite frames, the seed view above the untrained field.  Prints each
-   run's wall, ms per step and PSNRs.
+   run's wall, ms per step and PSNRs;
+12. the scene farm: parallel.scene_farm.run_farm_parallel over two
+   prompts on [cuda:0, cuda:0] (two worker threads on the one card),
+   each scene progressive_runner's whole pipeline on its own
+   default_services (procedural services, the merge net unet_1024 at
+   random init): phase 7's configuration (full model width, 300^3,
+   circle0_30, two views, 1 / 1 / 1 epochs, stage 3 at K 256) with two
+   cuts, 256^2 views and 100 merge iterations (of 500).  Kernels A, A'
+   and B must be launched, and every scene's seed view must end 5 dB
+   above its untrained field (rendered as the runner evaluates).  Prints
+   the farm's wall, each scene's wall_s, device_idle_s and PSNRs, and the
+   sum of the scene walls over the farm's wall (how far two workers
+   overlap on one card); then scene 0 again alone (run_farm, a folder of
+   its own: twice its wall over the farm's is the workers' speed-up).
+   Then run_farm over the same prompts must be
+   served from the completion markers (equal wall_s, no launch).  Then
+   fit_scenes_mesh: two full-width fields (serving shells 2 and 3) toward
+   phase 5's targets, 10 dense steps each (batch 16384, R = 32): kernels
+   A and A' launched, every scene's mse falling;
+13. the mesh: two gloo ranks on the one card (NCCL refuses two ranks on
+   one GPU; gloo all-reduces the CUDA tensors, and the phase fails if it
+   cannot), each a process started by parallel.dryrun.launch: one
+   full-width dense train step (16384 rays, R = 1) at data 2 x model 1
+   and one at data 1 x model 2 (shards of 16 density + 24 app channels),
+   each against the one-process step over the same batch, gradients
+   within 1e-4 of each leaf's largest; each sharded step's own launches
+   (counted from 0 after its reference step) must hold kernels A and A',
+   per case and rank, and are added to the report;
+14. merge pretraining at unet_1024 (bf16) for 20 steps on two procedural
+   seed depths after 2 warm-up steps (finite losses, ms per step), the
+   PatchGAN discriminator
+   at 512^2 on the card against the CPU (fp32, TF32 off, 1e-4 of the
+   largest logit), and the sparse bilateral filter's device backend on
+   the card against the native library on the bootstrap's 512^2 inputs
+   (bit for bit), with the ms of each.
 
 Prints the smoke's wall, a JSON line of per-kernel numbers, then as the
 last line
@@ -257,6 +292,17 @@ TOL = {
     # the render-only branch's test frames vs the fit's (8-bit PNGs): the
     # same field, mask, z-floor and renderer, so the same bytes
     "render_only": 1e-6,
+    # the mesh's train step (phase 13) vs the one-process step over the
+    # same batch, each gradient leaf relative to its largest: the data
+    # split changes the loss's sums, the model split the basis product's,
+    # and both run kernels A' whose atomics add in a changing order
+    "mesh": 1e-4,
+    # the PatchGAN discriminator (fp32, TF32 off), card vs CPU, of the
+    # largest logit: five convolutions of up to 4096-term sums
+    "disc": 1e-4,
+    # the sparse bilateral filter's device backend vs the native library:
+    # the same comparisons, 0/1 weights and float32 prefix sums in order
+    "filter": 0.0,
     # ResNeXt-101 LeReS at 448^2 (fp32, TF32 off), card vs CPU, of the
     # largest output: 33 residual blocks of conv sums in other orders
     "leres": 1e-3,
@@ -268,7 +314,7 @@ TOL = {
     "lpips": 1e-4,
 }
 SEED_FIT_HW = (512, 512)
-SEED_FIT_EPOCHS = (2, 1)  # n_stage1, n_stage3
+SEED_FIT_EPOCHS = (1, 1)  # n_stage1, n_stage3
 SEED_FIT_VOXELS = (150 ** 3, 27_000_000)  # n_voxel_init, n_voxel_final
 SEED_FIT_UPSAMPLE, SEED_FIT_ALPHA_MASK = 10, 30  # global steps, inside stage 1
 # stage 3's compacted steps: K covering every sample of the march, from the
@@ -3213,6 +3259,369 @@ def phase_model_family(dev, card, report, workdir, train):
     return out
 
 
+# phase 12: the scene farm (two scenes of phase 7's configuration, two
+# workers on the one card), then fit_scenes_mesh
+FARM_HW = (256, 256)  # cut: phase 7 runs 512^2
+FARM_MERGE_ITERS = 100  # cut: ExpansionConfig's default is 500
+FARM_PROMPTS = ("a cozy living room", "a beautiful garden with flowers")
+FARM_MARGIN_DB = 5.0
+MESH_FIT_STEPS = 10
+# phase 13: the mesh's train step on the card, two gloo ranks
+MESH_RAYS = N_RAYS_TRAIN
+# phase 14: merge pretraining, the discriminator, the filters' device backend
+PRETRAIN_STEPS = 20
+PRETRAIN_NET = (1024, 10)  # unet_1024: net size, levels
+FILTER_REPS = 3
+
+
+def _farm_configs(workdir):
+    """(TrainConfig, SceneConfig, ExpansionConfig) of a farm scene: phase
+    7's configuration at FARM_HW with FARM_MERGE_ITERS merge iterations
+    (prompt, datadir and basedir are the farm's)."""
+    from text2nerf_tpu_torch.engine import expansion
+
+    n1, n2, n3 = PROGRESSIVE_EPOCHS
+    cfg, scene_cfg = _seed_fit_configs(
+        workdir, FARM_HW, scene=PROGRESSIVE_SCENE, n_stage1=n1, n_stage2=n2, n_stage3=n3,
+        eval_every_epochs=sum(PROGRESSIVE_EPOCHS), expname="farm", **SEED_FIT_COMPACT,
+        **PROGRESSIVE_OVERRIDES)
+    ex = expansion.ExpansionConfig(prompt=scene_cfg.prompt, push_depth=scene_cfg.push_depth,
+                                   trans_range=scene_cfg.trans_range,
+                                   merge_iters=FARM_MERGE_ITERS)
+    return cfg, scene_cfg, ex
+
+
+def _untrained_psnr(cfg, scene, field, dev):
+    """The seed view's PSNR of the untrained field the fit started from,
+    upsampled to the fit's final grid and rendered as progressive_runner
+    evaluates."""
+    from text2nerf_tpu_torch.data import scene_state as ss
+    from text2nerf_tpu_torch.engine import renderer, trainer
+    from text2nerf_tpu_torch.models import tensorf as tf
+
+    _, f0, aabb0, _ = trainer.init_field(cfg, scene, device=dev)
+    f0 = tf.upsample_volume_grid(f0, tf.grid_resolution(field)).requires_grad_(False)
+    return renderer.evaluation(
+        f0, aabb0, scene.rays_gen_split[:1], scene.hw, gt_rgbs=scene.rgbs_gen_split,
+        n_samples=tf.default_n_samples(tf.grid_resolution(f0), f0.cfg.step_ratio),
+        chunk=cfg.batch_size, app_k=cfg.app_k, eval_z_min=ss.supervised_z_floor(scene),
+        device=dev)["psnr"][0]
+
+
+def phase_farm(dev, card, report, workdir):
+    """run_farm_parallel over FARM_PROMPTS on [dev, dev] (two workers on
+    one card), each scene progressive_runner's whole pipeline on fresh
+    default services; then run_farm over the same prompts, served from
+    the markers (module docstring, phase 12)."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch.engine import trainer
+    from text2nerf_tpu_torch.parallel import scene_farm as farm
+    from text2nerf_tpu_torch.services.registry import default_services
+
+    cfg, scene_cfg, ex = _farm_configs(workdir)
+
+    def services_factory(device):
+        return default_services(hw=FARM_HW, device=device)
+
+    run = farm.progressive_runner(cfg, scene_cfg, None, ex, services_factory=services_factory)
+    fits = {}
+    reconstruction0 = trainer.reconstruction
+
+    def reconstruction(t_cfg, s_cfg, *args, **kw):  # keeps each scene's result
+        out = reconstruction0(t_cfg, s_cfg, *args, **kw)
+        fits[s_cfg.prompt] = (t_cfg, out)
+        return out
+
+    print(f"farm: {len(FARM_PROMPTS)} scenes on [{dev}, {dev}], each hw {FARM_HW}, "
+          f"{scene_cfg.pose_traj} x {scene_cfg.num_training} views, epochs {PROGRESSIVE_EPOCHS}, "
+          f"{SEED_FIT_COMPACT}, merge unet_1024 at random init, {FARM_MERGE_ITERS} merge "
+          f"iterations", flush=True)
+    data, logs = f"{workdir}/data", f"{workdir}/log"
+    trainer.reconstruction = reconstruction
+    try:
+        _counts_zeroed()
+        t0 = time.perf_counter()
+        results = farm.run_farm_parallel(FARM_PROMPTS, data, logs, run, devices=[dev, dev])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trainer.reconstruction = reconstruction0
+    launches = _read_counts(report, "farm", ("factor_features", "factor_features_bwd",
+                                             "shading_mlp"))
+    _require(len(results) == len(FARM_PROMPTS), f"the farm returned {len(results)} scenes")
+    overlap = sum(r["wall_s"] for r in results) / wall
+    print(f"farm wall {wall:.3f} s on {card}; sum of scene walls / farm wall {overlap:.3f}; "
+          f"launches {launches}", flush=True)
+    out = {"farm_wall_s": wall, "farm_overlap": overlap}
+    for i, r in enumerate(results):
+        t_cfg, (_, field, _, scene, _) = fits[r["prompt"]]
+        psnr0 = _untrained_psnr(t_cfg, scene, field, dev)
+        psnr = r["per_view_psnr"]
+        print(f"  scene {i} {r['prompt']!r} on {r['device']}: wall {r['wall_s']:.3f} s, "
+              f"device_idle_s {r['device_idle_s']}, per-view PSNR {psnr} (seed view untrained "
+              f"{psnr0:.4f} dB)", flush=True)
+        _require(r["device"] == str(dev) and r["views"] == 2 and np.isfinite(psnr).all(),
+                 f"scene {i}: {r}")
+        _require(psnr[0] > psnr0 + FARM_MARGIN_DB,
+                 f"scene {i}: seed view PSNR {psnr[0]} is not {FARM_MARGIN_DB} dB above {psnr0}")
+        out.update({f"farm_scene{i}_wall_s": r["wall_s"], f"farm_scene{i}_psnr": psnr,
+                    f"farm_scene{i}_device_idle_s": r["device_idle_s"],
+                    f"farm_scene{i}_psnr_untrained": psnr0})
+    del fits
+
+    # scene 0's pipeline alone on the card, in a folder of its own: the
+    # yardstick of the two workers' overlap
+    _counts_zeroed()
+    t0 = time.perf_counter()
+    solo = farm.run_farm(FARM_PROMPTS[:1], f"{workdir}/solo_data", f"{workdir}/solo_log", run)[0]
+    torch.cuda.synchronize()
+    solo_wall = time.perf_counter() - t0
+    _read_counts(report, "farm_solo", ("factor_features", "factor_features_bwd", "shading_mlp"))
+    speedup = len(FARM_PROMPTS) * solo_wall / wall
+    print(f"scene 0 alone: wall {solo_wall:.3f} s, device_idle_s {solo['device_idle_s']}, "
+          f"per-view PSNR {solo['per_view_psnr']}; {len(FARM_PROMPTS)} x alone / farm wall "
+          f"{speedup:.3f}", flush=True)
+    out.update({"farm_solo_wall_s": solo_wall, "farm_speedup": speedup})
+
+    # the second pass is served from the markers: no scene runs again
+    _counts_zeroed()
+    t0 = time.perf_counter()
+    again = farm.run_farm(FARM_PROMPTS, data, logs, run)
+    t_again = time.perf_counter() - t0
+    again_launches = _read_counts(report, "farm_markers", ())
+    print(f"farm second pass (run_farm): {t_again:.3f} s, launches {again_launches}", flush=True)
+    _require([r["wall_s"] for r in again] == [r["wall_s"] for r in results]
+             and not any(again_launches.values()), "the second pass ran a scene again")
+    return out
+
+
+def phase_fit_scenes_mesh(dev, card, report):
+    """fit_scenes_mesh: two full-width fields (serving shells 2 and 3)
+    toward phase 5's targets on the card, MESH_FIT_STEPS dense steps each
+    (module docstring, phase 12)."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch.data import synthetic as syn
+    from text2nerf_tpu_torch.models import tensorf as tf
+    from text2nerf_tpu_torch.parallel import scene_farm as farm
+
+    rays, rgb, depth = syn.training_targets(dev)
+    pool = tuple(t.cpu().numpy() for t in (rays, rgb, depth))
+    fields = [syn.serving_shell(s, dev) for s in (2, 3)]
+    aabbs = np.stack([np.asarray(syn.AABB, np.float32)] * 2)
+    n_samples = tf.default_n_samples(tf.grid_resolution(fields[0]), fields[0].cfg.step_ratio)
+    _counts_zeroed()
+    t0 = time.perf_counter()
+    fields, metrics = farm.fit_scenes_mesh(
+        fields[0].cfg, fields, aabbs, [pool, pool], n_steps=MESH_FIT_STEPS,
+        batch_size=N_RAYS_TRAIN, n_samples=n_samples, devices=[dev], seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts(report, "fit_scenes_mesh", ("factor_features",
+                                                        "factor_features_bwd"))
+    mse = metrics["mse"]
+    print(f"fit_scenes_mesh: 2 scenes x {MESH_FIT_STEPS} dense steps (batch {N_RAYS_TRAIN}, "
+          f"{n_samples} samples) in {wall:.3f} s on {card}; mse first {mse[0].tolist()} last "
+          f"{mse[-1].tolist()}; launches {launches}", flush=True)
+    _require(mse.shape == (MESH_FIT_STEPS, 2) and np.isfinite(mse).all()
+             and (mse[-1] < mse[0]).all(), f"a scene's mse did not fall: {mse.tolist()}")
+    return {"fit_scenes_mesh_s": wall, "fit_scenes_mesh_mse_first": mse[0].tolist(),
+            "fit_scenes_mesh_mse_last": mse[-1].tolist()}
+
+
+def _mesh_step_errors(mesh, field0, aabb, batch, n_samples, kw, seed):
+    """One step of the mesh's shard against the one-process step over the
+    whole batch: (mse relative error, worst leaf's gradient error relative
+    to its largest reference value, the shard's plane shapes, the kernel
+    launches of the sharded step alone)."""
+    import copy
+
+    import torch
+    from text2nerf_tpu_torch.engine import train_step as ts
+    from text2nerf_tpu_torch.ops.kernels import factor_features as ff
+    from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
+    from text2nerf_tpu_torch.parallel import mesh as pmesh
+
+    dev = aabb.device
+    ref = copy.deepcopy(field0)
+    opt = ts.make_optimizer(ref)
+    step = ts.make_train_step(ref.cfg, opt, device=dev, **kw)
+    _, m_ref = step(ts.TrainState(ref, opt, 0), aabb, batch,
+                    torch.Generator(device=dev).manual_seed(seed))
+    shard = pmesh.shard_params(field0, mesh)
+    opt_s = ts.make_optimizer(shard)
+    step_s = ts.make_train_step(shard.cfg, opt_s, device=dev, mesh=mesh, **kw)
+    # count the sharded step's launches only, not the reference's
+    torch.cuda.synchronize()
+    ff.LAUNCHES = ff.BWD_LAUNCHES = sm.LAUNCHES = 0
+    for k in ff.BWD_DTYPES:
+        ff.BWD_DTYPES[k] = 0
+    _, m = step_s(ts.TrainState(shard, opt_s, 0), aabb, pmesh.shard_batch(batch, mesh),
+                  torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    launches = {"factor_features": ff.LAUNCHES, "factor_features_bwd": ff.BWD_DTYPES["fp32"],
+                "shading_mlp": sm.LAUNCHES}
+    tables = [p.grad for p in (*ref.planes, *ref.lines)]
+    want_tables, want_basis = pmesh.shard_tensors(ref, mesh, tables, ref.basis.grad)
+    want = [*want_tables, want_basis, *(ref.mlp[k].grad for k in ("w1", "b1", "w2", "b2",
+                                                                 "w3", "b3"))]
+    got = [p.grad for p in (*shard.planes, *shard.lines, shard.basis)]
+    got += [shard.mlp[k].grad for k in ("w1", "b1", "w2", "b2", "w3", "b3")]
+    errs = [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)) for g, w in zip(got, want)]
+    mse_rel = abs(float(m["mse"]) - float(m_ref["mse"])) / float(m_ref["mse"])
+    return mse_rel, max(errs), [tuple(t.shape) for t in shard.planes], launches
+
+
+def _mesh_rank(rank, world, workdir):
+    """A rank of phase 13 (run by parallel.dryrun.launch): one full-width
+    dense train step at data 2 x model 1 and one at data 1 x model 2, each
+    against the one-process step over the same batch, with each sharded
+    step's own kernel launches."""
+    import torch
+    import torch.distributed as dist
+    from text2nerf_tpu_torch.data import synthetic as syn
+    from text2nerf_tpu_torch.engine import train_step as ts
+    from text2nerf_tpu_torch.models import tensorf as tf
+    from text2nerf_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    probe = torch.full((4,), float(rank + 1), device=dev)
+    try:
+        dist.all_reduce(probe)
+    except Exception as e:  # noqa: BLE001 — the phase fails with the reason
+        raise RuntimeError(f"gloo cannot all-reduce CUDA tensors in this torch build ({e!r}); "
+                           "the mesh phase does not copy them to the host instead") from e
+    _require(float(probe[0]) == world * (world + 1) / 2, f"gloo's CUDA all-reduce gave {probe}")
+    rays, rgb, depth = syn.training_targets(dev)
+    field0 = syn.serving_shell(2, dev)
+    aabb = torch.tensor(syn.AABB, device=dev)
+    n_samples = tf.default_n_samples(tf.grid_resolution(field0), field0.cfg.step_ratio)
+    ids = torch.as_tensor(ts.PermutationSampler(rays.shape[0], MESH_RAYS, 0).next_ids(),
+                          device=dev)
+    batch = {"rays": rays[ids], "rgb": rgb[ids], "depth": depth[ids]}
+    kw = dict(n_samples=n_samples, app_k=64, microbatch=1)
+    out = {"rank": rank}
+    for name, (d, m) in (("data2", (2, 1)), ("model2", (1, 2))):
+        mesh = pmesh.make_mesh(data=d, model=m)
+        mse_rel, grad_rel, shapes, launches = _mesh_step_errors(mesh, field0, aabb, batch,
+                                                                n_samples, kw, seed=5)
+        out[name] = {"mse_rel": mse_rel, "grad_rel": grad_rel, "plane_shapes": shapes,
+                     "launches": launches}
+    return out
+
+
+def phase_mesh(dev, card, report, workdir):
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one GPU),
+    each a process of its own (module docstring, phase 13)."""
+    from text2nerf_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    ranks = dryrun.launch("chip_smoke:_mesh_rank", 2, workdir, timeout=400, threads=2)
+    wall = time.perf_counter() - t0
+    out = {"mesh_wall_s": wall}
+    for r in ranks:
+        for name in ("data2", "model2"):
+            e = r[name]
+            print(f"mesh rank {r['rank']} {name}: grads within {e['grad_rel']:.3e} of each leaf's "
+                  f"largest (tol {TOL['mesh']:g}), mse within {e['mse_rel']:.3e} relative; "
+                  f"shard planes {e['plane_shapes']}", flush=True)
+            _require(e["grad_rel"] <= TOL["mesh"],
+                     f"mesh rank {r['rank']} {name}: gradients {e['grad_rel']} > {TOL['mesh']}")
+            out[f"mesh_{name}_grad_rel_r{r['rank']}"] = e["grad_rel"]
+            print(f"mesh rank {r['rank']} {name}: the sharded step's launches {e['launches']}",
+                  flush=True)
+            for kernel, count in e["launches"].items():
+                # kernel B is the eval head: a train step shades through autograd
+                _require(count > 0 or kernel == "shading_mlp",
+                         f"{kernel} was not launched by the sharded step {name} on mesh "
+                         f"rank {r['rank']}")
+                if not count:
+                    continue
+                report[kernel]["launches"] = report[kernel].get("launches", 0) + count
+                by = report[kernel].setdefault("launches_by_path", {})
+                by[f"mesh_{name}"] = by.get(f"mesh_{name}", 0) + count
+    print(f"mesh phase: 2 ranks, {MESH_RAYS} rays a step, {wall:.1f} s with the ranks' start "
+          f"on {card}", flush=True)
+    return out
+
+
+def phase_merge_filters(dev, card, report):
+    """Merge pretraining at unet_1024, the PatchGAN discriminator card vs
+    CPU, and the bilateral filter's device backend against the native one
+    on the bootstrap's 512^2 inputs (module docstring, phase 14)."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch.data import io as scene_io
+    from text2nerf_tpu_torch.models import pix2pix as PP
+    from text2nerf_tpu_torch.ops import filters
+    from text2nerf_tpu_torch.services import fallbacks
+    from text2nerf_tpu_torch.services import merge as PM
+
+    def seed_rgbd(prompt):
+        img = fallbacks.procedural_text2img(prompt, hw=SEED_FIT_HW)
+        depth = scene_io.depth_process(fallbacks.procedural_depth(img), 2, push_depth=2.0)
+        return img.astype(np.float32), np.asarray(depth, np.float32)
+
+    rgbd = [seed_rgbd(p) for p in FARM_PROMPTS]
+    svc = PM.DepthMergeService(net_size=PRETRAIN_NET[0], num_downs=PRETRAIN_NET[1], device=dev)
+    # warm-up: the generator's init on the CPU, its first steps on the card
+    t0 = time.perf_counter()
+    PM.pretrain_merge_model(svc, [d for _, d in rgbd], steps=2, outsize=512, seed=1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses = PM.pretrain_merge_model(svc, [d for _, d in rgbd], steps=PRETRAIN_STEPS,
+                                     outsize=512, seed=0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / PRETRAIN_STEPS * 1e3
+    print(f"merge pretraining: {PRETRAIN_NET[0]} / {PRETRAIN_NET[1]} levels, bf16, "
+          f"{PRETRAIN_STEPS} steps, {ms:.2f} ms per step (the host's corruption and "
+          f"the generator's copy to the card included; after a {warm_s:.2f} s warm-up of 2 "
+          f"steps) on {card}; losses {losses[0]:.5f} -> {losses[-1]:.5f}", flush=True)
+    _require(len(losses) == PRETRAIN_STEPS and np.isfinite(losses).all(),
+             f"merge pretraining losses {losses}")
+
+    disc = PP.PatchDiscriminator(generator=torch.Generator().manual_seed(0))
+    x = torch.rand((1, 2, 512, 512), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = disc(x)
+            got = disc.to(dev)(x.to(dev)).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    disc_err = float((got - want).abs().max() / want.abs().max())
+    print(f"PatchDiscriminator card vs CPU (fp32, TF32 off, 512^2): {disc_err:.3e} of the "
+          f"largest logit (tol {TOL['disc']:g})", flush=True)
+    _require(disc_err <= TOL["disc"], f"PatchDiscriminator card vs CPU: {disc_err}")
+
+    img, depth = rgbd[0]
+    t0 = time.perf_counter()
+    for _ in range(FILTER_REPS):
+        n_img, n_depth = filters.sparse_bilateral_filtering(depth, img, backend="native")
+    native_ms = (time.perf_counter() - t0) / FILTER_REPS * 1e3
+    d_in, i_in = torch.as_tensor(depth, device=dev), torch.as_tensor(img, device=dev)
+    filters.sparse_bilateral_filtering(d_in, i_in)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FILTER_REPS):
+        g_img, g_depth = filters.sparse_bilateral_filtering(d_in, i_in)
+    torch.cuda.synchronize()
+    device_ms = (time.perf_counter() - t0) / FILTER_REPS * 1e3
+    err = max(float(np.abs(g_img.cpu().numpy() - n_img).max()),
+              float(np.abs(g_depth.cpu().numpy() - n_depth).max()))
+    n_diff = int((g_depth.cpu().numpy() != n_depth).sum())
+    print(f"bilateral filter {SEED_FIT_HW}, (5, 5, 3, 3): native {native_ms:.2f} ms, device "
+          f"{device_ms:.2f} ms on {card}; device vs native max |diff| {err:.3e} (tol "
+          f"{TOL['filter']:g}), {n_diff} depth pixels differ", flush=True)
+    _require(err <= TOL["filter"], f"the filter's device backend differs from native: {err}")
+    return {"merge_pretrain_ms_per_step": ms, "disc_card_vs_cpu": disc_err,
+            "bilateral_native_ms": native_ms, "bilateral_device_ms": device_ms}
+
+
 def phase_seed_fit_variants(dev, names, hw=(256, 256)):
     """The seed fit at the JAX benchmark's 256^2 once per variant of stage
     3's compaction settings, with an eval of the seed view after every
@@ -3332,10 +3741,21 @@ def main(argv):
         family = phase_model_family(dev, card, report, str(family_dir), train)
     finally:
         shutil.rmtree(family_dir, ignore_errors=True)
+    scale_dir = _build.BUILD_DIR / "scale_out"
+    shutil.rmtree(scale_dir, ignore_errors=True)
+    try:
+        scale = phase_farm(dev, card, report, str(scale_dir / "farm"))
+        scale.update(phase_fit_scenes_mesh(dev, card, report))
+        torch.cuda.empty_cache()
+        scale.update(phase_mesh(dev, card, report, str(scale_dir / "mesh")))
+    finally:
+        shutil.rmtree(scale_dir, ignore_errors=True)
+    scale.update(phase_merge_filters(dev, card, report))
     wall_s = time.perf_counter() - t_start
     print(f"chip_smoke wall {wall_s:.1f} s on {card}", flush=True)
     print(json.dumps({"rays_per_s": rays_s, "max_dev": max_dev, **train, **seed, **prog, **gen,
-                      **depth, **resumed, **family, "card": card, "wall_s": wall_s}), flush=True)
+                      **depth, **resumed, **family, **scale, "card": card,
+                      "wall_s": wall_s}), flush=True)
     kernels = [report[k] for k in ("factor_features", "shading_mlp", "factor_features_bwd",
                                    "factor_features_bwd_bf16", "cp_features", "cp_features_bwd")]
     for k in kernels:

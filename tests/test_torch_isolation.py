@@ -294,3 +294,44 @@ def test_init_params_statistics():
     assert float(field.basis.abs().max()) <= 1.0 / 144 ** 0.5
     assert float(field.mlp.w1.abs().max()) <= 1.0 / 351 ** 0.5
     assert float(field.mlp.b3.abs().max()) == 0.0
+
+
+def test_scale_out_and_tool_stand_alone_and_raise_without_cuda(small, monkeypatch, tmp_path):
+    """parallel/, the weights tool and the filters' device backend: in the
+    static scan above, and their entry points raise without CUDA unless
+    asked for the CPU (the weights tool runs on the CPU)."""
+    from text2nerf_tpu_torch import convert_weights as TOOL
+    from text2nerf_tpu_torch.ops import filters as PF
+    from text2nerf_tpu_torch.parallel import dryrun as PDRY
+    from text2nerf_tpu_torch.parallel import scene_farm as PFARM
+
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for mod in ("parallel/scene_farm.py", "parallel/mesh.py", "parallel/dryrun.py",
+                "convert_weights.py", "ops/filters.py"):
+        assert f"text2nerf_tpu_torch/{mod}" in names, mod
+    assert PDRY.ROOT == ROOT
+
+    field, aabb, _ = small
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    depth, img = np.ones((8, 8), np.float32), np.zeros((8, 8, 3), np.float32)
+    pool = (np.zeros((4, 6), np.float32), np.zeros((4, 3), np.float32), np.ones(4, np.float32))
+    run = PFARM.progressive_runner(PT.TrainConfig(), PSS.SceneConfig(datadir=""), None,
+                                   PE.ExpansionConfig(prompt=""))
+    calls = [
+        lambda: PFARM.run_farm_parallel(["p"], str(tmp_path / "d"), str(tmp_path / "l"),
+                                        lambda job: {}),
+        lambda: PFARM.fit_scenes_mesh(field.cfg, [field], aabb[None], [pool], n_steps=1,
+                                      batch_size=4, n_samples=8),
+        lambda: run(PFARM.FarmJob("p", str(tmp_path / "d2"), str(tmp_path / "l2"))),
+        lambda: PF.sparse_bilateral_filtering(depth, img, backend="device"),
+        lambda: PF.sparse_bilateral_filtering_image_edge(depth, img),
+        lambda: PF.hole_fill(img, depth),
+        lambda: PE.align_depth_pair(depth, depth, np.eye(4), np.eye(4), (8.0, 8.0, 4.0, 4.0)),
+        lambda: PM.pretrain_merge_model(PM.DepthMergeService(net_size=32, num_downs=4),
+                                        [depth], steps=1),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert TOOL.main(["--weights_dir", str(tmp_path / "w"), "--out_dir", str(tmp_path / "o")]) == 0

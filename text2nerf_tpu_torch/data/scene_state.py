@@ -214,7 +214,7 @@ def bootstrap_scene(
     with phase_timer("bootstrap_bilateral", log):
         img, depth = filter_ops.sparse_bilateral_filtering(
             depth, img, filter_size=cfg.filter_size,
-            depth_threshold=0.02, num_iter=cfg.num_filter_iter,
+            depth_threshold=0.02, num_iter=cfg.num_filter_iter, device=dev,
         )
 
     # ---- intrinsics and poses ---------------------------------------------

@@ -96,8 +96,13 @@ def _from_flat(cfg: TensoRFConfig, flat: dict) -> list:
     return [*tables, t(flat["basis"]), *mlp]
 
 
-def params_to_jax(field: TensoRF) -> dict:
-    """The field as the JAX parameter pytree, flattened: {path: ndarray}."""
+def params_to_jax(field) -> dict:
+    """The field as the JAX parameter pytree, flattened: {path: ndarray}.
+    A sequence of S fields of one shape gives a farm's stacked pytree,
+    every leaf with a leading S axis."""
+    if isinstance(field, (list, tuple)):
+        flats = [_to_flat(f, _params(f)) for f in field]
+        return {k: np.stack([f[k] for f in flats]) for k in flats[0]}
     return _to_flat(field, _params(field))
 
 
@@ -224,10 +229,21 @@ def _infer_cfg(flat: dict) -> TensoRFConfig:
 
 
 def params_from_jax(flat: dict, cfg: Optional[TensoRFConfig] = None, *,
-                    device=None) -> TensoRF:
+                    device=None, stacked: bool = False):
     """A field from the flattened JAX parameter pytree (numpy arrays keyed
     like ``_flatten``).  Without ``cfg`` the widths are read from the
-    shapes and the rest of the config keeps its defaults."""
+    shapes and the rest of the config keeps its defaults.  With
+    ``stacked`` the tree is a farm's (a leading S axis on every leaf) and
+    the result is a list of S fields; ``device`` may then be one device or
+    a sequence, scene i on ``device[i % len(device)]``."""
+    if stacked:
+        n = {int(np.shape(v)[0]) for v in flat.values()}
+        if len(n) != 1:
+            raise ValueError(f"stacked leaves disagree on their leading axis: {sorted(n)}")
+        devs = list(device) if isinstance(device, (list, tuple)) else [device]
+        return [params_from_jax({k: np.asarray(v)[i] for k, v in flat.items()}, cfg,
+                                device=devs[i % len(devs)])
+                for i in range(n.pop())]
     dev = resolve_device(device)
     cfg = cfg or _infer_cfg(flat)
     if cfg.model_name == "vm":

@@ -88,6 +88,49 @@ def global_depth_alignment(
     return scale, shift
 
 
+def align_depth_pair(depth_ref, depth_src, pose_ref, pose_src, intrinsic,
+                     max_samples: int = 1000, seed: int = 0, device=None):
+    """Warping-correspondence depth alignment (the reference's
+    ``eliminate_depth_error``): forward-warp the reference depth into the
+    source view (on ``device``, cuda unless asked), estimate a global
+    scale from sampled point-pair distances and a shift from the mean
+    residual over the covered pixels; the host arithmetic and the numpy
+    draws are the JAX package's.  No module calls it.
+
+    Returns (aligned source depth, uncertainty): the per-pixel residual on
+    covered pixels, 0.1 elsewhere."""
+    dev = resolve_device(device)
+    h, w = np.asarray(depth_ref).shape
+    _, mask_w, depth_w = splat_ops.warp_one_to_many(
+        torch.zeros((h, w, 3), dtype=torch.float32, device=dev), as_tensor(depth_ref, dev),
+        as_tensor(pose_ref, dev), as_tensor(pose_src, dev)[None], intrinsic,
+    )
+    mask = mask_w[0].cpu().numpy().astype(np.float32)
+    warped = depth_w[0].cpu().numpy()
+
+    rng = np.random.default_rng(seed)
+    ys, xs = np.nonzero(mask > 0)
+    if len(ys) < 2:
+        return np.asarray(depth_src, np.float32), np.full((h, w), 0.1, np.float32)
+    n = min(len(ys), max_samples)
+    sel = rng.choice(len(ys), n, replace=False)
+    ys, xs = ys[sel], xs[sel]
+    # scale from pairwise depth-difference ratios at corresponding pixels
+    dw = warped[ys, xs]
+    dsrc = np.asarray(depth_src)[ys, xs]
+    d1 = np.abs(np.diff(dw))
+    d2 = np.abs(np.diff(dsrc))
+    ok = (d1 > 1e-6) & np.isfinite(d2 / np.maximum(d1, 1e-12))
+    scale = float((d2[ok] / d1[ok]).mean()) if ok.any() else 1.0
+    # the source is aligned to the reference: scaled by ref / src
+    scale = 1.0 / max(scale, 1e-6)
+    src_scaled = np.asarray(depth_src) * scale
+    shift = float(((src_scaled - warped) * mask).sum() / max(mask.sum(), 1))
+    aligned = src_scaled - shift
+    uncert = np.abs(aligned - warped) * mask + 0.1 * (1 - mask)
+    return aligned.astype(np.float32), uncert.astype(np.float32)
+
+
 def _update_known_views(view_idx, scene, services, ex, img_new, depth_new, my_map_f, dev,
                         logdir=None):
     """Warp the new view's content (where it had no coverage,
@@ -133,7 +176,7 @@ def _update_known_views(view_idx, scene, services, ex, img_new, depth_new, my_ma
         depth_gen[ii] = depth
         if ex.use_support_set:
             img, depth = filter_ops.sparse_bilateral_filtering(
-                depth, img, filter_size=(5, 5, 3, 3), depth_threshold=0.02, num_iter=4,
+                depth, img, filter_size=(5, 5, 3, 3), depth_threshold=0.02, num_iter=4, device=dev,
             )
         scene.updates["%05d" % ii] = ss.view_pool(
             scene, img, depth, scene.masks_gen_split[ii], scene.poses_gen[ii], ex.trans_range,
@@ -213,7 +256,7 @@ def expand_scene(
             for rgb_d, depth_d in outs:
                 rgb_j, depth_j = filter_ops.sparse_bilateral_filtering(
                     depth_d.cpu().numpy().reshape(h, w), rgb_d.cpu().numpy().reshape(h, w, 3),
-                    filter_size=(7, 5, 5, 3, 3), depth_threshold=0.02, num_iter=5,
+                    filter_size=(7, 5, 5, 3, 3), depth_threshold=0.02, num_iter=5, device=dev,
                 )
                 rgbs_pre.append(rgb_j)
                 depths_pre.append(depth_j)
@@ -307,6 +350,7 @@ def expand_scene(
     with phase_timer(f"{tag}_filter_new", log):
         img_new, depth_new = filter_ops.sparse_bilateral_filtering(
             depth_new, img_new, filter_size=(5, 5, 3, 3), depth_threshold=0.02, num_iter=4,
+            device=dev,
         )
     _write(os.path.join(dibr, "depth", "%05d_new.png" % view_idx), depth_new * 12000)
 

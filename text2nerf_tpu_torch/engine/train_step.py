@@ -106,6 +106,7 @@ def make_train_step(
     lr_init: float = 0.02,
     lr_basis: float = 1e-3,
     device=None,
+    mesh=None,
 ):
     """Build the train step, with the JAX package's keyword set.
 
@@ -131,12 +132,26 @@ def make_train_step(
     - ``tv_decay`` None uses ``tv_factor**step``.
     - ``compute_dtype`` 'fp32' or 'bf16' (the factor features and their
       backward in bf16).
+    - ``mesh`` (:func:`..parallel.mesh.make_mesh`): the step of one rank
+      of a ``(data, model)`` mesh, on its part of the batch
+      (``shard_batch``) and its shard of the field (``shard_params``,
+      whose basis product is summed over ``model``).  The app TV is
+      reduced over ``model`` with the global channel count, the gradients
+      are averaged over ``data`` before Adam and the metrics over both
+      axes.  A jitter drawn from ``rng`` is the whole batch's, sliced to
+      this rank's rays (so equally seeded ranks draw what one process
+      would).  The orthogonality term needs every app channel and is
+      refused at model > 1.  Without a mesh the step is unchanged.
 
     Runs on ``device`` (cuda unless asked)."""
     assert depth_loss_type in ("mse", "ssi", "silog"), depth_loss_type
     if compute_dtype not in ("fp32", "bf16"):
         raise ValueError(f"compute_dtype must be 'fp32' or 'bf16', got {compute_dtype!r}")
     dev = resolve_device(device)
+    sharded = mesh is not None and mesh.model > 1
+    if sharded and weights.ortho > 0:
+        raise ValueError("the orthogonality regularizer needs every app channel: "
+                         "not supported at model > 1")
     compact = compact_k > 0 and not ndc
     # the depth-anchored window needs per-ray depth supervision to anchor to
     anchor = compact and depth_cap_band > 0 and weights.depth > 0
@@ -196,7 +211,12 @@ def make_train_step(
             total = total + tv_d
             metrics["reg_tv_density"] = tv_d
         if weights.tv_app > 0:
-            tv_a = tf.tv_loss_app(field) * weights.tv_app * decay
+            tv_app = tf.tv_loss_app(field)
+            if sharded:
+                from ..parallel.mesh import model_mean
+
+                tv_app = model_mean(tv_app, mesh)
+            tv_a = tv_app * weights.tv_app * decay
             total = total + tv_a
             metrics["reg_tv_app"] = tv_a
         if weights.l1 > 0:
@@ -243,7 +263,10 @@ def make_train_step(
         b = batch["rays"].shape[0]
         r = effective_microbatch(b, mb)
         width = n_samples if ndc else 1
-        if jitter is None:
+        if jitter is None and mesh is not None:
+            rows = torch.rand((b * mesh.data, width), generator=rng, device=dev)
+            jitter = rows[mesh.data_index * b:(mesh.data_index + 1) * b]
+        elif jitter is None:
             jitter = torch.rand((b, width), generator=rng, device=dev)
         jitter = as_tensor(jitter, dev).reshape(b, width)
         if not white_bg and bg_coin is None:
@@ -275,12 +298,34 @@ def make_train_step(
             metrics = {k: torch.mean(torch.stack([m[k] for m in subs])) for k in subs[0]}
         metrics.update(reg_metrics)
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            metrics = _mesh_reduce(optimizer, metrics, mesh)
         metrics["psnr"] = L.mse2psnr(metrics["mse"])
         _set_rates(state.step, lr_decay)
         optimizer.step()
         return TrainState(field, optimizer, state.step + 1), metrics
 
     return train_step
+
+
+def _mesh_reduce(optimizer, metrics: dict, mesh) -> dict:
+    """Average every gradient over ``data`` (in place) and the metrics
+    over the whole mesh; returns the metrics."""
+    import torch.distributed as dist
+
+    if mesh.data_group is not None:
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                dist.all_reduce(p.grad, group=mesh.data_group)
+                p.grad.div_(mesh.data)
+    names = sorted(metrics)
+    flat = torch.stack([metrics[k].float().reshape(()) for k in names])
+    if mesh.data * mesh.model > 1:
+        dist.all_reduce(flat)
+        flat = flat / (mesh.data * mesh.model)
+    return dict(zip(names, flat.unbind()))
 
 
 class PermutationSampler:

@@ -14,8 +14,10 @@ to the flax path of the JAX module (``Conv_k``, ``GroupNorm_k``,
 fp32 and return ``dtype``.  The bilinear resizes are ``F.interpolate``'s
 (``align_corners=False``), ``jax.image.resize``'s for upsampling.
 
-The JAX module's ``sync_batch_norm`` / ``SyncBatchNorm`` (a cross-device
-collective that no inference path calls) is not ported here.
+:func:`sync_batch_norm` / :class:`SyncBatchNorm` are the JAX module's
+cross-device batch norm (the reference's syncbn extension): per-channel
+sum and square sum all-reduced over a ``torch.distributed`` group, with
+autograd through the collective.  No inference path calls them.
 """
 
 from __future__ import annotations
@@ -28,6 +30,51 @@ import torch.nn.functional as F
 from torch import nn
 
 from .diffusion import conv, group_norm
+
+
+def sync_batch_norm(x, group=None, eps: float = 1e-5):
+    """Batch normalization of ``x`` (N, C, ...) with statistics over every
+    axis but the channel axis 1, summed over the ranks of ``group`` (a
+    ``torch.distributed`` process group; None: this process alone).  The
+    all-reduce is ``torch.distributed.nn.functional.all_reduce``, so the
+    backward pass sums the statistics' gradients over the ranks."""
+    dims = [0, *range(2, x.ndim)]
+    n = x.numel() // x.shape[1]
+    s = torch.sum(x, dim=dims)
+    ss = torch.sum(x * x, dim=dims)
+    if group is not None:
+        import torch.distributed as dist
+        from torch.distributed.nn.functional import all_reduce
+
+        s = all_reduce(s, group=group)
+        ss = all_reduce(ss, group=group)
+        n = n * dist.get_world_size(group)
+    mean = s / n
+    var = ss / n - mean * mean
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    return (x - mean.reshape(shape)) * torch.rsqrt(var + eps).reshape(shape)
+
+
+class SyncBatchNorm(nn.Module):
+    """Batch norm with optional cross-rank statistics and a learned affine
+    (``scale`` ones, ``bias`` zeros); ``use_running_average`` normalizes
+    with the ``mean`` / ``var`` buffers (zeros / ones) instead."""
+
+    def __init__(self, channels: int, group=None):
+        super().__init__()
+        self.group = group
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x, use_running_average: bool = True):
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        if use_running_average:
+            xn = (x - self.mean.reshape(shape)) * torch.rsqrt(self.var + 1e-5).reshape(shape)
+        else:
+            xn = sync_batch_norm(x, self.group)
+        return xn * self.scale.reshape(shape) + self.bias.reshape(shape)
 
 
 def _gn(ch: int) -> nn.GroupNorm:

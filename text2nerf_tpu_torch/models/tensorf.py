@@ -172,6 +172,9 @@ class TensoRF(nn.Module):
         )
         n_app = na[0] if cfg.model_name == "cp" else sum(na)
         self.basis = nn.Parameter(torch.empty(n_app, cfg.app_dim, **kw))
+        #: sums the basis product over the model axis of a mesh
+        #: (:func:`..parallel.mesh.shard_params`); None for a whole field
+        self.app_reduce = None
         self.mlp = None
         if cfg.shading_mode.startswith("MLP"):
             in_dim = mlp_mod.mlp_input_dim(
@@ -215,8 +218,10 @@ class TensoRF(nn.Module):
 
     def _basis(self, app_raw, dtype):
         if dtype is None:
-            return app_raw @ self.basis
-        return (app_raw.to(dtype) @ self.basis.to(dtype)).float()
+            out = app_raw @ self.basis
+        else:
+            out = (app_raw.to(dtype) @ self.basis.to(dtype)).float()
+        return out if self.app_reduce is None else self.app_reduce(out)
 
     def fused_features(self, xn, dtype: Optional[torch.dtype] = None):
         """(density_feat (N,), app (N, app_dim)) at normalized coords from
@@ -500,6 +505,7 @@ def _with_tables(field: TensoRF, grid_size, planes, lines) -> TensoRF:
     """A new field of ``grid_size`` holding ``planes`` / ``lines`` and a
     copy of ``field``'s basis and head."""
     new = TensoRF(field.cfg, grid_size, device=field.basis.device, dtype=field.basis.dtype)
+    new.app_reduce = field.app_reduce
     with torch.no_grad():
         for dst, src in zip((*new.planes, *new.lines), (*planes, *lines)):
             dst.copy_(src)

@@ -27,7 +27,11 @@ _LIB = None
 def load() -> ctypes.CDLL:
     """The loaded library, built first if needed."""
     global _LIB
-    if _LIB is None:
+    if _LIB is not None:
+        return _LIB
+    with _build.BUILD_LOCK:
+        if _LIB is not None:
+            return _LIB
         lib = ctypes.CDLL(str(_build.build_host_library("host_ops", SOURCE, GXX_FLAGS)))
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")

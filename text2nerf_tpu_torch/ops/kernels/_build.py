@@ -17,6 +17,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[2]
@@ -31,6 +32,12 @@ NVCC_FLAGS = (
 _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _LIBS: dict = {}
+#: serializes build-and-load within a process: farm workers are threads
+#: that may launch a kernel for the first time at the same moment
+BUILD_LOCK = threading.RLock()
+#: guards the wrappers' launch counts: ``+=`` on a module global is a read
+#: and a write that two worker threads can interleave
+COUNT_LOCK = threading.Lock()
 #: nvcc's output per source built by this process (ptxas register and
 #: shared-memory report)
 BUILD_LOGS: dict = {}
@@ -77,9 +84,20 @@ def library_path(name: str) -> Path:
     return hashed_path(name, dependencies(name), NVCC_FLAGS)
 
 
+def _tmp_path(out: Path) -> Path:
+    """A temporary output beside ``out`` that no other process or thread
+    writes: named by process and thread."""
+    return out.with_name(f"{out.stem}.tmp{os.getpid()}-{threading.get_ident()}.so")
+
+
 def build_host_library(stem: str, source: Path, flags) -> Path:
     """Compile one C++ source with ``g++ <flags>`` into its hashed path
     unless it is there already; raises with g++'s output on failure."""
+    with BUILD_LOCK:
+        return _build_host_library(stem, source, flags)
+
+
+def _build_host_library(stem: str, source: Path, flags) -> Path:
     out = hashed_path(stem, [source], flags)
     if out.exists():
         return out
@@ -87,7 +105,7 @@ def build_host_library(stem: str, source: Path, flags) -> Path:
     if gxx is None:
         raise RuntimeError(f"g++ not found: {source.name} is built at first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
+    tmp = _tmp_path(out)
     try:
         proc = subprocess.run([gxx, *flags, "-o", str(tmp), str(source)],
                               capture_output=True, text=True)
@@ -103,6 +121,11 @@ def build_host_library(stem: str, source: Path, flags) -> Path:
 def build(names=SOURCES) -> None:
     """Compile every named source that is not built yet; one ``nvcc`` per
     source, all started together.  Raises with nvcc's output on failure."""
+    with BUILD_LOCK:
+        _build(names)
+
+
+def _build(names) -> None:
     jobs = {}
     try:
         for name in names:
@@ -110,7 +133,7 @@ def build(names=SOURCES) -> None:
             if out.exists():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
+            tmp = _tmp_path(out)
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
             proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -139,9 +162,12 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
+        with BUILD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                _build((name,))
+                lib = ctypes.CDLL(str(library_path(name)))
+                _LIBS[name] = lib
     return lib
 
 

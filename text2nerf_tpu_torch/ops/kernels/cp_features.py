@@ -123,7 +123,8 @@ def _launch(xn, lines, nd, sigma, app, bf16):
             _build.ptr(sig_out), _build.ptr(app_out), _build.stream_of(xn),
         )
     _build.check(err, "cp_features launch")
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
     return sig_out, app_out
 
 
@@ -246,10 +247,11 @@ def _launch_backward(xn, lines, nd, d_sigma, d_app_raw, bf16, out):
             ctypes.cast(info, ctypes.c_void_p), _build.stream_of(xn),
         )
     _build.check(err, "cp_features_backward launch")
-    BWD_LAUNCHES += 1
     route = _ROUTE_NAMES[info[0]]
-    BWD_ROUTES[route] += 1
-    BWD_LAST_GRID = (route, info[1], info[2])
+    with _build.COUNT_LOCK:
+        BWD_LAUNCHES += 1
+        BWD_ROUTES[route] += 1
+        BWD_LAST_GRID = (route, info[1], info[2])
     return out
 
 

@@ -154,7 +154,8 @@ def _launch(xn, planes, lines, nd, sigma, app, bf16):
             _build.ptr(sig_out), _build.ptr(app_out), _build.stream_of(xn),
         )
     _build.check(err, "factor_features launch")
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
     return sig_out, app_out
 
 
@@ -318,14 +319,15 @@ def _launch_backward(xn, planes, lines, nd, d_sigma, d_app_raw, bf16, out):
             int(zero), int(bf16), ctypes.cast(info, ctypes.c_void_p), _build.stream_of(xn),
         )
     _build.check(err, "factor_features_backward launch")
-    BWD_LAUNCHES += 1
     mode = "fused" if d_sigma is not None and d_app_raw is not None else (
         "density" if d_sigma is not None else "app")
-    BWD_MODES[mode] += 1
-    BWD_DTYPES["bf16" if bf16 else "fp32"] += 1
     route = _ROUTE_NAMES[info[0]]
-    BWD_ROUTES[route] += 1
-    BWD_LAST_GRID = (route, info[1], info[2])
+    with _build.COUNT_LOCK:
+        BWD_LAUNCHES += 1
+        BWD_MODES[mode] += 1
+        BWD_DTYPES["bf16" if bf16 else "fp32"] += 1
+        BWD_ROUTES[route] += 1
+        BWD_LAST_GRID = (route, info[1], info[2])
     return out
 
 

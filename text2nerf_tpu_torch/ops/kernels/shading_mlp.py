@@ -194,7 +194,8 @@ def _launch(mlp, features, fea_pe):
             _build.ptr(out), _build.stream_of(features),
         )
     _build.check(err, "shade_fea_noview launch")
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
     return out
 
 

@@ -17,8 +17,12 @@ params under ``UnetSkipBlock_i/...``, see
 :func:`..models.pix2pix.state_from_flax`), or the reference's torch
 checkpoint (``.pth`` / ``.pt`` / ``.tar`` / ``.safetensors``, such as
 ``latest_net_G.pth``) read through ``unet_generator_name_map`` with every
-parameter it lacks zero, as the JAX package reads it.  Offline
-pretraining and saving are not ported.
+parameter it lacks zero, as the JAX package reads it.
+
+Offline pretraining (the reference's ``merge_model_single_channel.py``
+training loop): :func:`synthetic_corruption` and
+:func:`pretrain_merge_model`; :meth:`DepthMergeService.save` writes the
+base parameters in the JAX package's npz layout.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.pix2pix import UnetGenerator, minmax_normalize, state_from_flax
+from ..models.pix2pix import UnetGenerator, minmax_normalize, state_from_flax, state_to_flax
+from ..utils.atomic_io import atomic_savez
 
 #: suffixes of the reference's torch checkpoints (the JAX package's list)
 TORCH_SUFFIXES = (".pth", ".pt", ".tar", ".safetensors")
@@ -149,6 +154,11 @@ class DepthMergeService:
             out = nearest_resize(net(inp, self.compute_dtype)[0, 0], outsize)
         return out.float().cpu().numpy()
 
+    def save(self, path: str):
+        """The base parameters as the JAX package's ``save`` writes them:
+        flat ``UnetSkipBlock_i/...`` keys in the flax layouts."""
+        atomic_savez(path, **state_to_flax(self.model.state_dict()))
+
     @torch.no_grad()
     def run(self, depth_src: np.ndarray, outsize: int = 512) -> np.ndarray:
         """The generator's plain forward pass at the base parameters."""
@@ -157,3 +167,60 @@ class DepthMergeService:
         out = nearest_resize(net(self._inputs(depth_src, dev), self.compute_dtype)[0, 0],
                              outsize)
         return out.float().cpu().numpy()
+
+
+def synthetic_corruption(rng: np.random.Generator, depth: np.ndarray):
+    """The reference's training corruption (its data loader), numpy, with
+    the JAX package's draws in its order: given depth in [-1, 1],
+
+        d2       = minmax(depth)                      # [0, 1]
+        shift    ~ U(0, 1);  degree ~ randint(30, 60) # inclusive
+        scale1   = U(0.9, 1.1) * d2 ** (1 / degree)   # pixelwise
+        depth_in = minmax((d2 + shift) * scale1) * 2 - 1
+
+    Returns depth_in in [-1, 1]."""
+    lo, hi = depth.min(), depth.max()
+    d2 = (depth - lo) / max(hi - lo, 1e-12)
+    shift = rng.uniform(0.0, 1.0)
+    degree = int(rng.integers(30, 61))  # random.randint(30, 60) inclusive
+    scale1 = rng.uniform(0.9, 1.1) * np.power(d2, 1.0 / degree)
+    depth_in = (d2 + shift) * scale1
+    lo, hi = depth_in.min(), depth_in.max()
+    return ((depth_in - lo) / max(hi - lo, 1e-12)) * 2.0 - 1.0
+
+
+def pretrain_merge_model(service: DepthMergeService, clean_depths, steps: int = 1000,
+                         lr: float = 1e-4, outsize: int = 512, seed: int = 0):
+    """Offline training of the merge generator: each step draws a clean
+    depth, corrupts it (:func:`synthetic_corruption`), nearest-resizes it
+    to the net size, runs the generator and minimizes the MSE between its
+    output nearest-resized to min(outsize, net size) and the clean depth,
+    with Adam(lr, betas (0.9, 0.999)); the generator alone, no GAN term,
+    as the reference trains it.  The numpy draws are the JAX package's,
+    in its order.  Runs on the service's device and updates its base
+    parameters; returns the losses (floats)."""
+    dev = resolve_device(service.device)
+    net = copy.deepcopy(service.model).to(dev).requires_grad_(True)
+    opt = torch.optim.Adam(net.parameters(), lr=float(lr), betas=(0.9, 0.999), eps=1e-8)
+    rng = np.random.default_rng(seed)
+    size = service.net_size
+    losses = []
+    for _ in range(steps):
+        d = np.asarray(clean_depths[rng.integers(len(clean_depths))], np.float64)
+        lo, hi = d.min(), d.max()
+        depth = (d - lo) / max(hi - lo, 1e-12) * 2.0 - 1.0  # [-1, 1]
+        depth_in = synthetic_corruption(rng, depth)
+        inp = nearest_resize(torch.as_tensor(depth_in, dtype=torch.float32, device=dev), size)
+        inp = minmax_normalize(inp)[None, None]
+        tgt = nearest_resize(torch.as_tensor(depth, dtype=torch.float32, device=dev),
+                             min(outsize, size))
+        opt.zero_grad(set_to_none=True)
+        out = nearest_resize(net(inp, service.compute_dtype)[0, 0], tgt.shape[-1])
+        loss = torch.mean((out - tgt) ** 2)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    with torch.no_grad():
+        for p, q in zip(service.model.parameters(), net.parameters()):
+            p.copy_(q.cpu())
+    return [float(v) for v in losses]

@@ -396,6 +396,17 @@ def unet_generator_name_map(num_downs: int = 10) -> Dict[str, str]:
     return m
 
 
+def patchgan_name_map(n_layers: int = 3) -> Dict[str, str]:
+    """The reference's PatchGAN (``NLayerDiscriminator``, norm 'none': a
+    flat Sequential of Conv2d and LeakyReLU, so the convs sit at indices
+    0, 2, 4, ...) → the flax path ``Conv_i/{kernel, bias}``."""
+    name_map = {}
+    for i in range(n_layers + 2):
+        name_map[f"model.{2 * i}.weight"] = f"Conv_{i}/kernel"
+        name_map[f"model.{2 * i}.bias"] = f"Conv_{i}/bias"
+    return name_map
+
+
 def pix2pix_key(fpath: str) -> str:
     """The port's ``models.pix2pix.UnetGenerator`` entry of a flax path
     of :func:`unet_generator_name_map` (its tensors keep torch's layouts:
