@@ -206,7 +206,19 @@ Phases (any failure exits nonzero before the last line):
    at 512^2 on the card against the CPU (fp32, TF32 off, 1e-4 of the
    largest logit), and the sparse bilateral filter's device backend on
    the card against the native library on the bootstrap's 512^2 inputs
-   (bit for bit), with the ms of each.
+   (bit for bit), with the ms of each;
+15. the full-schedule quality tool at a cut depth:
+   text2nerf_tpu_torch.tools.run_full_schedule.main at the field's full
+   width (300^3 after 150^3 -> 300^3 at steps 8 and 16, inside stage 1)
+   with 256^2 views, 2 views, 1 / 1 / 1 epochs and 2 candidates (the
+   cuts): its JSON line must hold every key of the
+   JAX tool's, kernels A, A' and B must be launched; then compute_metrics
+   on its renders, report_phases on its log, and rebuild_scene_snapshot
+   on a copy of its log folder, whose views 0 and 1 must match the fit's
+   scene within the PNGs' quantization; then render_rays_compact_flagged
+   on the fit's field and seed view under each select_impl name (sort,
+   topk, rank: one sort in the port; kernels A and B launched), topk and
+   rank equal to sort.
 
 Prints the smoke's wall, a JSON line of per-kernel numbers, then as the
 last line
@@ -2778,14 +2790,10 @@ def _read_counts(report, path, need):
     counted by compute type: fp32 as factor_features_bwd, bf16 as
     factor_features_bwd_bf16)."""
     import torch
-    from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
-    from text2nerf_tpu_torch.ops.kernels import factor_features as ff
-    from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
+    from text2nerf_tpu_torch.ops.kernels import launch_counts
 
     torch.cuda.synchronize()
-    launches = {"factor_features": ff.LAUNCHES, "factor_features_bwd": ff.BWD_DTYPES["fp32"],
-                "factor_features_bwd_bf16": ff.BWD_DTYPES["bf16"], "shading_mlp": sm.LAUNCHES,
-                "cp_features": cpk.LAUNCHES, "cp_features_bwd": cpk.BWD_LAUNCHES}
+    launches = launch_counts()
     for name, count in launches.items():
         _require(count > 0 or name not in need, f"{name} was not launched on {path}")
         if count:
@@ -3622,6 +3630,117 @@ def phase_merge_filters(dev, card, report):
             "bilateral_native_ms": native_ms, "bilateral_device_ms": device_ms}
 
 
+FULL_SCHEDULE_ARGS = ["--hw", "256", "--views", "2", "--stages", "1", "1", "1", "--grid", "300",
+                      "--grid_init", "150", "--upsamp", "8", "16", "--candidates", "2"]
+FULL_SCHEDULE_KEYS = ("status", "schedule", "hw", "grid", "views", "grid_init", "upsamp",
+                      "stage3_balance", "stage3_gamma", "wall_min_this_attempt",
+                      "per_view_psnr", "per_view_ssim", "mean_psnr", "mean_ssim", "logfolder")
+# the snapshot rebuilt from the DIBR tree vs the run's own views: one uint8
+# level of the PNG (1 / 255) and the bilateral filter's response to it;
+# two steps of the uint16 depth PNG (1 / 12000 each)
+REBUILD_TOL = {"rgb": 5e-3, "depth": 2.0 / 12000}
+
+
+def phase_full_schedule(dev, card, report, workdir):
+    """The product's quality tool at a cut depth (module docstring, phase
+    15): run_full_schedule.main, its post-run tools on its log, then the
+    flagged render in every select_impl on its field."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch.engine import trainer
+    from text2nerf_tpu_torch.models import tensorf as ptf
+    from text2nerf_tpu_torch.ops import render as PRd
+    from text2nerf_tpu_torch.tools import compute_metrics, rebuild_scene_snapshot
+    from text2nerf_tpu_torch.tools import report_phases, run_full_schedule
+
+    # the fit's result, read as it returns (the tool prints only its line)
+    fits = []
+    real = trainer.reconstruction
+
+    def capture(*a, **kw):
+        fits.append(real(*a, **kw))
+        return fits[-1]
+
+    report_path = os.path.join(workdir, "report.jsonl")
+    trainer.reconstruction = capture
+    try:
+        _counts_zeroed()
+        t0 = time.perf_counter()
+        rc = run_full_schedule.main(["--out", workdir, "--report", report_path,
+                                     *FULL_SCHEDULE_ARGS], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts(report, "full_schedule", need=(
+            "factor_features", "factor_features_bwd", "shading_mlp"))
+    finally:
+        trainer.reconstruction = real
+    _require(rc == 0 and len(fits) == 1, f"run_full_schedule returned {rc}")
+    summary = json.loads(open(report_path).read().splitlines()[-1])
+    _require(tuple(summary) == FULL_SCHEDULE_KEYS, f"run_full_schedule keys {list(summary)}")
+    _require(summary["status"] == "ok" and len(summary["per_view_psnr"]) == 2
+             and all(np.isfinite(summary["per_view_psnr"] + summary["per_view_ssim"])),
+             f"run_full_schedule summary {summary}")
+    _, field, aabb, scene, logfolder = fits[0]
+    print(f"run_full_schedule {' '.join(FULL_SCHEDULE_ARGS)}: {wall:.1f} s on {card}; PSNR "
+          f"{summary['per_view_psnr']} SSIM {summary['per_view_ssim']}; launches {launches}",
+          flush=True)
+
+    final = os.path.join(logfolder, "imgs_final")
+    metrics_path = os.path.join(workdir, "compute_metrics.json")
+    _require(compute_metrics.main(["--pred", os.path.join(final, "rgbs"), "--gt",
+                                   os.path.join(final, "gt"), "--out", metrics_path],
+                                  device=dev) == 0, "compute_metrics failed")
+    metrics = json.load(open(metrics_path))
+    _require(metrics["n_images"] == 2 and abs(metrics["ssim_mean"] - summary["mean_ssim"]) < 0.02,
+             f"compute_metrics {metrics} vs the tool's SSIM {summary['mean_ssim']}")
+    _require(report_phases.main([os.path.join(workdir, "log")]) == 0, "report_phases failed")
+
+    # the snapshot rebuilt from the DIBR tree, views 0 and 1, against the
+    # fit's final scene
+    rebuilt_dir = os.path.join(workdir, "rebuilt")
+    shutil.copytree(logfolder, rebuilt_dir)
+    os.remove(os.path.join(rebuilt_dir, "scene_snapshot.npz"))
+    _require(rebuild_scene_snapshot.main(["--logfolder", rebuilt_dir, "--max_views", "2"],
+                                         device=dev) == 0, "rebuild_scene_snapshot failed")
+    from text2nerf_tpu_torch.data import scene_state as ss
+
+    rebuilt = ss.load_scene_snapshot(os.path.join(rebuilt_dir, "scene_snapshot.npz"))
+    _require(rebuilt.rgbs_gen_split.shape == scene.rgbs_gen_split.shape,
+             f"rebuilt {rebuilt.rgbs_gen_split.shape} vs {scene.rgbs_gen_split.shape}")
+    rgb_err = float(np.abs(rebuilt.rgbs_gen_split - scene.rgbs_gen_split).max())
+    depth_err = float(np.abs(rebuilt.depth_gen_split - scene.depth_gen_split).max())
+    print(f"rebuild_scene_snapshot vs the fit's scene: rgb {rgb_err:.3e} (tol "
+          f"{REBUILD_TOL['rgb']:g}), depth {depth_err:.3e} (tol {REBUILD_TOL['depth']:g})",
+          flush=True)
+    _require(rgb_err <= REBUILD_TOL["rgb"] and depth_err <= REBUILD_TOL["depth"],
+             f"rebuilt snapshot: rgb {rgb_err}, depth {depth_err}")
+
+    # the flagged compacted render (kernels A and B) on the seed view under
+    # each select_impl name; topk and rank must give the sort route's bytes
+    mask, _ = ptf.update_alpha_mask(field, aabb, (200, 200, 200), pool=3, device=dev)
+    rays = torch.as_tensor(scene.rays_gen_split[0], device=dev)
+    n_samples = ptf.default_n_samples(ptf.grid_resolution(field), field.cfg.step_ratio)
+    outs = {}
+    _counts_zeroed()
+    for impl in ("sort", "topk", "rank"):
+        outs[impl] = PRd.render_rays_compact_flagged(
+            field, aabb, rays, mask, n_samples=n_samples, compact_k=64, app_k=64,
+            feature_dtype="fp32", select_impl=impl)
+    flagged = _read_counts(report, "flagged_render", need=("factor_features", "shading_mlp"))
+    errs = {}
+    for impl in ("topk", "rank"):
+        errs[impl] = max(float((getattr(outs[impl][0], k) - getattr(outs["sort"][0], k))
+                               .abs().max()) for k in ("rgb", "depth", "acc"))
+        _require(errs[impl] == 0.0 and int(outs[impl][1]) == int(outs["sort"][1]),
+                 f"select_impl={impl} differs from sort: {errs[impl]}")
+    print(f"render_rays_compact_flagged on view 0 ({rays.shape[0]} rays, K 64): "
+          f"{int(outs['sort'][1])} rays flagged; topk / rank vs sort max |diff| {errs}; "
+          f"launches {flagged}", flush=True)
+    return {"full_schedule_s": wall, "full_schedule_psnr": summary["per_view_psnr"],
+            "full_schedule_ssim": summary["per_view_ssim"],
+            "rebuild_err": {"rgb": rgb_err, "depth": depth_err}}
+
+
 def phase_seed_fit_variants(dev, names, hw=(256, 256)):
     """The seed fit at the JAX benchmark's 256^2 once per variant of stage
     3's compaction settings, with an eval of the seed view after every
@@ -3751,6 +3870,12 @@ def main(argv):
     finally:
         shutil.rmtree(scale_dir, ignore_errors=True)
     scale.update(phase_merge_filters(dev, card, report))
+    sched_dir = _build.BUILD_DIR / "full_schedule"
+    shutil.rmtree(sched_dir, ignore_errors=True)
+    try:
+        scale.update(phase_full_schedule(dev, card, report, str(sched_dir)))
+    finally:
+        shutil.rmtree(sched_dir, ignore_errors=True)
     wall_s = time.perf_counter() - t_start
     print(f"chip_smoke wall {wall_s:.1f} s on {card}", flush=True)
     print(json.dumps({"rays_per_s": rays_s, "max_dev": max_dev, **train, **seed, **prog, **gen,

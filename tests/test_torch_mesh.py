@@ -10,7 +10,11 @@ check of its report is a test of its own:
 - data 1 × model 2 (and 2 × 2 on four ranks): the sharded step against
   the unsharded one, the mse and the app TV within 1e-6 relative,
   gradients within 1e-5 of each leaf's largest (each shard against its
-  slice of the whole field's gradient);
+  slice of the whole field's gradient); the same with the orthogonality
+  term on (its app lines summed back together over ``model``);
+- data 2 with a random background and R = 4: the coins drawn for the
+  whole batch, gradients within 1e-6; a data / R pair whose rank rows
+  straddle a sub-batch raises, naming both;
 - ``sync_batch_norm`` with the batch split over the ranks against the
   one-process call, forward and backward within 1e-6, and the
   one-process call against JAX's ``sync_batch_norm`` within 1e-6;
@@ -65,6 +69,30 @@ def test_model_sharded_step_equals_the_unsharded_step(two, rank):
     r = two[rank]["mp"]
     assert r["mse_rel"] <= 1e-6 and r["tv_app_rel"] <= 1e-6, r
     assert r["grad_rel"] <= 1e-5, r
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_model_sharded_step_with_the_orthogonality_term(two, rank):
+    r = two[rank]["mp_ortho"]
+    assert r["mse_rel"] <= 1e-6 and r["tv_app_rel"] <= 1e-6, r
+    assert r["grad_rel"] <= 1e-5, r
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_data_parallel_step_with_random_background_coins(two, rank):
+    # the coins pick white and black backgrounds, and rank 1's sub-batches
+    # (the whole batch's 3rd and 4th) draw other ones than its own first two
+    coins = np.asarray(two[rank]["coins"]) < 0.5
+    assert coins.any() and not coins.all() and (coins[:2] != coins[2:]).any(), coins
+    r = two[rank]["dp_random_bg"]
+    assert r["grad_rel"] <= 1e-6, r
+    assert r["mse_rel"] <= 1e-6, r
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_coins_of_straddling_sub_batches_raise(two, rank):
+    msg = two[rank]["straddle"]
+    assert msg is not None and "data=2" in msg and "R=3" in msg, msg
 
 
 @pytest.mark.parametrize("rank", [0, 1, 2, 3])

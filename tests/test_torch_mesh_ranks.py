@@ -39,10 +39,14 @@ def wall_field():
     return field
 
 
-def batch(b):
+def batch(b, away=False):
+    """b rays from the origin toward the wall; with ``away`` every other
+    ray points away from it and sees the background."""
     rng = np.random.default_rng(0)
     d = rng.normal(size=(b, 3)).astype(np.float32)
     d[:, 2] = np.abs(d[:, 2]) + 0.5
+    if away:
+        d[1::2, 2] *= -1
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return {"rays": torch.from_numpy(np.concatenate([np.zeros((b, 3), np.float32), d], -1)),
             "rgb": torch.from_numpy(rng.uniform(0, 1, (b, 3)).astype(np.float32)),
@@ -58,21 +62,22 @@ def _rel(a, b):
     return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
 
 
-def step_against_one_process(data, model, b=64, seed=3):
-    """One mesh step against the one-process step over the whole batch:
-    {'mse_rel', 'grad_rel' (the worst leaf's max error over its largest
-    reference value)}."""
+def step_against_one_process(data, model, b=64, seed=3, away=False, **step_kw):
+    """One mesh step against the one-process step over the whole batch
+    (``step_kw`` over STEP_KW on both sides): {'mse_rel', 'grad_rel' (the
+    worst leaf's max error over its largest reference value)}."""
     mesh = pmesh.make_mesh(data=data, model=model)
     field0 = wall_field()
     ref = copy.deepcopy(field0)
     opt = ts.make_optimizer(ref)
-    step = ts.make_train_step(CFG, opt, **STEP_KW)
-    full = batch(b)
+    kw = {**STEP_KW, **step_kw}
+    step = ts.make_train_step(CFG, opt, **kw)
+    full = batch(b, away)
     _, m_ref = step(ts.TrainState(ref, opt, 0), AABB, full, torch.Generator().manual_seed(seed))
 
     shard = pmesh.shard_params(field0, mesh)
     opt_s = ts.make_optimizer(shard)
-    step_s = ts.make_train_step(shard.cfg, opt_s, mesh=mesh, **STEP_KW)
+    step_s = ts.make_train_step(shard.cfg, opt_s, mesh=mesh, **kw)
     _, m = step_s(ts.TrainState(shard, opt_s, 0), AABB, pmesh.shard_batch(full, mesh),
                   torch.Generator().manual_seed(seed))
 
@@ -85,6 +90,33 @@ def step_against_one_process(data, model, b=64, seed=3):
             "tv_app_rel": abs(float(m["reg_tv_app"]) - float(m_ref["reg_tv_app"]))
             / float(m_ref["reg_tv_app"]),
             "grad_rel": max(errs)}
+
+
+ORTHO = dict(weights=ts.LossWeights(ortho=0.5))
+RANDOM_BG = dict(white_bg=False, microbatch=4, away=True)
+
+
+def reference_coins(b=64, seed=3, r=4):
+    """The one-process step's coins: drawn after the whole batch's jitter."""
+    g = torch.Generator().manual_seed(seed)
+    torch.rand((b, 1), generator=g)
+    return torch.rand((r,), generator=g).tolist()
+
+
+def straddling_coins_raise(world):
+    """data=world with R = 3 over 66 rays: a rank's 33 rows straddle the
+    sub-batches of 22; the step raises (its message)."""
+    mesh = pmesh.make_mesh(data=world, model=1)
+    field = pmesh.shard_params(wall_field(), mesh)
+    opt = ts.make_optimizer(field)
+    step = ts.make_train_step(CFG, opt, mesh=mesh, **{**STEP_KW, "white_bg": False,
+                                                       "microbatch": 3})
+    try:
+        step(ts.TrainState(field, opt, 0), AABB, pmesh.shard_batch(batch(66), mesh),
+             torch.Generator().manual_seed(1))
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def sync_bn_against_one_process(world):
@@ -115,6 +147,9 @@ def sync_bn_against_one_process(world):
 def two_ranks(rank, world, workdir):
     torch.set_num_threads(1)
     out = {"dp": step_against_one_process(world, 1), "mp": step_against_one_process(1, world),
+           "mp_ortho": step_against_one_process(1, world, **ORTHO),
+           "dp_random_bg": step_against_one_process(world, 1, **RANDOM_BG),
+           "straddle": straddling_coins_raise(world), "coins": reference_coins(),
            "bn": sync_bn_against_one_process(world)}
     return out
 

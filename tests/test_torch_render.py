@@ -167,8 +167,11 @@ def test_evaluation_path_matches_jax():
 
 
 def test_select_impl_and_bad_options_raise():
+    # an unknown lowering raises; the three JAX lowerings resolve
     with pytest.raises(ValueError):
-        PRd._resolve_select_impl("rank")
+        PRd._resolve_select_impl("nativ")
+    assert [PRd._resolve_select_impl(i) for i in ("sort", "topk", "rank")] == \
+        ["sort", "topk", "rank"]
     assert PRd._resolve_select_impl(None) == "sort"
     live = torch.from_numpy(np.random.default_rng(7).random((16, 41)) < 0.3)
     live[0] = False

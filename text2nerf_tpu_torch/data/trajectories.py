@@ -1,7 +1,7 @@
-"""Camera trajectories (port of the part of
-``text2nerf_tpu/data/trajectories.py`` that ``training_trajectory`` and
-``test_trajectory`` reach: the local support sets, the global paths and
-the local test spiral).
+"""Camera trajectories (port of ``text2nerf_tpu/data/trajectories.py``):
+the local support sets, the global paths, the local test spiral, and the
+reference's other pose generators (circles, rocking, pretraining,
+surround).  Randomness comes in through a numpy ``Generator`` (``rng``).
 
 Host-side numpy.  The camera looks along +z with +y up and +x right; a
 pose is a 4x4 camera-to-world matrix.
@@ -106,6 +106,24 @@ def local_fixed_poses(
         c2w = np.eye(4)
         c2w[:3, :3] = euler_to_rotation(rot) @ c2w_basis[:3, :3]
         c2w[:3, 3] = posi + c2w_basis[:3, 3]
+        poses.append(c2w)
+    return np.stack(poses).astype(np.float32)
+
+
+def local_fixed_poses_v1(
+    c2w_basis, angle=0.3, range_center=0.2, range_yaw=0.6, range_pitch=0.3
+):
+    """Variant with halved vertical translation and R,L,U,D,... ordering
+    (get_local_fixed_poses, scene_util.py:517-552)."""
+    rotvecs, posivecs = _compass_vectors(
+        range_center, range_yaw, range_pitch, half_vertical=True
+    )
+    poses = [np.asarray(c2w_basis, dtype=np.float64)]
+    for d in ("R", "L", "U", "D", "UR", "UL", "DR", "DL"):
+        rot = rotvecs[d] * angle / np.linalg.norm(rotvecs[d])
+        c2w = np.eye(4)
+        c2w[:3, :3] = euler_to_rotation(rot) @ c2w_basis[:3, :3]
+        c2w[:3, 3] = posivecs[d] + c2w_basis[:3, 3]
         poses.append(c2w)
     return np.stack(poses).astype(np.float32)
 
@@ -331,6 +349,125 @@ def circle_spiral_poses(
         )
         poses.append(viewmatrix(z, up, c + posi_rand))
     return np.stack(poses)
+
+
+def circle_poses(c2w, n_views=120, n_r=2, angle_h_start=15, use_rand=False, rng=None):
+    """Small look-at circle around the basis view
+    (get_circle_poses_from_pose, scene_util.py:475-515)."""
+    rng = rng or np.random.default_rng(0)
+    focal = 0.1
+    up = normalize(c2w[:3, 1])
+    center = c2w[:3, 3]
+    origin = center - focal * c2w[:3, 2]
+    alphas = np.linspace(0, 360 * n_r, n_views)
+    posi_rand = 0.02 * (rng.random(3) * 2 - 1) if use_rand else np.zeros(3)
+    r = focal * np.sin(angle_h_start / 180 * np.pi)
+    poses = []
+    for alpha in alphas:
+        a = alpha / 180 * np.pi
+        b = center - focal * (1 - np.cos(angle_h_start / 180 * np.pi)) * normalize(
+            c2w[:3, 2]
+        )
+        c = b + r * (normalize(c2w[:3, 0]) * np.cos(a) - up * np.sin(a))
+        z = normalize(c - origin)
+        poses.append(viewmatrix(z, up, c + posi_rand))
+    return np.stack(poses)
+
+
+def rocking_poses(c2w, angle_max=0.2, range_max=0.1, n_views=120, n_r=2):
+    """Side-to-side rocking path (get_rocking_traj_pose, scene_util.py:425-445)."""
+    focal = range_max / np.sin(angle_max) if np.sin(angle_max) != 0 else 10.0
+    up = normalize(c2w[:3, 1])
+    center = c2w[:3, 3]
+    origin = center - focal * c2w[:3, 2]
+    num_per_r = int(n_views / n_r)
+    angle_delta = 2 * angle_max / num_per_r
+    poses = []
+    for i in range(num_per_r):
+        angle = angle_max - angle_delta * i
+        c = center - focal * (
+            normalize(c2w[:3, 2]) * (1 - np.cos(angle))
+            + normalize(c2w[:3, 0]) * np.sin(angle)
+        )
+        z = normalize(c - origin)
+        poses.append(viewmatrix(z, up, c))
+    return np.stack(poses + poses[::-1])
+
+
+def pretraining_poses(
+    c2w_basis, range_center=0.2, range_yaw=20, range_pitch=15,
+    use_rand=False, angle_rand=5, posi_rand=0.05, rng=None,
+):
+    """9 poses with degree-valued yaw/pitch rotations and optional global +
+    per-pose jitter (get_pretraining_poses, scene_util.py:675-710)."""
+    rng = rng or np.random.default_rng(0)
+    rotvecs = {
+        "R": np.array([0, range_yaw, 0]), "L": np.array([0, -range_yaw, 0]),
+        "U": np.array([range_pitch, 0, 0]), "D": np.array([-range_pitch, 0, 0]),
+        "UR": np.array([range_pitch, range_yaw, 0]),
+        "UL": np.array([range_pitch, -range_yaw, 0]),
+        "DR": np.array([-range_pitch, range_yaw, 0]),
+        "DL": np.array([-range_pitch, -range_yaw, 0]),
+    }
+    _, posivecs = _compass_vectors(range_center, 0.0, 0.0)
+    c2w_basis = np.asarray(c2w_basis, np.float64)
+    if use_rand:
+        euler = 0.5 * angle_rand * (rng.random(3) * 2 - 1) / 180 * np.pi
+        jitter = np.eye(4)
+        jitter[:3, :3] = euler_to_rotation(euler)
+        jitter[:3, 3] = 0.5 * posi_rand * (rng.random(3) * 2 - 1)
+        c2w_basis = jitter @ c2w_basis
+    poses = [c2w_basis]
+    for d in ("R", "L", "U", "D", "UR", "UL", "DR", "DL"):
+        rot = rotvecs[d] / 180 * np.pi
+        posi = posivecs[d].astype(np.float64)
+        if use_rand:
+            rot = rot + 0.5 * angle_rand * (rng.random(3) * 2 - 1) / 180 * np.pi
+            posi = posi + 0.5 * posi_rand * (rng.random(3) * 2 - 1)
+        c2w = np.eye(4)
+        c2w[:3, :3] = euler_to_rotation(rot) @ c2w_basis[:3, :3]
+        c2w[:3, 3] = posi + c2w_basis[:3, 3]
+        poses.append(c2w)
+    return np.stack(poses).astype(np.float32)
+
+
+def circle_poses_from_basis_view(c2w, n_views=120, n_r=2):
+    """Look-at circle with 15-degree start offset
+    (get_circle_poses_from_basis_view, scene_util.py:713-746)."""
+    focal = 0.1
+    up = normalize(c2w[:3, 1])
+    center = c2w[:3, 3]
+    origin = center - focal * c2w[:3, 2]
+    alphas = np.linspace(0, 360 * n_r, n_views)
+    angle_h = 15.0
+    r = focal * np.sin(angle_h / 180 * np.pi)
+    poses = []
+    for alpha in alphas:
+        a = alpha / 180 * np.pi
+        b = center - focal * (1 - np.cos(angle_h / 180 * np.pi)) * normalize(
+            c2w[:3, 2]
+        )
+        c = b + r * (normalize(c2w[:3, 0]) * np.cos(a) - up * np.sin(a))
+        poses.append(viewmatrix(normalize(c - origin), up, c))
+    return np.stack(poses)
+
+
+def surround_poses(c2w_basis, num_poses=8, range_center=0.2):
+    """Basis + N translated poses on a circle in the image plane
+    (get_sprt_poses, scene_util.py:653-673)."""
+    if num_poses == 0:
+        return np.asarray(c2w_basis)[None].astype(np.float32)
+    poses = [np.asarray(c2w_basis, dtype=np.float64)]
+    for i in range(num_poses):
+        angle = i * 2 * np.pi / num_poses
+        posi = np.array(
+            [range_center * np.cos(angle), -range_center * np.sin(angle), 0.0]
+        )
+        c2w = np.eye(4)
+        c2w[:3, :3] = c2w_basis[:3, :3]
+        c2w[:3, 3] = posi + c2w_basis[:3, 3]
+        poses.append(c2w)
+    return np.stack(poses).astype(np.float32)
 
 
 def test_trajectory(pose_traj, poses0, angle, trans_range, n_local=120, n_global=360):

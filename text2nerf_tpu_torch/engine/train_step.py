@@ -139,9 +139,14 @@ def make_train_step(
       reduced over ``model`` with the global channel count, the gradients
       are averaged over ``data`` before Adam and the metrics over both
       axes.  A jitter drawn from ``rng`` is the whole batch's, sliced to
-      this rank's rays (so equally seeded ranks draw what one process
-      would).  The orthogonality term needs every app channel and is
-      refused at model > 1.  Without a mesh the step is unchanged.
+      this rank's rays, and so are background coins drawn from it: R
+      coins for the one-process step's R sub-batches of the whole batch,
+      this rank's rows split along the same boundaries (a rank's rows
+      that straddle a boundary raise).  So equally seeded ranks draw what
+      one process would.  The orthogonality term takes the whole app
+      lines, summed over ``model`` from each rank's channels
+      (:func:`..parallel.mesh.model_gather`); every rank computes the same
+      term.  Without a mesh the step is unchanged.
 
     Runs on ``device`` (cuda unless asked)."""
     assert depth_loss_type in ("mse", "ssi", "silog"), depth_loss_type
@@ -149,9 +154,6 @@ def make_train_step(
         raise ValueError(f"compute_dtype must be 'fp32' or 'bf16', got {compute_dtype!r}")
     dev = resolve_device(device)
     sharded = mesh is not None and mesh.model > 1
-    if sharded and weights.ortho > 0:
-        raise ValueError("the orthogonality regularizer needs every app channel: "
-                         "not supported at model > 1")
     compact = compact_k > 0 and not ndc
     # the depth-anchored window needs per-ray depth supervision to anchor to
     anchor = compact and depth_cap_band > 0 and weights.depth > 0
@@ -222,7 +224,12 @@ def make_train_step(
         if weights.l1 > 0:
             total = total + weights.l1 * tf.density_l1(field)
         if weights.ortho > 0:
-            total = total + weights.ortho * tf.vector_comp_diffs(field)
+            app_lines = None
+            if sharded:
+                from ..parallel.mesh import model_gather
+
+                app_lines = tuple(model_gather(line, mesh) for line in field.app_lines())
+            total = total + weights.ortho * tf.vector_comp_diffs(field, app_lines)
         return total, metrics
 
     def _set_rates(step, lr_decay):
@@ -269,7 +276,10 @@ def make_train_step(
         elif jitter is None:
             jitter = torch.rand((b, width), generator=rng, device=dev)
         jitter = as_tensor(jitter, dev).reshape(b, width)
-        if not white_bg and bg_coin is None:
+        if not white_bg and bg_coin is None and mesh is not None:
+            r, r_all, first = _rank_subbatches(b, mb, mesh)
+            bg_coin = torch.rand((r_all,), generator=rng, device=dev)[first:first + r]
+        elif not white_bg and bg_coin is None:
             bg_coin = torch.rand((r,), generator=rng, device=dev)
         coins = [None] * r if bg_coin is None else as_tensor(bg_coin, dev).reshape(r)
 
@@ -306,6 +316,26 @@ def make_train_step(
         return TrainState(field, optimizer, state.step + 1), metrics
 
     return train_step
+
+
+def _rank_subbatches(b: int, microbatch: int, mesh):
+    """(r, r_all, first): of the one-process step's ``r_all`` sub-batches
+    of the whole batch (b · data rays), the ``r`` that hold this rank's b
+    rows, starting at global sub-batch ``first``.  A rank holds whole
+    sub-batches, or lies inside one (r = 1); its rows straddling a
+    boundary raise."""
+    whole = b * mesh.data
+    r_all = effective_microbatch(whole, microbatch)
+    sb = whole // r_all
+    first = mesh.data_index * b // sb
+    if b % sb == 0:
+        return b // sb, r_all, first
+    if sb % b == 0:
+        return 1, r_all, first
+    raise ValueError(
+        f"data={mesh.data} and R={r_all} do not fit together: a rank's {b} rays straddle "
+        f"the one-process step's sub-batches of {sb} rays, so its background coins "
+        "cannot be the one-process step's")
 
 
 def _mesh_reduce(optimizer, metrics: dict, mesh) -> dict:

@@ -343,11 +343,13 @@ def density_l1(field: TensoRF):
     )
 
 
-def vector_comp_diffs(field: TensoRF):
+def vector_comp_diffs(field: TensoRF, app_lines=None):
     """Orthogonality regularizer: mean |off-diagonal| of each line's
-    component Gram matrix, over the density and the app lines.  The ``vm``
-    decomposition keeps no separate density and app lines and raises, as
-    the JAX package's does (its parameters have no such keys)."""
+    component Gram matrix, over the density and the app lines
+    (``app_lines`` in place of the field's own: a model shard passes the
+    whole lines).  The ``vm`` decomposition keeps no separate density and
+    app lines and raises, as the JAX package's does (its parameters have
+    no such keys)."""
     if field.cfg.model_name == "vm":
         raise ValueError("vector_comp_diffs: the vm decomposition has no separate "
                          "density and app lines")
@@ -362,7 +364,8 @@ def vector_comp_diffs(field: TensoRF):
             total = total + torch.mean(torch.abs(off))
         return total
 
-    return one(field.density_lines()) + one(field.app_lines())
+    return one(field.density_lines()) + one(field.app_lines() if app_lines is None
+                                            else app_lines)
 
 
 # ---------------------------------------------------------------------------
@@ -375,6 +378,39 @@ def compute_alpha(field: TensoRF, aabb, xyz, length):
     xn = torch.clamp(normalize_coord(aabb, xyz), -1.0, 1.0)
     sigma = feature2density(field.cfg, field.density_feature(xn.contiguous()))
     return 1.0 - torch.exp(-sigma * length)
+
+
+def sample_alpha_mask(alpha, xyz):
+    """Trilinear sample of the binary alpha volume at world points ``xyz``
+    (N, 3) → (N,).  ``alpha`` is a dict {'volume': (D, H, W) laid out
+    [z, y, x], 'aabb': (2, 3)}; coordinates are clamped to the box and
+    the corners to the volume (align-corners, border)."""
+    volume = torch.as_tensor(alpha["volume"])
+    aabb = torch.as_tensor(alpha["aabb"], dtype=volume.dtype, device=volume.device)
+    xn = torch.clamp(normalize_coord(aabb, xyz.to(volume.device)), -1.0, 1.0)
+    d, h, w = volume.shape
+    flat = volume.reshape(-1)
+
+    def corner(u, size):
+        f = (u + 1.0) * 0.5 * (size - 1)
+        i0 = torch.clamp(torch.floor(f).long(), 0, size - 1)
+        t = torch.clamp(f - i0.to(f.dtype), 0.0, 1.0)
+        return i0, torch.clamp(i0 + 1, max=size - 1), t
+
+    x0, x1, tx = corner(xn[:, 0], w)
+    y0, y1, ty = corner(xn[:, 1], h)
+    z0, z1, tz = corner(xn[:, 2], d)
+
+    def take(zi, yi, xi):
+        return flat[(zi * h + yi) * w + xi]
+
+    c00 = take(z0, y0, x0) * (1 - tx) + take(z0, y0, x1) * tx
+    c01 = take(z0, y1, x0) * (1 - tx) + take(z0, y1, x1) * tx
+    c10 = take(z1, y0, x0) * (1 - tx) + take(z1, y0, x1) * tx
+    c11 = take(z1, y1, x0) * (1 - tx) + take(z1, y1, x1) * tx
+    c0 = c00 * (1 - ty) + c01 * ty
+    c1 = c10 * (1 - ty) + c11 * ty
+    return c0 * (1 - tz) + c1 * tz
 
 
 def _linspace01(g: int, device):

@@ -1,9 +1,11 @@
 """Native host kernels (C++ through ctypes), built at first use.
 
 ``host_ops.cpp`` beside this file is the port's own copy of the JAX
-package's sparse bilateral filter and of its raster-order hole fill
-``dibr_hole_fill2`` (no module calls the other hole fill or the z-buffer
-splat of the same source, so they are not copied).  It is compiled with ``g++ -O3 -shared -fPIC`` into
+package's native host kernels: the sparse bilateral filter, the
+raster-order hole fills ``dibr_hole_fill2`` (expansion) and
+``dibr_hole_fill1``, and the first-writer-wins z-buffer point splat.
+They are sequential raster-order loops, so they stay on the host.  It
+is compiled with ``g++ -O3 -shared -fPIC`` into
 ``text2nerf_tpu_torch/build/libhost_ops-<hash>.so`` (the hash covers the
 source and the flags, as for the CUDA kernels).  A build or load failure
 raises: there is no quiet fallback.
@@ -46,6 +48,17 @@ def load() -> ctypes.CDLL:
             ctypes.c_float,
         ]
         lib.dibr_hole_fill2.restype = None
+        lib.dibr_hole_fill1.argtypes = [
+            f32p, f32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ]
+        lib.dibr_hole_fill1.restype = None
+        i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        lib.zbuffer_point_splat.argtypes = [
+            i16p, i16p, f32p, f32p, f32p, ctypes.c_void_p, u8p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ]
+        lib.zbuffer_point_splat.restype = None
         _LIB = lib
     return _LIB
 
@@ -95,3 +108,41 @@ def hole_fill2(image, mask, depth=None, threshold: float = 0.65):
     lib.dibr_hole_fill2(img, m, None if d is None else d.ctypes.data_as(ctypes.c_void_p),
                         h, w, c, ctypes.c_float(threshold))
     return (img, m) if d is None else (img, m, d)
+
+
+def hole_fill1(image, mask, fill_value: float = 255.0):
+    """The reference's other raster-order hole fill (``dibr_filter_mask``)
+    of ``image`` (H, W, C) under its coverage ``mask`` (H, W): a 5x5 and a
+    3x3 pass, border extension, and isolated known pixels reset to
+    ``fill_value``.  Returns float32 copies (image, mask)."""
+    lib = load()
+    img = np.array(image, np.float32, order="C")
+    m = np.array(mask, np.float32, order="C")
+    if img.ndim != 3 or m.shape != img.shape[:2]:
+        raise ValueError(f"need image (H, W, C) and mask (H, W), got {img.shape} and {m.shape}")
+    h, w, c = img.shape
+    lib.dibr_hole_fill1(img, m, h, w, c, ctypes.c_float(fill_value))
+    return img, m
+
+
+def zbuffer_splat(xs, ys, zs, src):
+    """First-writer-wins point splat of ``src`` (H, W, C) to the rounded
+    target pixels ``xs``, ``ys`` (H, W) with target depths ``zs`` (H, W),
+    sources in raster order.  Returns (out (H, W, C) with ones where
+    nothing landed, points_z (H, W), mask (H, W) uint8)."""
+    lib = load()
+    xs = np.ascontiguousarray(np.asarray(xs, np.int16))
+    ys = np.ascontiguousarray(np.asarray(ys, np.int16))
+    zs = np.ascontiguousarray(np.asarray(zs, np.float32))
+    src = np.ascontiguousarray(np.asarray(src, np.float32))
+    h, w = zs.shape
+    if xs.shape != (h, w) or ys.shape != (h, w) or src.ndim != 3 or src.shape[:2] != (h, w):
+        raise ValueError(f"need xs, ys, zs (H, W) and src (H, W, C), got {xs.shape}, "
+                         f"{ys.shape}, {zs.shape} and {src.shape}")
+    c = src.shape[-1]
+    out = np.ones((h, w, c), np.float32)
+    points = np.zeros((h, w), np.float32)
+    mask = np.zeros((h, w), np.uint8)
+    lib.zbuffer_point_splat(xs, ys, zs, src, out, points.ctypes.data_as(ctypes.c_void_p),
+                            mask, h, w, c)
+    return out, points, mask

@@ -6,7 +6,11 @@
 //   * dibr_hole_fill2: the raster-order hole fill of a DIBR-warped view
 //     (dibr_filter_mask2, utils.py:394-409), where a pixel filled early
 //     counts as known for the pixels after it (order-dependent, so it is
-//     sequential host code, not a vectorized device pass).
+//     sequential host code, not a vectorized device pass);
+//   * dibr_hole_fill1: the reference's other hole fill (dibr_filter_mask,
+//     utils.py:345-391), raster-order passes the same way;
+//   * zbuffer_point_splat: the legacy per-pixel warp, first writer wins
+//     in raster order (sequential for the same reason).
 //
 // Built with g++ -O3 -shared -fPIC at first use and loaded via ctypes by
 // text2nerf_tpu_torch/native/__init__.py.
@@ -174,7 +178,7 @@ void sparse_bilateral(float* depth_io, float* image_io, const float* depth0,
 // hole filling.
 namespace {
 
-// 5x5 neighborhood weights (utils.py:396)
+// 5x5 neighborhood weights (utils.py:347,396)
 const float W5[25] = {
     1.f, 1.f, 1.5f, 1.f, 1.f,
     1.f, 1.5f, 3.f, 1.5f, 1.f,
@@ -182,12 +186,25 @@ const float W5[25] = {
     1.f, 1.5f, 3.f, 1.5f, 1.f,
     1.f, 1.f, 1.5f, 1.f, 1.f,
 };
+// 3x3 weights of the second pass and of the removal pass (utils.py:356)
+const float W3[9] = {1.f, 3.f, 1.f, 3.f, 0.f, 3.f, 1.f, 3.f, 1.f};
 
 inline float weighted_known_fraction_5x5(const float* mask, int w, int i, int j) {
   float sum = 0.f, total = 0.f;
   for (int di = -2; di <= 2; ++di)
     for (int dj = -2; dj <= 2; ++dj) {
       float wgt = W5[(di + 2) * 5 + (dj + 2)];
+      total += wgt;
+      sum += wgt * mask[(i + di) * w + (j + dj)];
+    }
+  return sum / total;
+}
+
+inline float weighted_known_fraction_3x3(const float* mask, int w, int i, int j) {
+  float sum = 0.f, total = 0.f;
+  for (int di = -1; di <= 1; ++di)
+    for (int dj = -1; dj <= 1; ++dj) {
+      float wgt = W3[(di + 1) * 3 + (dj + 1)];
       total += wgt;
       sum += wgt * mask[(i + di) * w + (j + dj)];
     }
@@ -233,6 +250,77 @@ void dibr_hole_fill2(float* image, float* mask, float* depth, int h, int w,
         fill_pixel(image, depth, mask, w, c, i, j);
         mask[i * w + j] = 1.f;
       }
+    }
+}
+
+// dibr_filter_mask (utils.py:345-391): a 5x5 pass (threshold 0.6), a 3x3
+// pass (threshold 0.5), border extension, then isolated known pixels
+// (3x3 known fraction < 0.45) are reset to `fill_value` and unknown.
+void dibr_hole_fill1(float* image, float* mask, int h, int w, int c,
+                     float fill_value) {
+  for (int i = 2; i < h - 2; ++i)
+    for (int j = 2; j < w - 2; ++j)
+      if (mask[i * w + j] == 0.f && weighted_known_fraction_5x5(mask, w, i, j) > 0.6f) {
+        fill_pixel(image, nullptr, mask, w, c, i, j);
+        mask[i * w + j] = 1.f;
+      }
+  for (int i = 1; i < h - 1; ++i)
+    for (int j = 1; j < w - 1; ++j)
+      if (mask[i * w + j] == 0.f && weighted_known_fraction_3x3(mask, w, i, j) > 0.5f) {
+        fill_pixel(image, nullptr, mask, w, c, i, j);
+        mask[i * w + j] = 1.f;
+      }
+  // border extension (utils.py:364-383): top and bottom rows, then the
+  // left and right columns, each from its inner neighbour
+  for (int j = 0; j < w; ++j) {
+    if (mask[j] == 0.f && mask[w + j] > 0.f) {
+      for (int cc = 0; cc < c; ++cc) image[j * c + cc] = image[(w + j) * c + cc];
+      mask[j] = 1.f;
+    }
+    int i = h - 1;
+    if (mask[i * w + j] == 0.f && mask[(i - 1) * w + j] > 0.f) {
+      for (int cc = 0; cc < c; ++cc)
+        image[(i * w + j) * c + cc] = image[((i - 1) * w + j) * c + cc];
+      mask[i * w + j] = 1.f;
+    }
+  }
+  for (int i = 0; i < h; ++i) {
+    if (mask[i * w] == 0.f && mask[i * w + 1] > 0.f) {
+      for (int cc = 0; cc < c; ++cc) image[(i * w) * c + cc] = image[(i * w + 1) * c + cc];
+      mask[i * w] = 1.f;
+    }
+    int j = w - 1;
+    if (mask[i * w + j] == 0.f && mask[i * w + j - 1] > 0.f) {
+      for (int cc = 0; cc < c; ++cc)
+        image[(i * w + j) * c + cc] = image[(i * w + j - 1) * c + cc];
+      mask[i * w + j] = 1.f;
+    }
+  }
+  // isolated-pixel removal (utils.py:384-389)
+  for (int i = 1; i < h - 1; ++i)
+    for (int j = 1; j < w - 1; ++j)
+      if (mask[i * w + j] == 1.f && weighted_known_fraction_3x3(mask, w, i, j) < 0.45f) {
+        for (int cc = 0; cc < c; ++cc) image[(i * w + j) * c + cc] = fill_value;
+        mask[i * w + j] = 0.f;
+      }
+}
+
+// Sequential z-buffer point splat (the legacy per-pixel warp,
+// utils.py:199-213 / scene_util.py:75-89): the first writer wins each
+// target pixel, sources scanned in raster order.  xs / ys are the rounded
+// target coordinates, zs the target-space depths; points may be null.
+void zbuffer_point_splat(const int16_t* xs, const int16_t* ys, const float* zs,
+                         const float* src, float* out, float* points,
+                         uint8_t* mask, int h, int w, int c) {
+  for (int i = 0; i < h; ++i)
+    for (int j = 0; j < w; ++j) {
+      int x = xs[i * w + j], y = ys[i * w + j];
+      float z = zs[i * w + j];
+      if (x < 0 || x >= w || y < 0 || y >= h || z <= 0.f) continue;
+      if (mask[y * w + x]) continue;
+      for (int cc = 0; cc < c; ++cc) out[(y * w + x) * c + cc] = src[(i * w + j) * c + cc];
+      if (points) points[y * w + x] = z;
+      mask[y * w + x] = 1;
     }
 }
 

@@ -1,5 +1,6 @@
-"""Camera rays (port of part of ``text2nerf_tpu/ops/rays.py``), the AABB
-slab test and the NDC helpers.
+"""Camera rays (port of ``text2nerf_tpu/ops/rays.py``), the AABB slab
+test, the NDC helpers, the near/far ray marcher and hierarchical
+inverse-CDF sampling.
 
 Pinhole camera looking along +z with image y down: the direction of pixel
 (i, j) is ``[(i + .5 - cx)/fx, (j + .5 - cy)/fy, 1]``, L2-normalized.
@@ -38,6 +39,18 @@ def ray_directions(h: int, w: int, focal, center=None, normalize: bool = True,
     if normalize:
         dirs = dirs / torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True))
     return dirs
+
+
+def ray_directions_blender(h: int, w: int, focal, center=None, *, device=None):
+    """Blender-convention directions (y up, looking down -z), (h, w, 3),
+    not normalized."""
+    fx, fy = float(focal[0]), float(focal[1])
+    if center is None:
+        cx, cy = w / 2.0, h / 2.0
+    else:
+        cx, cy = float(center[0]), float(center[1])
+    i, j = pixel_centers(h, w, device=device)
+    return torch.stack([(i - cx) / fx, -(j - cy) / fy, -torch.ones_like(i)], dim=-1)
 
 
 def rays_from_pose(directions, c2w):
@@ -159,3 +172,70 @@ def ndc2dist(ndc_pts, cos_angle):
     1e10·cos_angle."""
     dists = torch.linalg.norm(ndc_pts[:, 1:] - ndc_pts[:, :-1], dim=-1)
     return torch.cat([dists, 1e10 * cos_angle[..., None]], -1)
+
+
+def ray_marcher(rays, n_samples: int = 64, lindisp: bool = False, perturb: float = 0.0,
+                bbox=None, generator=None, u=None):
+    """Near/far stratified point sampling.  ``rays`` (N, 8) [o | d | near
+    | far]; with ``bbox`` the near and far come from the AABB
+    intersection.  With ``perturb`` > 0 each sample moves within its
+    stratum by ``u`` (N, n_samples) uniforms, drawn from ``generator``
+    when not given (neither: no perturbation, as the JAX function without
+    an rng).  Returns (xyz, rays_o, rays_d, z_vals)."""
+    rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+    if bbox is not None:
+        t_min, t_max = aabb_slab_interval(rays_o, rays_d, torch.as_tensor(
+            bbox, dtype=rays.dtype, device=rays.device))
+        near, far = t_min[:, None], t_max[:, None]
+    else:
+        near, far = rays[:, 6:7], rays[:, 7:8]
+    z_steps = torch.linspace(0.0, 1.0, n_samples, dtype=rays.dtype, device=rays.device)
+    if not lindisp:
+        z_vals = near * (1 - z_steps) + far * z_steps
+    else:
+        z_vals = 1.0 / (1.0 / near * (1 - z_steps) + 1.0 / far * z_steps)
+    z_vals = z_vals.expand(rays.shape[0], n_samples)
+    if perturb > 0 and (u is not None or generator is not None):
+        if u is None:
+            u = torch.rand(z_vals.shape, generator=generator, device=rays.device)
+        mids = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+        upper = torch.cat([mids, z_vals[:, -1:]], -1)
+        lower = torch.cat([z_vals[:, :1], mids], -1)
+        z_vals = lower + (upper - lower) * perturb * torch.as_tensor(u, device=rays.device)
+    xyz = rays_o[:, None] + rays_d[:, None] * z_vals[..., None]
+    return xyz, rays_o, rays_d, z_vals
+
+
+def sample_pdf(bins, weights, n_samples: int, generator=None, u=None):
+    """Hierarchical inverse-CDF sampling of ``n_samples`` points per row
+    from the bins' ``weights``: at the uniforms ``u`` (..., n_samples)
+    when given, else drawn from ``generator``, else deterministic (a
+    linspace over [0, 1], as the JAX function without an rng)."""
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, -1, keepdim=True)
+    # the cdf summed bin by bin in the weights' dtype, as the JAX function's
+    # cumsum rounds (torch's CPU cumsum accumulates wider): a uniform on a
+    # boundary ulp, such as the last u = 1, picks the same bin
+    parts = [torch.zeros_like(pdf[..., 0])]
+    for i in range(pdf.shape[-1]):
+        parts.append(parts[-1] + pdf[..., i])
+    cdf = torch.stack(parts, -1)
+    shape = cdf.shape[:-1] + (n_samples,)
+    if u is not None:
+        u = torch.as_tensor(u, dtype=cdf.dtype, device=cdf.device).expand(shape)
+    elif generator is not None:
+        u = torch.rand(shape, generator=generator, device=cdf.device, dtype=cdf.dtype)
+    else:
+        u = torch.linspace(0.0, 1.0, n_samples, dtype=cdf.dtype, device=cdf.device).expand(shape)
+    inds = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    cdf_g0 = torch.gather(cdf, -1, below)
+    cdf_g1 = torch.gather(cdf, -1, above)
+    last = bins.shape[-1] - 1
+    bins_g0 = torch.gather(bins, -1, torch.clamp(below, max=last))
+    bins_g1 = torch.gather(bins, -1, torch.clamp(above, max=last))
+    denom = cdf_g1 - cdf_g0
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_g0) / denom
+    return bins_g0 + t * (bins_g1 - bins_g0)

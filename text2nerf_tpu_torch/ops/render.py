@@ -5,9 +5,15 @@
   samples per ray by weight; ``is_train=True`` is the train branch
   (per-ray jitter, no eval z-cull, the autograd head, the random
   background coin).
-- :func:`render_rays_compact` / :func:`render_rays_compact_need`: the
-  alpha-mask compacted eval renderer (first ``compact_k`` mask-live
-  samples per ray), the second also returning each ray's escalation rung.
+- :func:`render_rays_compact` / :func:`render_rays_compact_need` /
+  :func:`render_rays_compact_flagged`: the alpha-mask compacted eval
+  renderer (first ``compact_k`` mask-live samples per ray), the second
+  also returning each ray's escalation rung, the third the count of rays
+  that would escalate; :func:`count_live_samples` counts each ray's
+  live samples under the same rule.
+- :func:`first_k_live` / :func:`last_k_live`: the live selection; the
+  JAX package's ``sort``, ``topk`` and ``rank`` lowerings
+  (``select_impl``) are names for its one sort.
 - :func:`render_rays_train_compact`: the compacted train renderer (the
   first or the depth-anchored last ``compact_k`` mask-live samples, in
   groups of ``density_group`` ray-consecutive samples).
@@ -285,9 +291,10 @@ def _nearest_alpha_lookup(alpha_mask, pts):
 def first_k_live(live, k: int, impl: str = "sort"):
     """Per-row indices of the first ``k`` True entries of ``live`` (B, N),
     ascending, padded with N - 1 where a row has fewer; plus the mask of
-    real entries.  Only the ``sort`` lowering is ported."""
-    if impl != "sort":
-        raise ValueError(f"first_k_live impl must be 'sort' in this port, got {impl!r}")
+    real entries.  ``impl`` names one of the JAX package's lowerings
+    (``sort``, ``topk``, ``rank``); they give the same indices, so every
+    name runs the one sort of the live-index key here."""
+    _resolve_select_impl(impl)
     _, n = live.shape
     steps = torch.arange(n, dtype=torch.int32, device=live.device)[None, :]
     order_key = torch.where(live, steps, torch.full_like(steps, n))
@@ -306,12 +313,12 @@ def last_k_live(live, k: int, impl: str = "sort"):
     return torch.flip(idx, (1,)), torch.flip(sel_r, (1,))
 
 
-_SELECT_IMPLS = ("sort",)
+_SELECT_IMPLS = ("sort", "topk", "rank")
 
 
 def _resolve_select_impl(impl: Optional[str]) -> str:
-    """None → 'sort'; anything but 'sort' raises (a typo must not fall
-    back silently)."""
+    """None → 'sort'; an unknown value raises (a typo must not fall back
+    silently)."""
     if impl is None:
         impl = "sort"
     if impl not in _SELECT_IMPLS:
@@ -383,18 +390,30 @@ def render_rays_compact_need(
     )
 
 
-def _render_rays_compact(
-    field, aabb, rays, alpha_mask, *, n_samples: int, compact_k: int,
-    app_k: int, white_bg: bool, eval_z_min: float, occ_stride: int,
-    feature_dtype: str, overflow_tol: Optional[float] = None,
-    select_impl: str = "sort", need_ladder: Optional[tuple] = None,
+@torch.no_grad()
+def render_rays_compact_flagged(
+    field, aabb, rays, alpha_mask, *, n_samples, compact_k, app_k, white_bg=True,
+    eval_z_min=2.0, feature_dtype="bf16", acc_tol=1e-3, select_impl=None,
 ):
-    cfg = field.cfg
-    fdt = _feature_dtype(feature_dtype)
-    b = rays.shape[0]
-    rays_o, rays_d, step, t_min, z_vals = _march(cfg, field, aabb, rays, n_samples)
-    pts = rays_o[:, None] + rays_d[:, None] * z_vals[..., None]
+    """render_rays_compact + an escalation flag: the count of rays whose
+    mask-live samples overflow ``compact_k`` while acc < 1 - acc_tol (the
+    rays whose truncated tail could still add colour).  Returns
+    (RenderOutput, count as a 0-d tensor)."""
+    return _render_rays_compact(
+        field, aabb, rays, alpha_mask, n_samples=n_samples,
+        compact_k=compact_k, app_k=app_k, white_bg=white_bg,
+        eval_z_min=eval_z_min, occ_stride=_occ_stride(field, aabb, alpha_mask),
+        feature_dtype=feature_dtype, overflow_tol=float(acc_tol),
+        select_impl=_resolve_select_impl(select_impl),
+    )
 
+
+def _live_samples(field, aabb, rays, alpha_mask, n_samples, eval_z_min, occ_stride):
+    """The eval march and its live rule: (rays_o, rays_d, step, t_min,
+    z_vals, live (B, n_samples))."""
+    b = rays.shape[0]
+    rays_o, rays_d, step, t_min, z_vals = _march(field.cfg, field, aabb, rays, n_samples)
+    pts = rays_o[:, None] + rays_d[:, None] * z_vals[..., None]
     valid = _in_aabb(pts, aabb) & (pts[..., 2] > eval_z_min)
     if occ_stride == 1:
         occ = _nearest_alpha_lookup(alpha_mask, pts.reshape(-1, 3)).reshape(b, n_samples)
@@ -405,7 +424,32 @@ def _render_rays_compact(
         pts_t = rays_o[:, None] + rays_d[:, None] * z_vals[:, ::occ_stride, None]
         occ_t = _nearest_alpha_lookup(alpha_mask, pts_t.reshape(-1, 3)).reshape(b, n_t)
         occ = torch.repeat_interleave(occ_t, occ_stride, dim=1)[:, :n_samples]
-    live = valid & (occ > 0)
+    return rays_o, rays_d, step, t_min, z_vals, valid & (occ > 0)
+
+
+@torch.no_grad()
+def count_live_samples(field, aabb, rays, alpha_mask, *, n_samples, occ_stride,
+                       eval_z_min: float = 2.0):
+    """Per-ray count of mask-live samples under exactly the live rule the
+    compacted eval selects with (same z-cull, same strided occupancy), so
+    ``compact_k >= counts.max()`` renders every live sample: the cheap
+    pre-pass of an adaptive-K eval (no feature gathers)."""
+    *_, live = _live_samples(field, aabb, rays, alpha_mask, n_samples, eval_z_min,
+                             occ_stride)
+    return torch.sum(live.to(torch.int32), dim=-1)
+
+
+def _render_rays_compact(
+    field, aabb, rays, alpha_mask, *, n_samples: int, compact_k: int,
+    app_k: int, white_bg: bool, eval_z_min: float, occ_stride: int,
+    feature_dtype: str, overflow_tol: Optional[float] = None,
+    select_impl: str = "sort", need_ladder: Optional[tuple] = None,
+):
+    cfg = field.cfg
+    fdt = _feature_dtype(feature_dtype)
+    b = rays.shape[0]
+    rays_o, rays_d, step, t_min, _, live = _live_samples(
+        field, aabb, rays, alpha_mask, n_samples, eval_z_min, occ_stride)
     n_live = torch.sum(live, dim=-1)
 
     # first-K live samples per ray, in ray order; z and points recomputed

@@ -11,7 +11,9 @@ group and the field's sharding on it (port of
   decomposition whose tables hold the density channels (replicated) and
   its slice of the app channels.  Its basis product is a partial sum,
   summed over ``model`` by :class:`ModelSum` (all-reduce forward,
-  identity backward: every model rank computes the same loss).
+  identity backward: every model rank computes the same loss).  The
+  orthogonality term's whole app lines are put back together the same
+  way (:func:`model_gather`).
 
 Rank r sits at (r // model, r % model), the layout of
 ``init_device_mesh((data, model))``.  The groups are built with
@@ -104,6 +106,23 @@ class ModelSum:
 
     def __deepcopy__(self, memo):
         return self
+
+
+def model_gather(x, mesh: Mesh):
+    """The whole tensor along the last (channel) axis from each model
+    rank's equal slice ``x`` (slice m at offset m · width): ``x`` is
+    written into zeros of the whole width and summed over ``model`` (the
+    mesh's one collective; gloo's ``all_gather`` takes CPU tensors only).
+    Every model rank gets the same tensor; the backward is the identity
+    into the zeros, so each rank's gradient is its own slice of the whole
+    gradient, with no second reduction (the loss that uses it is
+    replicated over ``model``)."""
+    if mesh.model_group is None:
+        return x
+    m, w = mesh.model_index, x.shape[-1]
+    before = x.new_zeros((*x.shape[:-1], m * w))
+    after = x.new_zeros((*x.shape[:-1], (mesh.model - 1 - m) * w))
+    return ModelSum(mesh)(torch.cat([before, x, after], -1))
 
 
 def model_mean(x, mesh: Mesh):

@@ -1,11 +1,13 @@
-"""AVI video writers (the port's copy of the JAX package's
-``utils/mjpeg_avi.py``, plus an uncompressed stream).
+"""AVI video writers and their reader (the port's copy of the JAX
+package's ``utils/mjpeg_avi.py``, plus an uncompressed stream).
 
 AVI 1.0 needs only a RIFF container around per-frame payloads:
 - :func:`write_mjpeg_avi`: an 'MJPG' stream of JPEGs, which PIL encodes;
 - :func:`write_rgb_avi`: an uncompressed 'DIB ' stream (BI_RGB, 24-bit
   bottom-up BGR rows padded to 4 bytes), numpy only: a video with a real
-  frame rate where no image library is installed.
+  frame rate where no image library is installed;
+- :func:`read_mjpeg_avi`: the frames of either back (JPEGs decoded by
+  PIL, bitmaps by numpy).
 
 Layout (all little-endian):
   RIFF('AVI ' LIST('hdrl' avih LIST('strl' strh strf)) LIST('movi'
@@ -142,3 +144,36 @@ def write_rgb_avi(path: str, frames, fps: int = 30):
     bitmaps = [_dib_rows(f) for f in frames]
     return _write_avi(path, bitmaps, w, h, fps, b"DIB ", struct.pack("<I", _BI_RGB),
                       b"00db", len(bitmaps[0]))
+
+
+def read_mjpeg_avi(path: str):
+    """The frames ((H, W, 3) uint8) of an AVI written by
+    :func:`write_mjpeg_avi` or :func:`write_rgb_avi`: the movi list's
+    '00dc' chunks JPEG-decoded (PIL), its '00db' chunks read as BI_RGB
+    bitmaps of the stream format's size."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        raise ValueError(f"{path}: not an AVI")
+    pos = data.find(b"strf")
+    if pos < 0:
+        raise ValueError(f"{path}: no stream format")
+    w, h = struct.unpack("<ii", data[pos + 12:pos + 20])
+    pos = data.find(b"movi")
+    if pos < 0:
+        raise ValueError(f"{path}: no movi list")
+    pos += 4
+    stride = (3 * w + 3) & ~3
+    frames = []
+    while pos + 8 <= len(data) and data[pos:pos + 4] in (b"00dc", b"00db"):
+        size = struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        payload = data[pos + 8:pos + 8 + size]
+        if data[pos:pos + 4] == b"00dc":
+            from PIL import Image
+
+            frames.append(np.asarray(Image.open(io.BytesIO(payload)).convert("RGB")))
+        else:
+            rows = np.frombuffer(payload, np.uint8).reshape(h, stride)[:, :3 * w]
+            frames.append(np.ascontiguousarray(rows.reshape(h, w, 3)[::-1, :, ::-1]))
+        pos += 8 + size + (size % 2)
+    return frames
