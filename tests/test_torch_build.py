@@ -173,24 +173,32 @@ def _launch_sites():
     feats = torch.rand((5, 2), generator=g)
     return {
         "factor_features": (lambda: ff._launch(xn, planes, lines, nd, True, True, False),
-                            lambda: ff.LAUNCHES),
+                            lambda: (ff.LAUNCHES, ff.DTYPES["fp32"])),
+        "factor_features_bf16": (lambda: ff._launch(xn, planes, lines, nd, True, True, True),
+                                 lambda: (ff.LAUNCHES, ff.DTYPES["bf16"])),
         "factor_features_bwd": (
             lambda: ff._launch_backward(xn, planes, lines, nd, xn[:, 0].contiguous(),
                                         torch.ones((5, 6)), False, None),
             lambda: (ff.BWD_LAUNCHES, ff.BWD_MODES["fused"], ff.BWD_DTYPES["fp32"],
                      ff.BWD_ROUTES["shared"])),
+        "factor_features_bwd_bf16": (
+            lambda: ff._launch_backward(xn, planes, lines, nd, xn[:, 0].contiguous(),
+                                        torch.ones((5, 6), dtype=torch.bfloat16), True, None),
+            lambda: (ff.BWD_LAUNCHES, ff.BWD_MODES["fused"], ff.BWD_DTYPES["bf16"],
+                     ff.BWD_ROUTES["shared"])),
         "shading_mlp": (lambda: sm._launch(mlp, feats, 2), lambda: sm.LAUNCHES),
         "cp_features": (lambda: cpk._launch(xn, lines, 1, True, True, False),
-                        lambda: cpk.LAUNCHES),
+                        lambda: (cpk.LAUNCHES, cpk.DTYPES["fp32"])),
         "cp_features_bwd": (
             lambda: cpk._launch_backward(xn, lines, 1, xn[:, 0].contiguous(),
                                          torch.ones((5, 2)), False, None),
-            lambda: (cpk.BWD_LAUNCHES, cpk.BWD_ROUTES["shared"])),
+            lambda: (cpk.BWD_LAUNCHES, cpk.BWD_DTYPES["fp32"], cpk.BWD_ROUTES["shared"])),
     }
 
 
-@pytest.mark.parametrize("site", ["factor_features", "factor_features_bwd", "shading_mlp",
-                                  "cp_features", "cp_features_bwd"])
+@pytest.mark.parametrize("site", ["factor_features", "factor_features_bf16",
+                                  "factor_features_bwd", "factor_features_bwd_bf16",
+                                  "shading_mlp", "cp_features", "cp_features_bwd"])
 def test_launch_counts_are_exact_under_two_threads(site, monkeypatch):
     """Two threads pass the same wrapper's launch site N times each (the
     CUDA library replaced by a fake that returns success; farm workers are
@@ -207,7 +215,9 @@ def test_launch_counts_are_exact_under_two_threads(site, monkeypatch):
     from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
 
     fake = SimpleNamespace(t2n_factor_features=_fake_launcher,
+                           t2n_factor_features_bf16=_fake_launcher,
                            t2n_factor_features_bwd=_fake_backward_launcher,
+                           t2n_factor_features_bwd_bf16=_fake_backward_launcher,
                            t2n_shade_fea_noview=_fake_launcher,
                            t2n_cp_features=_fake_launcher,
                            t2n_cp_features_bwd=_fake_backward_launcher)
@@ -215,10 +225,11 @@ def test_launch_counts_are_exact_under_two_threads(site, monkeypatch):
         for name in names:
             monkeypatch.setattr(mod, name, lambda: fake)
     # the counts are restored when the test ends
-    for mod, names in ((ff, ("LAUNCHES", "BWD_LAUNCHES", "BWD_MODES", "BWD_DTYPES",
-                             "BWD_ROUTES", "BWD_LAST_GRID")),
+    for mod, names in ((ff, ("LAUNCHES", "DTYPES", "BF16_COPIES", "BWD_LAUNCHES", "BWD_MODES",
+                             "BWD_DTYPES", "BWD_ROUTES", "BWD_LAST_GRID")),
                        (sm, ("LAUNCHES",)),
-                       (cpk, ("LAUNCHES", "BWD_LAUNCHES", "BWD_ROUTES", "BWD_LAST_GRID"))):
+                       (cpk, ("LAUNCHES", "DTYPES", "BWD_LAUNCHES", "BWD_DTYPES", "BWD_ROUTES",
+                              "BWD_LAST_GRID"))):
         for name in names:
             value = getattr(mod, name)
             monkeypatch.setattr(mod, name, dict(value) if isinstance(value, dict) else value)

@@ -3,8 +3,9 @@ train step, the metrics and the pools of a resume on the card against the
 CPU.  Kernel A' also on adversarial
 inputs: a run inside one cell, every upper edge, runs that cross rays, a
 ragged n, zero gradients, accumulation, and both of its routes, in fp32
-and bf16; kernels C and C' (TensorCP) at the published, odd and
-1-component widths, both compute types, both of C''s routes.
+and bf16 (kernels A and A' in bf16 on the tables' bf16 copy, with bf16
+app_raw and d_app_raw); kernels C and C' (TensorCP) at the published, odd
+and 1-component widths, both compute types, both of C''s routes.
 
 These skip without an NVIDIA GPU.  The module imports no JAX, so on a
 machine with a card and no JAX it runs with
@@ -59,12 +60,12 @@ def test_factor_features_kernel_matches_plain(cuda, widths, dtype):
         ref = ff.factor_features_plain(xn, planes, lines, field.nd, sigma=sig, app=app,
                                        dtype=tdt)
         # the same operations in the same order, the density sums exact:
-        # bit for bit equal in both compute types
+        # bit for bit equal in both compute types (app_raw bf16 in bf16)
         for g, r in zip(got, ref):
             assert (g is None) == (r is None)
             if r is not None:
-                assert g.shape == r.shape
-                assert torch.equal(g, r), float((g - r).abs().max())
+                assert g.shape == r.shape and g.dtype == r.dtype
+                assert torch.equal(g, r), float((g.float() - r.float()).abs().max())
 
 
 def _ray_major(n_rays, k, reso, gen, device):
@@ -101,7 +102,8 @@ def test_factor_features_walk_matches_plain_in_any_order(cuda, k, dtype):
             for g, r in zip(got, ref):
                 assert (g is None) == (r is None)
                 if r is not None:
-                    assert torch.equal(g, r), (name, float((g - r).abs().max()))
+                    assert g.dtype == r.dtype
+                    assert torch.equal(g, r), (name, float((g.float() - r.float()).abs().max()))
 
 
 @pytest.mark.parametrize("app_dim,fea_pe", [(27, 6), (12, 2)])
@@ -491,6 +493,80 @@ def test_factor_features_backward_kernel_adversarial(cuda, case, accumulate):
         for g, r in zip((*got[0], *got[1]), (*ref[0], *ref[1])):
             if float(r.abs().max()) == 0:  # no gradient: exactly none
                 assert float(g.abs().max()) == 0
+
+
+@pytest.mark.parametrize("case", ["one_cell", "upper_edges", "runs_cross_rays",
+                                  "zero_gradients", "long_line", "generic_route"])
+def test_factor_features_bf16_kernels_with_bf16_io(cuda, case):
+    # the bf16 modes on their own inputs: kernel A reads the tables' bf16
+    # copy and returns a bf16 app_raw, bit for bit its plain version's;
+    # kernel A' takes a bf16 d_app_raw (or fp32, rounded by the wrapper)
+    # on the route the case asks for, within BWD_TOL of its plain version
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    widths, reso, xn, zero, route = _bwd_case(case, gen, cuda)
+    cfg = ptf.TensoRFConfig(density_n_comp=widths[0], app_n_comp=widths[1])
+    field = _field(cfg, reso, cuda)
+    planes, lines, nd = tuple(field.planes), tuple(field.lines), field.nd
+    xn = xn.contiguous()
+    n = xn.shape[0]
+    bf = torch.bfloat16
+    for sig, app in ((True, True), (True, False), (False, True)):
+        before = ff.DTYPES["bf16"]
+        got = ff.factor_features(xn, planes, lines, nd, sigma=sig, app=app, dtype=bf)
+        assert ff.DTYPES["bf16"] == before + 1
+        ref = ff.factor_features_plain(xn, planes, lines, nd, sigma=sig, app=app, dtype=bf)
+        if app:
+            assert got[1].dtype == bf and ref[1].dtype == bf
+        for g, r in zip(got, ref):
+            if r is not None:
+                assert torch.equal(g, r), float((g.float() - r.float()).abs().max())
+    d_sig = torch.randn(n, generator=gen, device=cuda)
+    d_app = torch.randn(n, sum(widths[1]), generator=gen, device=cuda).to(bf)
+    if zero is not None:
+        d_sig[zero] = 0.0
+        d_app[zero] = 0.0
+    for ds, da in ((d_sig, d_app), (d_sig, None), (None, d_app)):
+        ref = ff.factor_features_backward_plain(xn, planes, lines, nd, ds, da, bf)
+        for d_in in ((da,) if da is None else (da, da.float())):
+            before = ff.BWD_DTYPES["bf16"]
+            got = ff.factor_features_backward(xn, planes, lines, nd, ds, d_in, dtype=bf)
+            torch.cuda.synchronize()
+            assert ff.BWD_DTYPES["bf16"] == before + 1 and ff.BWD_LAST_GRID[0] == route
+            assert _rel_err(got, ref) <= BWD_TOL
+            for g, r in zip((*got[0], *got[1]), (*ref[0], *ref[1])):
+                if float(r.abs().max()) == 0:
+                    assert float(g.abs().max()) == 0
+
+
+def test_bf16_train_path_copies_the_tables_once_per_version(cuda):
+    # FactorFeatures in bf16 on the card: kernel A's app_raw and the
+    # gradient autograd hands kernel A' are bf16, the two kernels share one
+    # bf16 copy of each table, and an optimizer step makes the next copy
+    cfg = ptf.TensoRFConfig()
+    field = _field(cfg, (48, 40, 56), cuda).requires_grad_(True)
+    opt = torch.optim.Adam(field.parameters(), lr=1e-3)
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    xn = _ray_major(256, 16, 48, gen, cuda).contiguous()
+    seen = []
+    launch = ff._launch_backward
+
+    def spy(xn_, planes, lines, nd, d_sigma, d_app_raw, bf16, out):
+        seen.append((d_app_raw.dtype, bf16))
+        return launch(xn_, planes, lines, nd, d_sigma, d_app_raw, bf16, out)
+
+    ff._launch_backward = spy
+    try:
+        for _ in range(2):
+            copies = ff.BF16_COPIES
+            sigma, app = field.fused_features(xn, torch.bfloat16)
+            (sigma.sum() + app.square().sum()).backward()
+            torch.cuda.synchronize()
+            assert ff.BF16_COPIES == copies + 6
+            opt.step()
+            opt.zero_grad()
+    finally:
+        ff._launch_backward = launch
+    assert seen == [(torch.bfloat16, True)] * 2
 
 
 def test_train_step_on_the_card_matches_the_cpu(cuda):

@@ -4,12 +4,16 @@
 // _coords (:40-44), and the walk kernels' per-axis geometry with its
 // packed form for warp shuffles.  Both kernels recompute a sample's plane
 // and line values with these, so the backward sees the forward's values.
+// The bf16 mode's part (after the fp32 walk helpers): bf16 tables, the
+// lerp weights packed for shuffles, and packed bf16x2 arithmetic.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -24,10 +28,13 @@ struct Dims {
   int dens_lanes;  // walk kernel: the most density lanes (nd / 2) of an axis
 };
 
-struct Tables {
-  const float* plane[3];
-  const float* line[3];
+template <typename T>
+struct TablesOf {
+  const T* plane[3];
+  const T* line[3];
 };
+using Tables = TablesOf<float>;
+using TablesBf16 = TablesOf<__nv_bfloat16>;  // the bf16 mode's copy of the tables
 
 template <bool BF16>
 __device__ __forceinline__ float rnd(float x) {
@@ -124,5 +131,123 @@ __device__ __forceinline__ void load_rows(const float* plane, const float* line,
   lv[0] = load_row(line, g.l0, ch, on);
   lv[1] = load_row(line, g.l0 + g.dl, ch, on);
 }
+
+// ---- the bf16 mode: packed bf16x2 arithmetic -----------------------------
+//
+// A 32-bit word holds two bf16 channels (the lower channel in the low
+// half).  Each op rounds once to bf16 (.rn: never contracted into an fma).
+// On bf16 inputs that is the bits of rnd<true> of the fp32 op, which the
+// plain version computes: a product of two bf16 values is exact in fp32,
+// and fp32 carries 24 >= 2 * 8 + 2 significand bits, so rounding a sum or
+// a difference first to fp32 and then to bf16 gives the correctly rounded
+// bf16 result.
+
+__device__ __forceinline__ uint32_t bmul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t badd2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// a * (1 - t) + b * t on two channels: w = (1 - t) and t broadcast to
+// both halves
+__device__ __forceinline__ uint32_t lerp2(uint32_t a, uint32_t b, uint32_t w, uint32_t t) {
+  return badd2(bmul2(a, w), bmul2(b, t));
+}
+
+__device__ __forceinline__ uint32_t bcast_lo(uint32_t v) { return __byte_perm(v, 0, 0x1010); }
+__device__ __forceinline__ uint32_t bcast_hi(uint32_t v) { return __byte_perm(v, 0, 0x3232); }
+__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
+
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
+}
+
+// a lerp weight t (fp32 from coords) as the word ((1 - t) lo, t hi), each
+// rounded to bf16 as the plain version rounds them: t to bf16, then
+// 1 - t in fp32 and to bf16
+__device__ __forceinline__ uint32_t weight_pair(float t) {
+  const uint32_t tb = bf16_bits(t);
+  return bf16_bits(__fsub_rn(1.0f, __uint_as_float(tb << 16))) | (tb << 16);
+}
+
+// one axis of a sample in the bf16 walk: AxisGeo's rows, and the three
+// weight pairs broadcast (w*: 1 - t, t*: t in both halves)
+struct AxisGeo16 {
+  int p00, dx, dyw, l0, dl;
+  uint32_t wx, tx, wy, ty, wl, tl;
+};
+
+struct PackedGeo16 {
+  uint32_t p, l, x, y, z;  // z: the line's weight pair
+};
+
+__device__ __forceinline__ PackedGeo16 geometry16(const float (&x)[3], int i, const Dims& d) {
+  AxisGeo g;
+  geometry<false>(x, i, d, g);
+  const PackedGeo pg = pack(g);
+  return {pg.p, pg.l, weight_pair(g.tx), weight_pair(g.ty), weight_pair(g.tl)};
+}
+
+// the geometry lane `src` holds
+__device__ __forceinline__ AxisGeo16 shuffle_geo16(const PackedGeo16& pg, int src, int w) {
+  const uint32_t p = __shfl_sync(0xffffffffu, pg.p, src);
+  const uint32_t l = __shfl_sync(0xffffffffu, pg.l, src);
+  const uint32_t x = __shfl_sync(0xffffffffu, pg.x, src);
+  const uint32_t y = __shfl_sync(0xffffffffu, pg.y, src);
+  const uint32_t z = __shfl_sync(0xffffffffu, pg.z, src);
+  AxisGeo16 g;
+  g.p00 = static_cast<int>(p & 0x3FFFFFFFu);
+  g.dx = (p >> 30) & 1;
+  g.dyw = (p >> 31) ? w : 0;
+  g.l0 = static_cast<int>(l & 0x7FFFFFFFu);
+  g.dl = l >> 31;
+  g.wx = bcast_lo(x);
+  g.tx = bcast_hi(x);
+  g.wy = bcast_lo(y);
+  g.ty = bcast_hi(y);
+  g.wl = bcast_lo(z);
+  g.tl = bcast_hi(z);
+  return g;
+}
+
+// this lane's two channels (2 * lane, 2 * lane + 1) of a 64-channel bf16 row
+__device__ __forceinline__ uint32_t load_row16(const __nv_bfloat16* table, int row, int lane,
+                                               bool on) {
+  if (!on) return 0u;
+  return __ldg(reinterpret_cast<const unsigned int*>(table + static_cast<int64_t>(row) * kWalkC) +
+               lane);
+}
+
+__device__ __forceinline__ void load_rows16(const __nv_bfloat16* plane,
+                                            const __nv_bfloat16* line, const AxisGeo16& g,
+                                            int lane, bool on, uint32_t (&pv)[4],
+                                            uint32_t (&lv)[2]) {
+  pv[0] = load_row16(plane, g.p00, lane, on);
+  pv[1] = load_row16(plane, g.p00 + g.dx, lane, on);
+  pv[2] = load_row16(plane, g.p00 + g.dyw, lane, on);
+  pv[3] = load_row16(plane, g.p00 + g.dyw + g.dx, lane, on);
+  lv[0] = load_row16(line, g.l0, lane, on);
+  lv[1] = load_row16(line, g.l0 + g.dl, lane, on);
+}
+
+// the plane value pf and line value lf of two channels
+__device__ __forceinline__ void values16(const uint32_t (&pv)[4], const uint32_t (&lv)[2],
+                                         const AxisGeo16& g, uint32_t& pf, uint32_t& lf) {
+  const uint32_t top = lerp2(pv[0], pv[1], g.wx, g.tx);
+  const uint32_t bot = lerp2(pv[2], pv[3], g.wx, g.tx);
+  pf = lerp2(top, bot, g.wy, g.ty);
+  lf = lerp2(lv[0], lv[1], g.wl, g.tl);
+}
+
+// a table value of the generic kernels, as fp32
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
 
 }  // namespace

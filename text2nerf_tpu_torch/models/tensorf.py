@@ -220,7 +220,11 @@ class TensoRF(nn.Module):
         if dtype is None:
             out = app_raw @ self.basis
         else:
-            out = (app_raw.to(dtype) @ self.basis.to(dtype)).float()
+            # kernel A's bf16 app_raw goes in as it comes (no cast); kernel
+            # C's is fp32 holding bf16 values, cast here
+            if app_raw.dtype != dtype:
+                app_raw = app_raw.to(dtype)
+            out = (app_raw @ self.basis.to(dtype)).float()
         return out if self.app_reduce is None else self.app_reduce(out)
 
     def fused_features(self, xn, dtype: Optional[torch.dtype] = None):

@@ -27,12 +27,15 @@ from . import _build
 
 VEC_MODE = (2, 1, 0)
 
-#: kernel C launches since the last reset (the main path's proof of use)
+#: kernel C launches since the last reset (the main path's proof of use),
+#: and the same by compute type
 LAUNCHES = 0
-#: kernel C' launches since the last reset, and the same by route (the
-#: channel slices in shared memory, or global atomics when the three lines
-#: do not fit a block's shared memory)
+DTYPES = {"fp32": 0, "bf16": 0}
+#: kernel C' launches since the last reset, and the same by compute type
+#: and by route (the channel slices in shared memory, or global atomics
+#: when the three lines do not fit a block's shared memory)
 BWD_LAUNCHES = 0
+BWD_DTYPES = {"fp32": 0, "bf16": 0}
 BWD_ROUTES = {"shared": 0, "generic": 0}
 #: (route, blocks, threads per block) of the last kernel C' launch
 BWD_LAST_GRID = None
@@ -125,6 +128,7 @@ def _launch(xn, lines, nd, sigma, app, bf16):
     _build.check(err, "cp_features launch")
     with _build.COUNT_LOCK:
         LAUNCHES += 1
+        DTYPES["bf16" if bf16 else "fp32"] += 1
     return sig_out, app_out
 
 
@@ -250,6 +254,7 @@ def _launch_backward(xn, lines, nd, d_sigma, d_app_raw, bf16, out):
     route = _ROUTE_NAMES[info[0]]
     with _build.COUNT_LOCK:
         BWD_LAUNCHES += 1
+        BWD_DTYPES["bf16" if bf16 else "fp32"] += 1
         BWD_ROUTES[route] += 1
         BWD_LAST_GRID = (route, info[1], info[2])
     return out

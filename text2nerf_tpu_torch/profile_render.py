@@ -1,6 +1,6 @@
 """Where the time of a full-width 512² render goes on the GPU.
 
-    python3 -m text2nerf_tpu_torch.profile_render
+    python3 -m text2nerf_tpu_torch.profile_render [--bf16]
 
 Builds the serving configuration of ``data/synthetic.py`` (the room-shell
 field at full width, its 200³ pool-5 alpha mask, evaluation_path with
@@ -10,6 +10,10 @@ along test_trajectory("circle0") under torch.profiler.  Prints the card,
 the wall time per frame, the device's busy share of that wall time (the
 sum of kernel times over the wall clock; one stream, so kernels do not
 overlap), and the device time by layer and by kernel, largest first.
+``--bf16`` renders with bf16 features (``feature_dtype="bf16"``, the
+default of ``render_chunked`` that expansions and ``bench.py``'s renders
+take) and also counts the casts of an (N, Σ app channels) ``app_raw``
+to bf16 ahead of the basis product, with their device time.
 Needs one GPU.
 """
 
@@ -48,7 +52,18 @@ def _self_device_us(evt) -> float:
     return 0.0
 
 
-def main() -> int:
+def _app_raw_casts(prof, width: int):
+    """(count, device µs) of the aten::_to_copy ops on (N, width) inputs."""
+    casts = [e for e in prof.events() if e.name == "aten::_to_copy" and e.input_shapes
+             and len(e.input_shapes[0]) == 2 and e.input_shapes[0][1] == width]
+    return len(casts), sum(float(getattr(e, "device_time_total", 0.0)) for e in casts)
+
+
+def main(argv=()) -> int:
+    if list(argv) not in ([], ["--bf16"]):
+        print("usage: python3 -m text2nerf_tpu_torch.profile_render [--bf16]", file=sys.stderr)
+        return 2
+    bf16 = bool(argv)
     if not torch.cuda.is_available():
         print("profile_render: CUDA is not available", file=sys.stderr)
         return 2
@@ -64,10 +79,12 @@ def main() -> int:
     intr = R.default_intrinsics(*hw)
     poses = syn.serving_poses()
     kw = syn.serving_render_kwargs(field, mask, dev)
+    if bf16:
+        kw["feature_dtype"] = "bf16"
     evaluation_path(field, aabb, poses[8:9], hw, intr, **kw)  # warm-up
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+    with torch.profiler.profile(activities=acts, acc_events=True, record_shapes=bf16) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         evaluation_path(field, aabb, poses[:FRAMES], hw, intr, **kw)
@@ -83,9 +100,14 @@ def main() -> int:
     rows = [r for r in rows if r[1] > 0]
     busy_us = sum(r[1] for r in rows)
     print(card)
-    print(f"{FRAMES} frames {hw[0]}x{hw[1]}: {wall / FRAMES * 1e3:.2f} ms/frame "
-          f"(profiled), device busy {busy_us / 1e3:.2f} ms = "
+    print(f"{FRAMES} frames {hw[0]}x{hw[1]} ({'bf16' if bf16 else 'fp32'} features): "
+          f"{wall / FRAMES * 1e3:.2f} ms/frame (profiled), device busy {busy_us / 1e3:.2f} ms = "
           f"{busy_us / 1e6 / wall:.3f} of the wall time")
+    if bf16:
+        na = sum(p.shape[2] - d for p, d in zip(field.planes, field.nd))
+        n, us = _app_raw_casts(prof, na)
+        print(f"app_raw casts to bf16 (N x {na}) ahead of the basis product: {n}, "
+              f"{us / 1e3 / FRAMES:.3f} ms/frame")
     if not rows:
         print("the profiler recorded no device time: busy share not measured")
     groups: dict = {}
@@ -101,4 +123,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

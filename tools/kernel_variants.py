@@ -4,28 +4,46 @@
     python3 tools/kernel_variants.py [--kernels K[,K...]] [--cp-step] VARIANT [VARIANT ...]
 
 VARIANT is ``NAME[=DIR][:FILE:OLD=>NEW[;;OLD=>NEW...]]`` or
-``NAME[=DIR]:FILE=SOURCE``.  DIR holds a ``text2nerf_tpu_torch`` package
-(an unpacked ``git archive`` of another commit, say); without it, this
-checkout's.  With edits, the package is copied under this checkout's
-``text2nerf_tpu_torch/build/variants/`` and each literal OLD is replaced
-by NEW in FILE, a path inside the package such as ``csrc/shading_mlp.cu``
-(backslash escapes such as ``\\n`` are decoded; OLD must occur), or FILE
-is replaced by SOURCE, a file of this checkout (such as
-``tools/kernel_baselines/cp_features_v1.cu``).
+``NAME[=DIR]:FILE=SOURCE[:FILE=SOURCE...]``.  DIR holds a
+``text2nerf_tpu_torch`` package (an unpacked ``git archive`` of another
+commit, say); without it, this checkout's.  With edits, the package is
+copied under this checkout's ``text2nerf_tpu_torch/build/variants/`` and
+each literal OLD is replaced by NEW in FILE, a path inside the package
+such as ``csrc/shading_mlp.cu`` (backslash escapes such as ``\\n`` are
+decoded; OLD must occur), or each FILE is replaced by SOURCE, a file of
+this checkout (such as ``tools/kernel_baselines/cp_features_v1.cu``).
 
 ``--kernels`` names the kernels to time, of ``a`` (kernel A), ``b``
-(kernel B), ``a1`` (kernel A'), ``cp`` (kernels C and C'); all by default.
-``--cp-step`` also profiles one TensorCP dense train step per version.
+(kernel B), ``a1`` (kernel A'), ``a16`` and ``a1_16`` (kernels A and A'
+in bf16), ``cp`` (kernels C and C'); all by default.  ``--cp-step`` also
+profiles one TensorCP dense train step per version.
+
+The first design of the bf16 modes of kernels A and A' is kept in
+``tools/kernel_baselines/`` (its two sources and its wrapper); from the
+repo root it is timed beside this checkout's with
+
+    B=tools/kernel_baselines
+    python3 tools/kernel_variants.py --kernels a16,a1_16 "v1:csrc/factor_features.cu=\\
+    $B/factor_features_v1.cu:csrc/factor_features_bwd.cu=$B/factor_features_bwd_v1.cu\\
+    :ops/kernels/factor_features.py=$B/factor_features_v1.py"
+
+(the variant one argument, without the line breaks).
 
 Each version runs in a process of its own that imports the package from
 its directory, so it is built by that package's own ``_build`` (its
 sources, headers, flags and hash).  There each kernel is held against its
 plain version on chip_smoke.py's kernel inputs (kernel A: 1M samples of
 the full-width room shell, 65536 rays x 16 consecutive steps; kernel B:
-1M rows of the full-width head; kernel A', fused mode: phase 3's three
+1M rows of the full-width head; kernel A in bf16: the same samples in
+its three output modes, and the fused mode followed by the cast to bf16
+that ``TensoRF._basis`` makes of an fp32 ``app_raw`` (none for a bf16
+one), a render chunk's share; kernel A', fused mode: phase 3's three
 layouts of 1M samples, 16384 rays x 64 consecutive steps, with random
 output gradients, and the output gradients of one compacted train step of
-chip_smoke.py's phase 5, caught on their way into kernel A'; kernels C
+chip_smoke.py's phase 5, caught on their way into kernel A'; kernel A'
+in bf16: the three layouts, fused mode, random bf16-valued output
+gradients in the dtype the version's kernel A returns ``app_raw`` in (the
+one autograd hands back); kernels C
 and C': a TensorCP field at the published widths, chip_smoke.py phase 3's
 three shapes, each in its own output mode: 1M fused samples, a dense
 step's density-only launch over 16384 rays x 259 ray-ordered samples and
@@ -63,25 +81,30 @@ PKG = "text2nerf_tpu_torch"
 
 
 def parse(spec: str):
-    """(name, base directory, [(file, old, new), ...]) of a VARIANT."""
+    """(name, base directory, [(file, old, new), ...]) of a VARIANT (new
+    None: old is the whole new file)."""
     head, _, edits = spec.partition(":")
     name, _, base = head.partition("=")
+    base = Path(base).resolve() if base else REPO
     pairs = []
     if edits:
+        if "=>" not in edits:  # FILE=SOURCE[:FILE=SOURCE...]
+            for item in edits.split(":"):
+                path, sep, source = item.partition("=")
+                if not sep:
+                    raise ValueError(f"{spec}: edits are FILE:OLD=>NEW or FILE=SOURCE")
+                pairs.append((path, None, (REPO / source).read_text()))
+            return name, base, pairs
         path, sep, rest = edits.partition(":")
         if not sep:
-            path, sep, source = path.partition("=")
-            if not sep:
-                raise ValueError(f"{spec}: edits are FILE:OLD=>NEW or FILE=SOURCE")
-            return name, Path(base).resolve() if base else REPO, [
-                (path, None, (REPO / source).read_text())]
+            raise ValueError(f"{spec}: edits are FILE:OLD=>NEW or FILE=SOURCE")
         for edit in rest.split(";;"):
             old, sep, new = edit.partition("=>")
             if not sep:
                 raise ValueError(f"{spec}: an edit is OLD=>NEW")
             pairs.append((path, codecs.decode(old, "unicode_escape"),
                           codecs.decode(new, "unicode_escape")))
-    return name, Path(base).resolve() if base else REPO, pairs
+    return name, base, pairs
 
 
 def materialise(name: str, base: Path, pairs, dest: Path = VARIANTS_DIR) -> Path:
@@ -147,7 +170,8 @@ def _time_version(name: str, root: Path, kernels, cp_step: bool) -> dict:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev).zero_
     out = {"name": name, "inputs": [], "ptxas": out_ptxas}
 
-    if kernels & {"a", "b"}:
+    bf = torch.bfloat16
+    if kernels & {"a", "b", "a16"}:
         xn = cs._chunk_samples(rays, aabb, field, cs.N_SAMPLES_A, gen)
         feats = 2.0 * torch.randn(cs.N_ROWS_B, field.cfg.app_dim, generator=gen, device=dev)
 
@@ -166,6 +190,24 @@ def _time_version(name: str, root: Path, kernels, cp_step: bool) -> dict:
             out["b_err"] = float((run_b() - sm.shade_fea_noview_plain(
                 field.mlp, feats, field.cfg.fea_pe)).abs().max())
             out["b_ms"] = cs._time_ms(run_b, 20, flush)
+        if "a16" in kernels:
+            out["a16_ms"], out["a16_exact"] = {}, {}
+            for mode, sig, app in (("fused", True, True), ("density", True, False),
+                                   ("app", False, True)):
+                def run_a16():
+                    return ff.factor_features(xn, planes, lines, nd, sigma=sig, app=app,
+                                              dtype=bf)
+
+                got = run_a16()
+                ref = ff.factor_features_plain(xn, planes, lines, nd, sigma=sig, app=app,
+                                               dtype=bf)
+                out["a16_exact"][mode] = all(torch.equal(g.float(), r.float())
+                                             for g, r in zip(got, ref) if g is not None)
+                del got, ref
+                out["a16_ms"][mode] = cs._time_ms(run_a16, 20, flush)
+            out["a16_app_dtype"] = str(run_a16()[1].dtype)
+            out["a16_ms"]["fused+cast"] = cs._time_ms(
+                lambda: ff.factor_features(xn, planes, lines, nd, dtype=bf)[1].to(bf), 20, flush)
         del feats
 
     if "a1" in kernels:
@@ -192,6 +234,31 @@ def _time_version(name: str, root: Path, kernels, cp_step: bool) -> dict:
         out["step_zero_share"] = float(((ds == 0) & (da == 0).all(1)).float().mean())
         out["step_samples"] = x.shape[0]
         del cases, layouts
+
+    if "a1_16" in kernels:
+        # kernel A' in bf16 on phase 3's layouts, d_app_raw in the dtype this
+        # version's kernel A hands autograd
+        layouts = cs._bwd_layouts(field, aabb, rays, gen)
+        n = cs.N_RAYS_TRAIN * cs.K_TRAIN
+        na = sum(p.shape[2] - d for p, d in zip(planes, nd))
+        app_dtype = ff.factor_features(layouts["coherent"][:32], planes, lines, nd, sigma=False,
+                                       dtype=bf)[1].dtype
+        d_sig = torch.randn(n, generator=gen, device=dev)
+        d_app = torch.randn(n, na, generator=gen, device=dev).to(bf)
+        out["inputs"] += [float(x.sum()) for x in layouts.values()] + [float(d_app.sum())]
+        d_app = d_app.to(app_dtype)
+        out["bwd16_ms"], out["bwd16_err"] = {}, {}
+        for k, x in layouts.items():
+            got = ff.factor_features_backward(x, planes, lines, nd, d_sig, d_app, dtype=bf)
+            ref = ff.factor_features_backward_plain(x, planes, lines, nd, d_sig, d_app, bf)
+            out["bwd16_err"][k] = max(float((g - r).abs().max()) / float(r.abs().max())
+                                      for g, r in zip((*got[0], *got[1]), (*ref[0], *ref[1])))
+            del got, ref
+            out["bwd16_ms"][k] = cs._time_ms(
+                lambda: ff.factor_features_backward(x, planes, lines, nd, d_sig, d_app,
+                                                    dtype=bf), 20, flush)
+        out["bwd16_d_app_dtype"] = str(app_dtype)
+        del layouts
 
     if "cp" in kernels:
         out.update(_time_cp(cs, field, aabb, rays, gen, flush, out["inputs"]))
@@ -374,7 +441,7 @@ def _step_gradients(cs, syn, ff, dev):
             tuple(t.detach().clone() for t in lines), d_sigma, d_app)
 
 
-KERNELS = ("a", "b", "a1", "cp")
+KERNELS = ("a", "b", "a1", "a16", "a1_16", "cp")
 
 
 def main(argv) -> int:
@@ -431,6 +498,15 @@ def main(argv) -> int:
         if "b_ms" in r:
             print(f"B {name}, run {run}: {r['b_ms']:.4f} ms, max_abs_err {r['b_err']:.3e}",
                   flush=True)
+        if "a16_ms" in r:
+            times = ", ".join(f"{k} {v:.4f} ms" for k, v in r["a16_ms"].items())
+            print(f"A bf16 {name}, run {run}: {times}; bit-exact {r['a16_exact']}, app_raw "
+                  f"{r['a16_app_dtype']}", flush=True)
+        if "bwd16_ms" in r:
+            times = ", ".join(f"{k} {v:.4f} ms" for k, v in r["bwd16_ms"].items())
+            print(f"A' bf16 {name}, run {run}: {times}; within "
+                  f"{max(r['bwd16_err'].values()):.3e} of each table's largest, d_app_raw "
+                  f"{r['bwd16_d_app_dtype']}", flush=True)
         if "bwd_ms" in r:
             times = ", ".join(f"{k} {v:.4f} ms" for k, v in r["bwd_ms"].items())
             print(f"A' {name}, run {run}: {times}; within {max(r['bwd_err'].values()):.3e} of "
