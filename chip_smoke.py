@@ -32,10 +32,13 @@ Phases (any failure exits nonzero before the last line):
    on the 300^3 grid at three shapes: 1M samples at the train step's
    shape, and a TensorCP dense step's two launches (density-only over
    16384 rays x 259 ray-ordered samples, app-only over each ray's top 64
-   samples by weight), fp32 and bf16, three output modes, C bit for bit
-   reported, each shape timed in its own mode with the line traffic
-   worked out from the samples; then C and C' beside their first design
-   (tools/kernel_baselines/cp_features_v1.cu), both timed by
+   samples by weight), fp32 and bf16 (the lines' bf16 copy, a bf16
+   app_raw and d_app_raw), three output modes, C bit for bit reported
+   (and required in bf16), each shape timed in its own mode in both
+   compute types with the line traffic worked out from the samples and
+   the bound for each type's bytes; then C and C' beside their second
+   design (tools/kernel_baselines/cp_features_v2.cu and its wrapper,
+   fp32 lines and gradients in bf16), both compute types timed by
    tools/kernel_variants.py in one run; C and C' in bf16 at the fused
    shape beside their plain versions and F.grid_sample on bf16 lines;
    with times, the library yardstick and the bound (kernel B's on the
@@ -87,7 +90,10 @@ Phases (any failure exits nonzero before the last line):
    text2img and depth, diffusion_fill_inpaint, histogram_rank, and the
    merge net at its production shape (unet_1024, 10 downs, bf16, seeded
    random init), with ExpansionConfig's defaults (20 candidates, 500
-   merge iterations).  Every phase/expand1_* row must be logged, the
+   merge iterations), and one sub-batch a dense step (the phase's cut:
+   the trainer's default is 32 host-bound sub-batches, which phase 6
+   still times; phases 10 and 12 inherit it).  Every phase/expand1_* row
+   must be logged, the
    DIBR/ tree complete when reconstruction returns, the new view's pool
    non-empty and sampled by most stage-2 steps; kernels A and B must be
    launched in the expansion's renders and A' in the first stage-2 step,
@@ -103,7 +109,8 @@ Phases (any failure exits nonzero before the last line):
    on configs/text2nerf_scenes.txt with flags for phase 7's fit (512^2,
    circle0_30, 2 views, 1 / 1 / 1 epochs, seed 11, stage 3 at K 256,
    app_k 256, band 0; the adaptive eval renderer; 4 test frames; no
-   alpha-mask milestone, as in the shipped config), under the CLI's
+   alpha-mask milestone, as in the shipped config; --train_microbatch 1,
+   phase 7's cut), under the CLI's
    production overrides (a 300^3 grid from the first step, batch 16384;
    the masks' default pool 3 keeps every step dense), on a weights
    directory whose
@@ -170,7 +177,13 @@ Phases (any failure exits nonzero before the last line):
    MLP_Fea, fea_pe / view_pe 2, L1 1e-5): kernels C and C' launched, the
    seed view 5 dB above the untrained field, the render-only branch's
    frames equal to the fit's, its profiled dense step's device time
-   split into kernels C and C', the head, topk and the rest; (2)
+   split into kernels C and C', the head, topk and the rest; then, in
+   a count window of its own (family_cp_bf16_step, opened once the
+   field and targets are made), the run's configuration trained in bf16
+   on the 300^3 grid toward phase 5's targets: one dense crop step on
+   the card held against the CPU, and the dense step timed in turns
+   fp32, bf16, bf16, fp32 with the lines' bf16 copies counted per step
+   (C and C' in bf16 must be launched); (2)
    TensorVM (16 / 48, SH on the cubic
    300^3 grid): kernels A and A' launched, the same PSNR gate; (3) the
    shipped config with --train_compute_dtype bf16: kernels A, A' in bf16
@@ -237,6 +250,12 @@ text2nerf_tpu_torch package beside it.
 builds the kernels, then runs only the seed fit at 256^2 under each of
 SEED_FIT_VARIANTS' stage-3 compaction settings (all when none is named),
 with no device sync between steps, and prints a line for each.
+
+    python3 chip_smoke.py --microbatch R
+
+runs the whole smoke with phases 7, 8, 10 and 12 at R sub-batches a
+dense step instead of their cut's one (R = 32, the trainer's default,
+is the uncut run; its phase clock gives what the cut saves).
 """
 
 import dataclasses
@@ -959,9 +978,11 @@ CP_PLAIN_CHUNK = 1 << 19  # samples per call of a plain version at the large sha
 # fused 1M samples, then a TensorCP dense step's two launches
 CP_SHAPE_MODES = {"fused": (True, True), "density": (True, False), "app": (False, True)}
 CP_MODES = (("fused", True, True), ("density", True, False), ("app", False, True))
-# the first design of kernels C and C', timed beside this one by
-# tools/kernel_variants.py (the package with csrc/cp_features.cu replaced)
-CP_BASELINE = "tools/kernel_baselines/cp_features_v1.cu"
+# the second design of kernels C and C' (fp32 lines and gradients in bf16),
+# timed beside this one by tools/kernel_variants.py: the package with
+# csrc/cp_features.cu and its wrapper replaced
+CP_BASELINE = ("v2:csrc/cp_features.cu=tools/kernel_baselines/cp_features_v2.cu"
+               ":ops/kernels/cp_features.py=tools/kernel_baselines/cp_features_v2.py")
 
 
 def _grid_sample_cp(xn, lines_nc1, nd):
@@ -1076,9 +1097,11 @@ def _cp_plain_backward(xn, lines, nd, d_sig, d_app, dtype=None):
 
 
 def _cp_hold(what, xn, lines, nd, d_sig, d_app, route, accumulate=False):
-    """Kernel C against its plain version (bit for bit is reported, the gate
-    is TOL["cp"] of the largest value) and kernel C' within TOL["bwd"] of
-    each line's largest gradient, in both compute types and three modes,
+    """Kernel C against its plain version (bit for bit is reported; the gate
+    is TOL["cp"] of the largest value in fp32, bit for bit in bf16, where
+    app_raw must be bf16) and kernel C' within TOL["bwd"] of each line's
+    largest gradient (from a bf16 d_app_raw in bf16), in both compute
+    types and three modes,
     C' on ``route``; with ``accumulate`` C' adds twice into tables that
     hold half the plain gradient.  Returns (C's worst |error|, C' worst relative error, C bit-equal
     everywhere)."""
@@ -1094,12 +1117,18 @@ def _cp_hold(what, xn, lines, nd, d_sig, d_app, route, accumulate=False):
             torch.cuda.synchronize()
             scale = max(float(r.abs().max()) for r in ref if r is not None)
             err = max(float((g - r).abs().max()) for g, r in zip(got, ref) if g is not None)
-            exact = exact and all(torch.equal(g, r) for g, r in zip(got, ref) if g is not None)
+            equal = all(torch.equal(g, r) for g, r in zip(got, ref) if g is not None)
+            exact = exact and equal
             _require(err <= TOL["cp"] * scale,
                      f"kernel C {what} {dtype_name} {mode}: {err} > {TOL['cp']} x {scale}")
+            if dtype is not None:
+                _require(equal and (not app or got[1].dtype == dtype),
+                         f"kernel C {what} bf16 {mode}: not bit-equal ({err}) or app_raw "
+                         f"{None if got[1] is None else got[1].dtype}")
             worst_c = max(worst_c, err)
             del got, ref
-            ds, da = (d_sig if sig else None), (d_app if app else None)
+            ds = d_sig if sig else None
+            da = None if not app else d_app if dtype is None else d_app.to(dtype)
             ref = _cp_plain_backward(xn, lines, nd, ds, da, dtype)
             if accumulate:
                 base = tuple(0.5 * t for t in ref)
@@ -1222,13 +1251,14 @@ def _cp_shared_adds(xn, lines):
 
 
 def _cp_vs_baseline():
-    """tools/kernel_variants.py on kernels C and C': this checkout and the
-    package with CP_BASELINE as its csrc/cp_features.cu, timed in one run
-    (this, baseline, baseline, this).  Returns its JSON result."""
+    """tools/kernel_variants.py on kernels C and C' in both compute types:
+    this checkout and the package with CP_BASELINE's source and wrapper,
+    timed in one run (this, baseline, baseline, this).  Returns its JSON
+    result."""
     here = os.path.dirname(os.path.abspath(__file__))
     out = subprocess.run(
         [sys.executable, os.path.join(here, "tools", "kernel_variants.py"), "--kernels", "cp",
-         f"v1:csrc/cp_features.cu={CP_BASELINE}"],
+         CP_BASELINE],
         capture_output=True, text=True, cwd=here, timeout=900)
     if out.returncode:
         print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
@@ -1243,16 +1273,17 @@ def _cp_bf16_rows(xn, lines, nd, d_sig, d_app, flush, times, bound_c, bound_b):
     """The kernels-line entries of kernels C and C' in bf16 at the fused
     shape: their times (``times``, phase 3's), their largest errors
     against the plain versions, the plain versions' and F.grid_sample's
-    (and its backward's) times on the lines' bf16 copy.  Both modes still
-    read the fp32 lines and move fp32 outputs and gradients, so their
-    bounds are the fp32 ones."""
+    (and its backward's) times on the lines' bf16 copy.  Both read the
+    lines' bf16 copy and write or read a bf16 app_raw / d_app_raw, so
+    their bounds (``bound_c``, ``bound_b``) are on the bf16 bytes."""
     import torch
     from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
 
     bf = torch.bfloat16
+    d_app = d_app.to(bf)
     got = cpk.cp_features(xn, lines, nd, dtype=bf)
     ref = _cp_plain(xn, lines, nd, True, True, bf)
-    err_c = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    err_c = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
     got = cpk.cp_features_backward(xn, lines, nd, d_sig, d_app, dtype=bf)
     ref = _cp_plain_backward(xn, lines, nd, d_sig, d_app, bf)
     err_b = max(float((g - r).abs().max()) for g, r in zip(got, ref))
@@ -1265,7 +1296,7 @@ def _cp_bf16_rows(xn, lines, nd, d_sig, d_app, flush, times, bound_c, bound_b):
     sub_g = [t.requires_grad_(True) for t in sub]
     with torch.enable_grad():
         lib_sig, lib_app = _grid_sample_cp(x16, sub_g, nd)
-    cots = (d_sig.to(bf), d_app.to(bf))
+    cots = (d_sig.to(bf), d_app)
     lib_b = _time_ms(lambda: torch.autograd.grad((lib_sig, lib_app), sub_g, cots,
                                                  retain_graph=True), 3, flush)
     del lib_sig, lib_app, sub, sub_g, x16
@@ -1280,7 +1311,7 @@ def _cp_bf16_rows(xn, lines, nd, d_sig, d_app, flush, times, bound_c, bound_b):
                          library_ms=lib, bound_ms=bound[0], bound_by=bound[1]))
         print(f"kernel {key} fused: {times[key]:.3f} ms, plain {plain:.3f} ms, grid_sample"
               f"{'' if key == 'C bf16' else ' backward'} (bf16 lines) {lib:.3f} ms, bound "
-              f"{bound[0]:.4f} ms by {bound[1]} (fp32 lines and outputs, as fp32's), "
+              f"{bound[0]:.4f} ms by {bound[1]} (bf16 lines and app channels), "
               f"{bound[0] / times[key]:.3f} of it; max_abs_err {err:.3e}", flush=True)
     return rows
 
@@ -1291,8 +1322,8 @@ def phase_cp_kernels(dev, report, rays, aabb, gen, flush, shell):
     both routes), then the three shapes of _cp_shapes in both compute
     types and three output modes; each shape timed in its own mode, fp32
     and bf16, beside the plain version, the grid_sample yardstick, the
-    bound and the line traffic; then the first design of the two kernels
-    and this one timed by tools/kernel_variants.py in one run."""
+    bounds and the line traffic; then the second design of the two
+    kernels and this one timed by tools/kernel_variants.py in one run."""
     import torch
     from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
 
@@ -1322,7 +1353,7 @@ def phase_cp_kernels(dev, report, rays, aabb, gen, flush, shell):
                  replaces="text2nerf_tpu/models/tensorf.py:548")
     rep_b = dict(rep_c, name="cp_features_bwd")
     for key in ("ms_by_shape", "ms_bf16_by_shape", "plain_ms_by_shape", "library_ms_by_shape",
-                "bound_ms_by_shape"):
+                "bound_ms_by_shape", "bound_ms_bf16_by_shape"):
         rep_c[key], rep_b[key] = {}, {}
     rep_c["bit_equal_by_shape"], rep_b["max_rel_err_by_shape"] = {}, {}
     for shape, xn in shapes.items():
@@ -1336,6 +1367,7 @@ def phase_cp_kernels(dev, report, rays, aabb, gen, flush, shell):
               f"three modes", flush=True)
         sig, app = CP_SHAPE_MODES[shape]
         ds, da = (d_sig if sig else None), (d_app if app else None)
+        da16 = None if da is None else da.to(bf)
         if shape == "fused":
             got = cpk.cp_features(xn, lines, nd)
             ref = _cp_plain(xn, lines, nd, True, True)
@@ -1351,10 +1383,11 @@ def phase_cp_kernels(dev, report, rays, aabb, gen, flush, shell):
             "C bf16": _time_ms(lambda: cpk.cp_features(xn, lines, nd, sigma=sig, app=app,
                                                        dtype=bf), 10, flush),
             "C'": _time_ms(lambda: cpk.cp_features_backward(xn, lines, nd, ds, da), 10, flush),
-            "C' bf16": _time_ms(lambda: cpk.cp_features_backward(xn, lines, nd, ds, da,
-                                                                 dtype=bf), 10, flush),
         }
         grid = cpk.BWD_LAST_GRID
+        times["C' bf16"] = _time_ms(lambda: cpk.cp_features_backward(xn, lines, nd, ds, da16,
+                                                                     dtype=bf), 10, flush)
+        grid16 = cpk.BWD_LAST_GRID
         plain_c = _time_ms(lambda: _cp_plain(xn, lines, nd, sig, app), 3, flush)
         plain_b = _time_ms(lambda: _cp_plain_backward(xn, lines, nd, ds, da), 3, flush)
         # the yardstick on the mode's channels only
@@ -1383,16 +1416,26 @@ def phase_cp_kernels(dev, report, rays, aabb, gen, flush, shell):
         # written; the forward's 14 operations, the chain's 4 products, 6 row
         # terms and 6 adds per channel
         bound_b = _bound(n * 12 + out_bytes + 2 * mode_lines, n * width * 32)
+        # bf16: the lines' bf16 copy read and bf16 app channels; sigma,
+        # d_sigma and the gradient lines stay fp32
+        out16 = n * ((4 if sig else 0) + (2 * na if app else 0))
+        bound_c16 = _bound(n * 12 + out16 + mode_lines // 2, n * width * 14)
+        bound_b16 = _bound(n * 12 + out16 + mode_lines // 2 + mode_lines, n * width * 32)
         requested, distinct = _cp_row_traffic(xn, lines, width)
         per_channel, windowed = _cp_shared_adds(xn, lines)
         print(f"kernel C {shape} ({n} samples, {width} channels): {times['C']:.3f} ms (bf16 "
-              f"{times['C bf16']:.3f}), plain {plain_c:.3f} ms, grid_sample {lib_c:.3f} ms, "
-              f"bound {bound_c[0]:.4f} ms by {bound_c[1]} ({bound_c[0] / times['C']:.3f} of it); "
+              f"{times['C bf16']:.3f}, bound {bound_c16[0]:.4f} ms by {bound_c16[1]}, "
+              f"{bound_c16[0] / times['C bf16']:.3f} of it), plain {plain_c:.3f} ms, grid_sample "
+              f"{lib_c:.3f} ms, bound {bound_c[0]:.4f} ms by {bound_c[1]} "
+              f"({bound_c[0] / times['C']:.3f} of it); "
               f"line rows through L1 {requested / 1e9:.3f} GB in {6 * n * -(-width // 128)} "
               f"16-byte-lane loads (the first design: {6 * n * -(-width // 32)} 4-byte-lane "
               f"loads), rows distinct within a run {distinct / 1e6:.1f} MB", flush=True)
         ms_b, ms_b_bf = times["C'"], times["C' bf16"]
-        print(f"kernel C' {shape}: {ms_b:.3f} ms (bf16 {ms_b_bf:.3f}), plain {plain_b:.3f} ms, "
+        print(f"kernel C' {shape}: {ms_b:.3f} ms (bf16 {ms_b_bf:.3f}, bound "
+              f"{bound_b16[0]:.4f} ms by {bound_b16[1]}, {bound_b16[0] / ms_b_bf:.3f} of it; "
+              f"{grid16[1]} blocks x {grid16[2]} threads), plain "
+              f"{plain_b:.3f} ms, "
               f"grid_sample backward {lib_b:.3f} ms, bound {bound_b[0]:.4f} ms by {bound_b[1]} "
               f"({bound_b[0] / ms_b:.3f} of it); {grid[0]} route, {grid[1]} "
               f"blocks x {grid[2]} threads; shared adds per channel by the host's count of the "
@@ -1404,9 +1447,11 @@ def phase_cp_kernels(dev, report, rays, aabb, gen, flush, shell):
         rep_c["library_ms_by_shape"][shape], rep_b["library_ms_by_shape"][shape] = lib_c, lib_b
         rep_c["bound_ms_by_shape"][shape] = bound_c[0]
         rep_b["bound_ms_by_shape"][shape] = bound_b[0]
+        rep_c["bound_ms_bf16_by_shape"][shape] = bound_c16[0]
+        rep_b["bound_ms_bf16_by_shape"][shape] = bound_b16[0]
         if shape == "fused":
             rep_c16, rep_b16 = _cp_bf16_rows(xn, lines, nd, d_sig, d_app, flush, times,
-                                             bound_c, bound_b)
+                                             bound_c16, bound_b16)
         if shape == "fused":
             for rep, key, plain, lib, bound in ((rep_c, "C", plain_c, lib_c, bound_c),
                                                 (rep_b, "C'", plain_b, lib_b, bound_b)):
@@ -1416,18 +1461,27 @@ def phase_cp_kernels(dev, report, rays, aabb, gen, flush, shell):
     torch.cuda.empty_cache()
 
     res = _cp_vs_baseline()
-    for kernel, rep in (("C", rep_c), ("C'", rep_b)):
-        rep["baseline_ms_by_shape"] = {}
+    for r in res["runs"]:
+        if r["name"] == "this checkout":
+            _require(all(r["cp_exact"].values()), f"kernel C in kernel_variants: {r['cp_exact']}")
+            _require(max(r["cp_bwd_err"].values()) <= TOL["bwd"],
+                     f"kernel C' in kernel_variants: {r['cp_bwd_err']}")
+    for kernel, rep, bounds in (("C", rep_c, rep_c["bound_ms_by_shape"]),
+                                ("C'", rep_b, rep_b["bound_ms_by_shape"]),
+                                ("C bf16", rep_c16, rep_c["bound_ms_bf16_by_shape"]),
+                                ("C' bf16", rep_b16, rep_b["bound_ms_bf16_by_shape"])):
+        rep["baseline_ms_by_shape"], rep["variants_ms_by_shape"] = {}, {}
         for shape in CP_SHAPE_MODES:
             runs = {name: [r["cp_ms"][shape][kernel] for r in res["runs"] if r["name"] == name]
-                    for name in ("this checkout", "v1")}
-            rep["baseline_ms_by_shape"][shape] = runs["v1"]
-            bound = rep["bound_ms_by_shape"][shape]
-            print(f"kernel {kernel} {shape}, one kernel_variants run: first design "
-                  f"{[round(v, 4) for v in runs['v1']]} ms, this design "
-                  f"{[round(v, 4) for v in runs['this checkout']]} ms; bound {bound:.4f} ms, "
-                  f"share of the bound {bound / min(runs['v1']):.3f} -> "
-                  f"{bound / min(runs['this checkout']):.3f}", flush=True)
+                    for name in ("this checkout", "v2")}
+            rep["baseline_ms_by_shape"][shape] = runs["v2"]
+            rep["variants_ms_by_shape"][shape] = runs["this checkout"]
+            print(f"kernel {kernel} {shape}, one kernel_variants run: second design "
+                  f"{[round(v, 4) for v in runs['v2']]} ms, this design "
+                  f"{[round(v, 4) for v in runs['this checkout']]} ms; bound "
+                  f"{bounds[shape]:.4f} ms, share of the bound "
+                  f"{bounds[shape] / min(runs['v2']):.3f} -> "
+                  f"{bounds[shape] / min(runs['this checkout']):.3f}", flush=True)
     report["cp_features"], report["cp_features_bwd"] = rep_c, rep_b
     report["cp_features_bf16"], report["cp_features_bwd_bf16"] = rep_c16, rep_b16
 
@@ -1559,8 +1613,8 @@ def crop_step_check(field, aabb, mask, batch, cfg, kw, dev):
     n = batch["rays"].shape[0]
     jitter = torch.rand((n, 1), generator=torch.Generator().manual_seed(5))
     flat = ckpt.params_to_jax(field)
-    mask_cpu = {"volume": mask["volume"].cpu(), "aabb": mask["aabb"].cpu(),
-                "pool": mask["pool"]}
+    mask_cpu = None if mask is None else {"volume": mask["volume"].cpu(),
+                                          "aabb": mask["aabb"].cpu(), "pool": mask["pool"]}
     w = kw["weights"]
     out = {}
     for d, m in ((dev, mask), ("cpu", mask_cpu)):
@@ -2060,7 +2114,13 @@ PROGRESSIVE_EPOCHS = (1, 1, 1)  # n_stage1, n_stage2, n_stage3 of phases 7 and 8
 # No alpha-mask milestone, as in the shipped config: a run resumed after
 # the shrink marches the shrunk grid's sample count, the JAX trainer's
 # rule (ROADMAP section 3)
-PROGRESSIVE_OVERRIDES = dict(resume=True, resume_every_epochs=1, update_alphamask_list=())
+# The cut of phases 7 and 8 (and of 10 and 12, which take phase 7's
+# configuration), phase 11's: one sub-batch a dense step.  The trainer's
+# default, 32 sub-batches, gives the same step in 273-485 ms of host-bound
+# time (PERF.md), about 0.9 of the two fits' dense steps; phase 6 still
+# times it.  --microbatch sets it for one run.
+PROGRESSIVE_OVERRIDES = dict(resume=True, resume_every_epochs=1, update_alphamask_list=(),
+                             train_microbatch=1)
 PROGRESSIVE_SCENE = dict(pose_traj="circle0_30", num_training=2)
 # every sub-phase expand_scene logs for view 1, and the view's DIBR tree
 EXPAND_PHASES = ("render_filter_known", "dibr_warp", "dibr_holefill", "render_target",
@@ -2490,7 +2550,8 @@ def _cli_argv(workdir, wdir):
             "--train_compact_k", str(SEED_FIT_COMPACT["train_compact_k"]),
             "--app_k", str(SEED_FIT_COMPACT["app_k"]),
             "--train_depth_cap_band", str(SEED_FIT_COMPACT["train_depth_cap_band"]),
-            "--eval_compact_k", "-1", "--N_vis", str(CLI_TEST_FRAMES)]
+            "--eval_compact_k", "-1", "--N_vis", str(CLI_TEST_FRAMES),
+            "--train_microbatch", str(PROGRESSIVE_OVERRIDES["train_microbatch"])]
 
 
 class _DepthCalls:
@@ -3175,6 +3236,12 @@ TOL.update({
     "train_loss_bf16": 2 ** -8,
     "train_grad_bf16": 5e-2,
 })
+# the cp run's bf16 check: a crop of phase 5's (the CPU's plain C and C'
+# at 384 channels), then the dense step's warm-up and timed steps per turn;
+# its own count window, in which C and C' in bf16 must be launched
+CP_CROP_RAYS = 512
+CP_STEP_WARMUP, CP_STEP_TIMED = 2, 5
+CP_BF16_STEP_NEED = ("cp_features_bf16", "cp_features_bwd_bf16")
 
 
 def _family_argv(workdir, flags):
@@ -3360,10 +3427,108 @@ def _bf16_step_checks(dev, card, train):
             "bf16_crop_loss_err": loss_err, "bf16_crop_grad_err": grad_err}
 
 
+def _cp_step_setup(dev, workdir):
+    """Phase 11's TensorCP configuration (the cp run's flags through the
+    CLI's parser, with main's production overrides: a 300^3 grid, batch
+    16384) as the trainer's dense step toward phase 5's room-shell
+    targets: (field, aabb, train config, step kwargs, (rays, rgb, depth))."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch import config
+    from text2nerf_tpu_torch.data import synthetic as syn
+    from text2nerf_tpu_torch.engine import trainer as TR
+    from text2nerf_tpu_torch.models import tensorf as tf
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    flags = next(run[1] for run in FAMILY_RUNS if run[0] == "cp")
+    args = config.parse_args([os.path.join(here, a) if a.startswith("configs/") else a
+                              for a in _family_argv(workdir, flags)])
+    args.N_voxel_init = args.N_voxel_final = 27_000_000
+    args.batch_size = 1024 * 16
+    cfg = config.to_configs(args)[0]
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    field = tf.init_params(cfg.model, FULL_RESO, generator=gen, device=dev)
+    reso = tf.grid_resolution(field)
+    n_samples = tf.default_n_samples(reso, cfg.model.step_ratio, cfg.n_samples_cap)
+    group, block = TR._resolve_group(cfg, np.asarray(syn.AABB, np.float32), reso,
+                                     cfg.model.step_ratio)
+    kw = TR._step_kwargs(cfg, n_samples=n_samples, group=group, block=block, white_bg=True)
+    return (field.requires_grad_(True), torch.tensor(syn.AABB, device=dev), cfg, kw,
+            syn.training_targets(dev))
+
+
+def _cp_bf16_step_checks(dev, card, report, workdir):
+    """The cp run's configuration trained in bf16 on the card (the JAX
+    trainer's --train_compute_dtype bf16 with --model_name TensorCP): one
+    dense crop step held against the CPU plain versions, then the dense
+    step timed in turns fp32, bf16, bf16, fp32, each bf16 step making one
+    bf16 copy of each line.  The kernel counts are set to 0 once the field
+    and targets are made and read at the end, under family_cp_bf16_step."""
+    import numpy as np
+    import torch
+    from text2nerf_tpu_torch.engine import checkpoints as ckpt
+    from text2nerf_tpu_torch.engine import train_step as ts
+    from text2nerf_tpu_torch.ops.kernels import factor_features as ff
+
+    field, aabb, cfg, kw, (rays, rgb, depth) = _cp_step_setup(dev, workdir)
+    _counts_zeroed()
+    sampler = ts.PermutationSampler(rays.shape[0], cfg.batch_size, seed=cfg.seed)
+    ids = torch.as_tensor(sampler.next_ids()[:CP_CROP_RAYS], device=dev)
+    batch = {"rays": rays[ids], "rgb": rgb[ids], "depth": depth[ids]}
+    loss_err, grad_errs, _ = crop_step_check(field, aabb, None, batch, cfg,
+                                             dict(kw, compute_dtype="bf16"), dev)
+    grad_err = max(grad_errs.values())
+    print(f"family cp bf16 train step on the card vs the CPU plain versions, {CP_CROP_RAYS} "
+          f"rays, dense: loss within {loss_err:.3e} relative (tol "
+          f"{TOL['train_loss_bf16']:.3e}), gradients within {grad_err:.3e} of each leaf's "
+          f"largest (tol {TOL['train_grad_bf16']:g})", flush=True)
+    _require(loss_err <= TOL["train_loss_bf16"], f"cp bf16 train loss differs: {loss_err}")
+    _require(grad_err <= TOL["train_grad_bf16"], f"cp bf16 train gradients differ: {grad_errs}")
+    ms, copies = {}, []
+    flat = ckpt.params_to_jax(field)
+    for dtype in ("fp32", "bf16", "bf16", "fp32"):
+        f = ckpt.params_from_jax(flat, field.cfg, device=dev)
+        state, opt = ts.make_train_state(f, cfg.lr_init, cfg.lr_basis, runtime_decay=True)
+        step = ts.make_train_step(f.cfg, opt, device=dev, **dict(kw, compute_dtype=dtype))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        smp = ts.PermutationSampler(rays.shape[0], cfg.batch_size, seed=cfg.seed)
+
+        def one(state):
+            ids = torch.as_tensor(smp.next_ids(), device=dev)
+            b = {"rays": rays[ids], "rgb": rgb[ids], "depth": depth[ids]}
+            return step(state, aabb, b, gen)  # no mask: the dense branch
+
+        for _ in range(CP_STEP_WARMUP):
+            state, _ = one(state)
+        torch.cuda.synchronize()
+        made = ff.BF16_COPIES
+        t0 = time.perf_counter()
+        for _ in range(CP_STEP_TIMED):
+            state, m = one(state)
+        torch.cuda.synchronize()
+        ms.setdefault(dtype, []).append((time.perf_counter() - t0) / CP_STEP_TIMED * 1e3)
+        if dtype == "bf16":
+            copies.append((ff.BF16_COPIES - made) / CP_STEP_TIMED)
+        _require(all(np.isfinite(float(v)) for v in m.values()), f"cp {dtype} step: {m}")
+        del f, state, opt, step
+    print(f"family cp dense train ms/step (batch {cfg.batch_size}, {kw['n_samples']} samples "
+          f"a ray, app_k {kw['app_k']}, R = {kw['microbatch']}), in turns fp32, bf16, bf16, "
+          f"fp32: fp32 {[round(v, 3) for v in ms['fp32']]}, bf16 "
+          f"{[round(v, 3) for v in ms['bf16']]}; bf16 line copies per step {copies} on {card}",
+          flush=True)
+    _require(all(c == 3 for c in copies), f"bf16 line copies per cp step: {copies}, not 3")
+    launches = _read_counts(report, "family_cp_bf16_step", CP_BF16_STEP_NEED)
+    print(f"family cp bf16 step checks: launches {launches}", flush=True)
+    return {"bf16_step_ms": ms["bf16"], "fp32_step_ms": ms["fp32"],
+            "bf16_crop_loss_err": loss_err, "bf16_crop_grad_err": grad_err,
+            "bf16_copies_per_step": copies}
+
+
 def phase_model_family(dev, card, report, workdir, train):
     """Phase 11 (module docstring): four runs of phase 7's fit through the
     CLI, TensorCP, TensorVM, the bf16 train step and NDC rays, each with
-    its gates; the bf16 step's card-vs-CPU check and times."""
+    its gates; the bf16 steps' card-vs-CPU checks and times (TensorCP's in
+    a count window of its own, after the cp run's)."""
     rec = {}
     t0 = time.perf_counter()
     for name, flags, need, margin in FAMILY_RUNS:
@@ -3371,6 +3536,8 @@ def phase_model_family(dev, card, report, workdir, train):
         shutil.rmtree(run_dir, ignore_errors=True)
         try:
             rec[name] = _family_run(dev, card, report, run_dir, name, flags, need, margin)
+            if name == "cp":
+                rec[name].update(_cp_bf16_step_checks(dev, card, report, run_dir))
         finally:
             shutil.rmtree(run_dir, ignore_errors=True)
         if name == "bf16":
@@ -3901,12 +4068,14 @@ def main(argv):
     import torch
 
     variants = None
-    if argv:
+    if argv[:1] == ["--microbatch"] and len(argv) == 2 and argv[1].isdigit() and int(argv[1]):
+        PROGRESSIVE_OVERRIDES["train_microbatch"] = int(argv[1])
+    elif argv:
         variants = argv[1:] or list(SEED_FIT_VARIANTS)
         unknown = [n for n in variants if n not in SEED_FIT_VARIANTS]
         if argv[0] != "--seed-fit-variants" or unknown:
-            print(f"usage: chip_smoke.py [--seed-fit-variants [NAME ...]], NAME in "
-                  f"{list(SEED_FIT_VARIANTS)}", file=sys.stderr)
+            print(f"usage: chip_smoke.py [--seed-fit-variants [NAME ...] | --microbatch R], "
+                  f"NAME in {list(SEED_FIT_VARIANTS)}", file=sys.stderr)
             return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3923,6 +4092,8 @@ def main(argv):
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}", flush=True)
+    print(f"phases 7, 8, 10 and 12: {PROGRESSIVE_OVERRIDES['train_microbatch']} sub-batches a "
+          f"dense step", flush=True)
 
     t0 = time.perf_counter()
     _build.build()
@@ -3935,15 +4106,21 @@ def main(argv):
         phase_seed_fit_variants(dev, variants)
         return 0
 
+    def mark(phase):  # the smoke's clock at each phase's start
+        print(f"[{time.perf_counter() - t_start:.1f} s] phase {phase}", flush=True)
+
     report = {}
+    mark(3)
     phase_kernels(dev, report)
     workdir = str(_build.BUILD_DIR / "smoke")
     os.makedirs(workdir, exist_ok=True)
     try:
+        mark(4)
         rays_s, max_dev = phase_main_path(dev, card, report, workdir)
     finally:
         for f in os.listdir(workdir):
             os.remove(os.path.join(workdir, f))
+    mark(5)
     train = phase_train(dev, card, report)
     seed_dir, prog_dir, resume_dir = (_build.BUILD_DIR / name for name in (
         "seed_fit", "progressive_fit", "resume"))
@@ -3951,43 +4128,53 @@ def main(argv):
         for d in (seed_dir, prog_dir, resume_dir):
             shutil.rmtree(d, ignore_errors=True)
         try:
+            mark(6)
             seed_kept, seed = phase_seed_fit(dev, card, report, str(seed_dir),
                                              str(resume_dir / "seed_fit"))
         finally:
             shutil.rmtree(seed_dir, ignore_errors=True)
+        mark(7)
         prog_fit, prog = phase_progressive_fit(dev, card, report, str(prog_dir))
         gen_dir = _build.BUILD_DIR / "generative_fit"
         shutil.rmtree(gen_dir, ignore_errors=True)
         try:
+            mark(8)
             gen, booster, fit_seed_image = phase_generative_fit(dev, card, report, str(gen_dir))
         finally:
             shutil.rmtree(gen_dir, ignore_errors=True)
         torch.cuda.empty_cache()
+        mark(9)
         depth = phase_depth_family(dev, card, booster, fit_seed_image)
         del booster
         torch.cuda.empty_cache()
+        mark(10)
         resumed = phase_resume(dev, card, report, str(resume_dir), prog_fit, seed_kept)
     finally:
         for d in (prog_dir, resume_dir):
             shutil.rmtree(d, ignore_errors=True)
     family_dir = _build.BUILD_DIR / "model_family"
     try:
+        mark(11)
         family = phase_model_family(dev, card, report, str(family_dir), train)
     finally:
         shutil.rmtree(family_dir, ignore_errors=True)
     scale_dir = _build.BUILD_DIR / "scale_out"
     shutil.rmtree(scale_dir, ignore_errors=True)
     try:
+        mark(12)
         scale = phase_farm(dev, card, report, str(scale_dir / "farm"))
         scale.update(phase_fit_scenes_mesh(dev, card, report))
         torch.cuda.empty_cache()
+        mark(13)
         scale.update(phase_mesh(dev, card, report, str(scale_dir / "mesh")))
     finally:
         shutil.rmtree(scale_dir, ignore_errors=True)
+    mark(14)
     scale.update(phase_merge_filters(dev, card, report))
     sched_dir = _build.BUILD_DIR / "full_schedule"
     shutil.rmtree(sched_dir, ignore_errors=True)
     try:
+        mark(15)
         scale.update(phase_full_schedule(dev, card, report, str(sched_dir)))
     finally:
         shutil.rmtree(sched_dir, ignore_errors=True)
@@ -3996,11 +4183,10 @@ def main(argv):
     print(json.dumps({"rays_per_s": rays_s, "max_dev": max_dev, **train, **seed, **prog, **gen,
                       **depth, **resumed, **family, **scale, "card": card,
                       "wall_s": wall_s}), flush=True)
-    # kernel C' in bf16 is held and timed in phase 3 but no path here runs
-    # it (the bf16 train step is phase 11's vm_split run)
     kernels = [report[k] for k in ("factor_features", "factor_features_bf16", "shading_mlp",
                                    "factor_features_bwd", "factor_features_bwd_bf16",
-                                   "cp_features", "cp_features_bf16", "cp_features_bwd")]
+                                   "cp_features", "cp_features_bf16", "cp_features_bwd",
+                                   "cp_features_bwd_bf16")]
     for k in kernels:
         k.setdefault("launches", 0)
     print(json.dumps({"kernels": kernels}), flush=True)

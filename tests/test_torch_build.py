@@ -193,12 +193,19 @@ def _launch_sites():
             lambda: cpk._launch_backward(xn, lines, 1, xn[:, 0].contiguous(),
                                          torch.ones((5, 2)), False, None),
             lambda: (cpk.BWD_LAUNCHES, cpk.BWD_DTYPES["fp32"], cpk.BWD_ROUTES["shared"])),
+        "cp_features_bf16": (lambda: cpk._launch(xn, lines, 1, True, True, True),
+                             lambda: (cpk.LAUNCHES, cpk.DTYPES["bf16"])),
+        "cp_features_bwd_bf16": (
+            lambda: cpk._launch_backward(xn, lines, 1, xn[:, 0].contiguous(),
+                                         torch.ones((5, 2), dtype=torch.bfloat16), True, None),
+            lambda: (cpk.BWD_LAUNCHES, cpk.BWD_DTYPES["bf16"], cpk.BWD_ROUTES["shared"])),
     }
 
 
 @pytest.mark.parametrize("site", ["factor_features", "factor_features_bf16",
                                   "factor_features_bwd", "factor_features_bwd_bf16",
-                                  "shading_mlp", "cp_features", "cp_features_bwd"])
+                                  "shading_mlp", "cp_features", "cp_features_bwd",
+                                  "cp_features_bf16", "cp_features_bwd_bf16"])
 def test_launch_counts_are_exact_under_two_threads(site, monkeypatch):
     """Two threads pass the same wrapper's launch site N times each (the
     CUDA library replaced by a fake that returns success; farm workers are
@@ -220,7 +227,9 @@ def test_launch_counts_are_exact_under_two_threads(site, monkeypatch):
                            t2n_factor_features_bwd_bf16=_fake_backward_launcher,
                            t2n_shade_fea_noview=_fake_launcher,
                            t2n_cp_features=_fake_launcher,
-                           t2n_cp_features_bwd=_fake_backward_launcher)
+                           t2n_cp_features_bf16=_fake_launcher,
+                           t2n_cp_features_bwd=_fake_backward_launcher,
+                           t2n_cp_features_bwd_bf16=_fake_backward_launcher)
     for mod, names in ((ff, ("_lib", "_lib_backward")), (sm, ("_lib",)), (cpk, ("_lib",))):
         for name in names:
             monkeypatch.setattr(mod, name, lambda: fake)

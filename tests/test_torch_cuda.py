@@ -5,7 +5,9 @@ inputs: a run inside one cell, every upper edge, runs that cross rays, a
 ragged n, zero gradients, accumulation, and both of its routes, in fp32
 and bf16 (kernels A and A' in bf16 on the tables' bf16 copy, with bf16
 app_raw and d_app_raw); kernels C and C' (TensorCP) at the published, odd
-and 1-component widths, both compute types, both of C''s routes.
+and 1-component widths, both compute types, both of C''s routes (in bf16
+on the lines' bf16 copy with bf16 app_raw and d_app_raw, C bit for bit,
+on the packed walks, the one-channel ones and the generic route).
 
 These skip without an NVIDIA GPU.  The module imports no JAX, so on a
 machine with a card and no JAX it runs with
@@ -433,6 +435,110 @@ def test_cp_field_trains_through_kernels_c(cuda):
     (s2.sum() + a2.square().sum()).backward()
     for g, r in zip(field.lines, cpu.lines):
         assert float((g.grad.cpu() - r.grad).abs().max()) <= BWD_TOL * float(r.grad.abs().max())
+
+
+# kernels C and C' in bf16 on their own inputs: (widths, grid, C''s route).
+# 96 / 288 takes the packed walks (6 channel pairs a lane fused and app, 2
+# density), 8 / 24 2 pairs a lane, 5 / 13 and 1 / 1 one channel a lane;
+# 4 / 28 on 3 x 400 rows is too long for the packed C''s 64-channel slices
+# and takes the one-channel walk; 3 / 29 on 3 x 700 rows the generic route
+CP_BF16_CASES = {
+    "published": ((96, 288), (21, 17, 30), "shared"),
+    "8/24": ((8, 24), (21, 17, 30), "shared"),
+    "odd widths": ((5, 13), (21, 17, 30), "shared"),
+    "1-component": ((1, 1), (21, 17, 30), "shared"),
+    "long lines": ((4, 28), (400, 400, 400), "shared"),
+    "generic route": ((3, 29), (700, 700, 700), "generic"),
+}
+
+
+@pytest.mark.parametrize("case", list(CP_BF16_CASES))
+def test_cp_features_kernel_bf16_bit_equal_with_bf16_app_raw(cuda, case):
+    (nd, na), reso, _ = CP_BF16_CASES[case]
+    lines = _cp_lines(nd, na, reso, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    xn = torch.cat([_edge_samples(2001, gen, cuda),
+                    _cp_step_like("ray", 13, 259, reso[0], gen, cuda)]).contiguous()
+    bf = torch.bfloat16
+    for sig, app in ((True, True), (True, False), (False, True)):
+        before = cpk.DTYPES["bf16"]
+        got = cpk.cp_features(xn, lines, nd, sigma=sig, app=app, dtype=bf)
+        assert cpk.DTYPES["bf16"] == before + 1
+        ref = cpk.cp_features_plain(xn, lines, nd, sigma=sig, app=app, dtype=bf)
+        if app:
+            assert got[1].dtype == bf and ref[1].dtype == bf
+        if sig:
+            assert got[0].dtype == torch.float32
+        for g, r in zip(got, ref):
+            if r is not None:
+                assert torch.equal(g, r), float((g.float() - r.float()).abs().max())
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("case", list(CP_BF16_CASES))
+def test_cp_features_backward_kernel_bf16_from_bf16_d_app(cuda, case, accumulate):
+    (nd, na), reso, route = CP_BF16_CASES[case]
+    lines = _cp_lines(nd, na, reso, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    xn = _cp_step_like("weight", 17, 259, reso[0], gen, cuda)
+    n = xn.shape[0]
+    bf = torch.bfloat16
+    d_sig = torch.randn(n, generator=gen, device=cuda)
+    d_app = torch.randn(n, na, generator=gen, device=cuda).to(bf)
+    d_sig[64:96] = 0.0  # a whole run with no gradient
+    d_app[64:96] = 0.0
+    for ds, da in ((d_sig, d_app), (d_sig, None), (None, d_app)):
+        ref = cpk.cp_features_backward_plain(xn, lines, nd, ds, da, bf)
+        for d_in in ((da,) if da is None else (da, da.float())):
+            before = cpk.BWD_DTYPES["bf16"]
+            if accumulate:
+                got = tuple(0.5 * r for r in ref)
+                for _ in range(2):
+                    cpk.cp_features_backward(xn, lines, nd, ds, d_in, dtype=bf, out=got)
+                want = tuple(2.5 * r for r in ref)
+            else:
+                got, want = cpk.cp_features_backward(xn, lines, nd, ds, d_in, dtype=bf), ref
+            torch.cuda.synchronize()
+            assert cpk.BWD_DTYPES["bf16"] == before + 1 + accumulate
+            assert cpk.BWD_LAST_GRID[0] == route
+            assert _rel_err((got, ()), (want, ())) <= BWD_TOL
+            if ds is None:  # app-only: the density channels get nothing
+                assert all(float((g[:, :nd] - w[:, :nd]).abs().max()) == 0
+                           for g, w in zip(got, want))
+
+
+def test_cp_bf16_train_path_copies_the_lines_once_per_version(cuda):
+    # CPFeatures in bf16 on the card: kernel C's app_raw and the gradient
+    # autograd hands kernel C' are bf16, the two kernels (a density and an
+    # app launch each) share one bf16 copy of each line, and an optimizer
+    # step makes the next copy
+    cfg = ptf.TensoRFConfig(model_name="cp", density_n_comp=(96,), app_n_comp=(288,),
+                            shading_mode="MLP_Fea", fea_pe=2)
+    field = _field(cfg, (48, 40, 56), cuda).requires_grad_(True)
+    opt = torch.optim.Adam(field.parameters(), lr=1e-3)
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    xn = _ray_major(256, 16, 48, gen, cuda).contiguous()
+    seen = []
+    launch = cpk._launch_backward
+
+    def spy(xn_, lines, nd, d_sigma, d_app_raw, bf16, out):
+        seen.append((None if d_app_raw is None else d_app_raw.dtype, bf16))
+        return launch(xn_, lines, nd, d_sigma, d_app_raw, bf16, out)
+
+    cpk._launch_backward = spy
+    try:
+        for _ in range(2):
+            copies = ff.BF16_COPIES
+            sigma = field.density_feature(xn, torch.bfloat16)
+            app = field.app_feature(xn[::2].contiguous(), torch.bfloat16)
+            (sigma.sum() + app.square().sum()).backward()
+            torch.cuda.synchronize()
+            assert ff.BF16_COPIES == copies + 3
+            opt.step()
+            opt.zero_grad()
+    finally:
+        cpk._launch_backward = launch
+    assert sorted(seen, key=str) == sorted([(None, True), (torch.bfloat16, True)] * 2, key=str)
 
 
 def _bwd_case(case, gen, device):

@@ -30,13 +30,15 @@ port); kernels A, A', C and C' run their plain versions.  Tolerances
 - the dense NDC render (train with JAX's per-sample jitter injected, and
   eval) and the renders of cp and vm in the shading modes (dense, and
   compacted through a mask): rgb, depth, acc, weights within 1e-5;
-- one bf16 train step of the compacted and the dense branch.  Inside its
-  jit XLA keeps some bf16 chains in fp32 (excess precision) where the
-  port rounds every op, as JAX's eager functions do, and XLA's scatter
-  sums in bf16: the loss within 2e-3 relative (4.9e-4), each leaf's
-  gradient within 0.12 of its largest of JAX's (8.9e-2), and within 3e-2
-  of the fp32 step's gradient (2.0e-2), no further than JAX's bf16
-  gradient is from it (9.5e-2);
+- one bf16 train step of the compacted and the dense branch, vm_split
+  and cp.  Inside its jit XLA keeps some bf16 chains in fp32 (excess
+  precision) where the port rounds every op, as JAX's eager functions
+  do, and XLA's scatter sums in bf16: the loss within 2e-3 relative
+  (4.9e-4), each leaf's gradient within 0.12 of its largest of JAX's
+  (8.9e-2; cp 0.2, 0.149: JAX's bf16 scatter-add into cp's short
+  lines strays 0.13 from the fp32 gradient), and within 3e-2 of the
+  fp32 step's gradient (2.0e-2; cp 9.4e-3), no further than JAX's bf16
+  gradient is from it (9.5e-2; cp 0.13);
 - a 2-view progressive fit (stage 1, one expansion, stage 2) of cp
   (through upsample and the shrink), vm (upsample, no shrink) and of
   vm_split with ``ndc_ray``, JAX's per-step jitter injected: sampler ids
@@ -463,9 +465,16 @@ def test_renders_of_the_family_match_jax(case):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("compact", [False, True])
-def test_bf16_train_step_matches_jax(compact):
-    cfg = _cfg("vm_split", distance_scale=2.0)
+# each decomposition's bound on the gradient against JAX's bf16 one
+# (module docstring)
+BF16_STEP_GRAD_TOL = {"vm_split": 0.12, "cp": 0.2}
+
+
+@pytest.mark.parametrize("name,compact", [
+    pytest.param("vm_split", False, id="False"), pytest.param("vm_split", True, id="True"),
+    pytest.param("cp", False, id="cp-False"), pytest.param("cp", True, id="cp-True")])
+def test_bf16_train_step_matches_jax(name, compact):
+    cfg = _cfg(name, distance_scale=2.0)
     params = _blob_params(cfg, (16, 16, 16))
     rays = _rays(16)
     rgb = np.random.default_rng(0).uniform(0.2, 0.8, (len(rays), 3)).astype(np.float32)
@@ -496,7 +505,7 @@ def test_bf16_train_step_matches_jax(compact):
     assert abs(float(pm["mse"]) / float(m["mse"]) - 1) <= 2e-3
     got = PC.grads_to_jax(field)
     errs = _leaf_errs(got, want)
-    assert max(errs.values()) <= 0.12, errs
+    assert max(errs.values()) <= BF16_STEP_GRAD_TOL[name], errs
     # the fp32 step's gradient: the port's bf16 one stays closer to it
     # than JAX's bf16 one does
     tx = optax.chain(_capture(), optax.sgd(1.0))
@@ -507,7 +516,8 @@ def test_bf16_train_step_matches_jax(compact):
     want32 = _flatten(new_state.opt_state[0])
     port_off = max(_leaf_errs(got, want32).values())
     assert port_off <= 3e-2 and port_off <= max(_leaf_errs(want, want32).values())
-    assert float(np.abs(want["density_planes/0"]).max()) > 1e-6
+    first = "density_lines/0" if name == "cp" else "density_planes/0"
+    assert float(np.abs(want[first]).max()) > 1e-6
 
 
 # ---------------------------------------------------------------------------

@@ -220,8 +220,8 @@ class TensoRF(nn.Module):
         if dtype is None:
             out = app_raw @ self.basis
         else:
-            # kernel A's bf16 app_raw goes in as it comes (no cast); kernel
-            # C's is fp32 holding bf16 values, cast here
+            # kernels A and C return a bf16 app_raw in bf16: it goes in as
+            # it comes, no cast
             if app_raw.dtype != dtype:
                 app_raw = app_raw.to(dtype)
             out = (app_raw @ self.basis.to(dtype)).float()

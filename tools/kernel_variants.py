@@ -11,15 +11,20 @@ copied under this checkout's ``text2nerf_tpu_torch/build/variants/`` and
 each literal OLD is replaced by NEW in FILE, a path inside the package
 such as ``csrc/shading_mlp.cu`` (backslash escapes such as ``\\n`` are
 decoded; OLD must occur), or each FILE is replaced by SOURCE, a file of
-this checkout (such as ``tools/kernel_baselines/cp_features_v1.cu``).
+this checkout (such as ``tools/kernel_baselines/cp_features_v2.cu``).
 
 ``--kernels`` names the kernels to time, of ``a`` (kernel A), ``b``
 (kernel B), ``a1`` (kernel A'), ``a16`` and ``a1_16`` (kernels A and A'
 in bf16), ``cp`` (kernels C and C'); all by default.  ``--cp-step`` also
 profiles one TensorCP dense train step per version.
 
-The first design of the bf16 modes of kernels A and A' is kept in
-``tools/kernel_baselines/`` (its two sources and its wrapper); from the
+The second design of kernels C and C' (fp32 lines and gradients in bf16
+mode) is kept in ``tools/kernel_baselines/`` with its wrapper; chip_smoke.py
+phase 3 times it beside this checkout's with ``--kernels cp`` (its
+variant, one argument: ``"v2:csrc/cp_features.cu=tools/kernel_baselines/
+cp_features_v2.cu:ops/kernels/cp_features.py=tools/kernel_baselines/
+cp_features_v2.py"``).  The first design of the bf16 modes of kernels A
+and A' is kept there too (its two sources and its wrapper); from the
 repo root it is timed beside this checkout's with
 
     B=tools/kernel_baselines
@@ -44,12 +49,14 @@ chip_smoke.py's phase 5, caught on their way into kernel A'; kernel A'
 in bf16: the three layouts, fused mode, random bf16-valued output
 gradients in the dtype the version's kernel A returns ``app_raw`` in (the
 one autograd hands back); kernels C
-and C': a TensorCP field at the published widths, chip_smoke.py phase 3's
-three shapes, each in its own output mode: 1M fused samples, a dense
-step's density-only launch over 16384 rays x 259 ray-ordered samples and
-its app-only launch over each ray's top 64 samples by weight, with random
-output gradients) and timed with chip_smoke.py's CUDA-event timer, L2
-flushed between calls, 20 calls.  The TensorCP step (``--cp-step``) is
+and C', fp32 and bf16: a TensorCP field at the published widths,
+chip_smoke.py phase 3's three shapes, each in its own output mode: 1M
+fused samples, a dense step's density-only launch over 16384 rays x 259
+ray-ordered samples and its app-only launch over each ray's top 64
+samples by weight, with random output gradients, in bf16 bf16-valued
+and in the dtype the version's kernel C returns ``app_raw`` in) and
+timed with chip_smoke.py's CUDA-event timer, L2 flushed between calls,
+20 calls.  The TensorCP step (``--cp-step``) is
 chip_smoke.py phase 11's TensorCP configuration (the CLI's flags and
 overrides: 96 / 288 components, MLP_Fea, batch 16384, one sub-batch,
 app_k 64) on the 300^3 grid, stepped dense toward phase 5's room-shell
@@ -287,37 +294,40 @@ def _ptxas(log: str) -> dict:
 
 def _time_cp(cs, shell, aabb, rays, gen, flush, inputs) -> dict:
     """Kernels C and C' at chip_smoke.py phase 3's three shapes, each in
-    its own output mode, fp32: C's bit-equality with its plain version,
-    C''s largest error relative to each line's largest gradient, and both
-    times."""
+    its own output mode, fp32 and bf16: C's bit-equality with its plain
+    version, C''s largest error relative to each line's largest gradient,
+    and the times (keys "C", "C'", "C bf16", "C' bf16")."""
     import torch
     from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
 
+    bf = torch.bfloat16
     field = cs._cp_field(rays.device, gen)
     lines, nd = tuple(field.lines), cs.CP_WIDTHS[0]
     na = lines[0].shape[1] - nd
     shapes = cs._cp_shapes(field, shell, aabb, rays, gen)
-    res = {"cp_ms": {}, "cp_exact": {}, "cp_bwd_err": {}}
+    app_dtype = cpk.cp_features(shapes["fused"][:32], lines, nd, sigma=False, dtype=bf)[1].dtype
+    res = {"cp_ms": {}, "cp_exact": {}, "cp_bwd_err": {}, "cp_app_dtype": str(app_dtype)}
     for shape, xn in shapes.items():
         sig, app = cs.CP_SHAPE_MODES[shape]
         d_sig, d_app = cs._cp_grads(xn, na, gen, shape)
-        ds, da = (d_sig if sig else None), (d_app if app else None)
         inputs += [float(xn.sum()), float(d_sig.sum()), float(d_app.sum())]
-        got = cpk.cp_features(xn, lines, nd, sigma=sig, app=app)
-        ref = cs._cp_plain(xn, lines, nd, sig, app)
-        res["cp_exact"][shape] = all(torch.equal(g, r) for g, r in zip(got, ref)
-                                     if g is not None)
-        got = cpk.cp_features_backward(xn, lines, nd, ds, da)
-        ref = cs._cp_plain_backward(xn, lines, nd, ds, da)
-        res["cp_bwd_err"][shape] = max(float((g - r).abs().max()) / float(r.abs().max())
-                                       for g, r in zip(got, ref))
-        del got, ref
-        res["cp_ms"][shape] = {
-            "C": cs._time_ms(lambda: cpk.cp_features(xn, lines, nd, sigma=sig, app=app), 20,
-                             flush),
-            "C'": cs._time_ms(lambda: cpk.cp_features_backward(xn, lines, nd, ds, da), 20,
-                              flush),
-        }
+        times = res["cp_ms"][shape] = {}
+        for tag, dtype, d_app_t in (("", None, d_app), (" bf16", bf, d_app.to(bf).to(app_dtype))):
+            ds, da = (d_sig if sig else None), (d_app_t if app else None)
+            got = cpk.cp_features(xn, lines, nd, sigma=sig, app=app, dtype=dtype)
+            ref = cs._cp_plain(xn, lines, nd, sig, app, dtype)
+            res["cp_exact"][f"C{tag} {shape}"] = all(
+                torch.equal(g.float(), r.float()) for g, r in zip(got, ref) if g is not None)
+            got = cpk.cp_features_backward(xn, lines, nd, ds, da, dtype=dtype)
+            ref = cs._cp_plain_backward(xn, lines, nd, ds, da, dtype)
+            res["cp_bwd_err"][f"C'{tag} {shape}"] = max(
+                float((g - r).abs().max()) / float(r.abs().max()) for g, r in zip(got, ref))
+            del got, ref
+            times["C" + tag] = cs._time_ms(
+                lambda: cpk.cp_features(xn, lines, nd, sigma=sig, app=app, dtype=dtype), 20,
+                flush)
+            times["C'" + tag] = cs._time_ms(
+                lambda: cpk.cp_features_backward(xn, lines, nd, ds, da, dtype=dtype), 20, flush)
         del d_sig, d_app
     return res
 
@@ -342,36 +352,15 @@ def _cp_step_profile(cs, dev, steps: int = 5) -> dict:
     """Device ms per TensorCP dense step (chip_smoke.py phase 11's TensorCP
     configuration on phase 5's room-shell targets), split by CP_STEP_PARTS
     and the rest; the wall per step and the device's busy ms."""
-    import numpy as np
     import torch
     from torch.autograd import DeviceType
 
-    from text2nerf_tpu_torch import config
-    from text2nerf_tpu_torch.data import synthetic as syn
     from text2nerf_tpu_torch.engine import train_step as ts
-    from text2nerf_tpu_torch.engine import trainer as TR
-    from text2nerf_tpu_torch.models import tensorf as tf
 
     rules = _profile_train()
-    flags = next(run[1] for run in cs.FAMILY_RUNS if run[0] == "cp")
-    argv = [str(REPO / a) if a.startswith("configs/") else a  # from the version's directory
-            for a in cs._family_argv(str(VARIANTS_DIR), flags)]
-    args = config.parse_args(argv)
-    args.N_voxel_init = args.N_voxel_final = 27_000_000  # main's production overrides
-    args.batch_size = 1024 * 16
-    cfg = config.to_configs(args)[0]
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    field = tf.init_params(cfg.model, cs.FULL_RESO, generator=gen, device=dev)
-    field.requires_grad_(True)
-    aabb = torch.tensor(syn.AABB, device=dev)
-    reso = tf.grid_resolution(field)
-    n_samples = tf.default_n_samples(reso, cfg.model.step_ratio, cfg.n_samples_cap)
-    group, block = TR._resolve_group(cfg, np.asarray(syn.AABB, np.float32), reso,
-                                     cfg.model.step_ratio)
-    kw = TR._step_kwargs(cfg, n_samples=n_samples, group=group, block=block, white_bg=True)
+    field, aabb, cfg, kw, (rays, rgb, depth) = cs._cp_step_setup(dev, str(VARIANTS_DIR))
     state, opt = ts.make_train_state(field, cfg.lr_init, cfg.lr_basis, runtime_decay=True)
     step = ts.make_train_step(cfg.model, opt, device=dev, **kw)
-    rays, rgb, depth = syn.training_targets(dev)
     sampler = ts.PermutationSampler(rays.shape[0], cfg.batch_size, seed=cfg.seed)
 
     def one(state):
@@ -400,7 +389,7 @@ def _cp_step_profile(cs, dev, steps: int = 5) -> dict:
         part = next((p for frag, p in CP_STEP_PARTS if layer.startswith(frag)), "rest")
         split[part] += us
     return {"wall_ms": wall / steps * 1e3, "busy_ms": busy_us / steps / 1e3,
-            "ms": {k: v / steps / 1e3 for k, v in split.items()}, "samples": n_samples,
+            "ms": {k: v / steps / 1e3 for k, v in split.items()}, "samples": kw["n_samples"],
             "app_k": kw["app_k"], "microbatch": kw["microbatch"]}
 
 
@@ -516,11 +505,17 @@ def main(argv) -> int:
                 f"{k} {v[0]} registers {v[1]} B spilled" for k, v in r["ptxas"].items()
                 if k.split("<")[1].startswith("0")), flush=True)
         if "cp_ms" in r:
-            for k in ("C", "C'"):
+            for k in ("C", "C'", "C bf16", "C' bf16"):
                 times = ", ".join(f"{shape} {v[k]:.4f} ms" for shape, v in r["cp_ms"].items())
-                check = (f"bit-exact {r['cp_exact']}" if k == "C" else
-                         f"within {max(r['cp_bwd_err'].values()):.3e} of each line's largest")
+                if k.startswith("C'"):
+                    worst = max(v for key, v in r["cp_bwd_err"].items()
+                                if key.rsplit(" ", 1)[0] == k)
+                    check = f"within {worst:.3e} of each line's largest"
+                else:
+                    check = "bit-exact " + str(all(v for key, v in r["cp_exact"].items()
+                                                   if key.rsplit(" ", 1)[0] == k))
                 print(f"{k} {name}, run {run}: {times}; {check}", flush=True)
+            print(f"C bf16 {name}: app_raw {r['cp_app_dtype']}", flush=True)
         if "cp_step" in r:
             p = r["cp_step"]
             split = ", ".join(f"{k} {v:.3f}" for k, v in p["ms"].items())
