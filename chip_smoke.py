@@ -148,12 +148,18 @@ Phases (any failure exits nonzero before the last line):
    SGRNet (ResNet-50) and RelDepthNet stand-in forwards once each in
    bf16, and the ResNeXt-101 LeReS at 448^2 on the card against the CPU
    (fp32, TF32 off) within 1e-3 of the largest output;
-10. resume, at phase 7's configuration: (a) phase 7's fit again with an
-   inpaint service that raises on its second call (after the stage-2
-   boundary's resume point is written), then rerun with resume: it must
-   log its resume epoch, not bootstrap, launch kernels A, A' and B, and
-   end with per-view PSNRs within 0.5 dB of phase 7's (both final
-   checkpoints rendered at phase 7's sample count); (b) phase 7's last
+10. resume, at phase 7's configuration: (a) phase 7's fit again with
+   checkpoint_backend="orbax" (directory checkpoints through
+   torch.distributed.checkpoint) and an inpaint service that raises on
+   its second call (after the stage-2 boundary's resume point is
+   written; the point's loop state, read from <expname>_resume/, must be
+   the boundary's), then rerun with resume: it must log its resume
+   epoch, not bootstrap, launch kernels A, A' and B, end with per-view
+   PSNRs within 0.5 dB of phase 7's (both final checkpoints rendered at
+   phase 7's sample count) and write <expname>_final/ equal to its
+   _final.npz bit for bit; the directory saves' ms, the npz saves' of the
+   same run and the field's bytes are printed beside phase 7's npz
+   resume saves; (b) phase 7's last
    resume point (the entry of stage 3) resumed in a copy of its log
    folder, its PSNRs printed beside phase 7's; (c) view 1 expanded again
    with update_known_views on phase 7's final field and its scene cut
@@ -2381,6 +2387,7 @@ def phase_progressive_fit(dev, card, report, workdir):
     _require(all(os.path.exists(f"{fit['logfolder']}/{n}") for n in names),
              f"the fit wrote no resume point ({names}) in {fit['logfolder']}")
     size = sum(os.path.getsize(f"{fit['logfolder']}/{n}") for n in names)
+    fit["resume_save_ms"] = saves.ms
     print(f"resume points: {len(saves.ms)} saves, {sum(saves.ms) / 1e3:.3f} s of the fit's "
           f"{fit['wall']:.3f} s ({[round(x, 1) for x in saves.ms]} ms; {size / 2 ** 20:.1f} MiB "
           f"a point), on {card}", flush=True)
@@ -3025,28 +3032,56 @@ def phase_resume(dev, card, report, workdir, prog, seed_kept):
         return inpaint(*args, **kw)
 
     services.inpaint = dying_inpaint
-    cfg_a = dataclasses.replace(cfg, basedir=f"{workdir}/a/log")
+    # through the directory backend (torch.distributed.checkpoint); (b)
+    # keeps npz, so both backends resume on the card
+    cfg_a = dataclasses.replace(cfg, basedir=f"{workdir}/a/log", checkpoint_backend="orbax")
     scene_a = dataclasses.replace(scene_cfg, datadir=f"{workdir}/a/scene")
-    t0 = time.perf_counter()
+    saves0 = ckpt.save_orbax, ckpt.save_checkpoint
+    ckpt.save_orbax, ckpt.save_checkpoint = orbax_saves, npz_saves = tuple(map(_Timed, saves0))
     try:
-        trainer.reconstruction(cfg_a, scene_a, services, ex, device=dev)
-        _require(False, "the crashing inpaint did not stop the fit")
-    except RuntimeError as e:
-        _require("simulated crash" in str(e), f"the fit failed otherwise: {e}")
-    crash_s = time.perf_counter() - t0
-    folder = trainer.log_folder(cfg_a, scene_a)
-    loop = ckpt.load_checkpoint(f"{folder}/{cfg.expname}_resume.npz", device=dev)[-1]
-    _require(loop["epoch"] == cfg.n_stage1 and loop["next_view"] == 1,
-             f"the crashed fit's resume point is not the boundary's: {loop}")
-    n_rows = len(_rows_of(folder))
-    services.inpaint = inpaint
-    _counts_zeroed()
-    t0 = time.perf_counter()
-    _, _, _, scene_r, _ = trainer.reconstruction(cfg_a, scene_a, services, ex, device=dev)
-    torch.cuda.synchronize()
-    resume_s = time.perf_counter() - t0
-    launches = _read_counts(report, "resume", ("factor_features", "factor_features_bwd",
-                                                "shading_mlp"))
+        t0 = time.perf_counter()
+        try:
+            trainer.reconstruction(cfg_a, scene_a, services, ex, device=dev)
+            _require(False, "the crashing inpaint did not stop the fit")
+        except RuntimeError as e:
+            _require("simulated crash" in str(e), f"the fit failed otherwise: {e}")
+        crash_s = time.perf_counter() - t0
+        folder = trainer.log_folder(cfg_a, scene_a)
+        _require(not os.path.exists(f"{folder}/{cfg.expname}_resume.npz"),
+                 "the orbax fit wrote an npz resume point")
+        loop = ckpt.load_orbax(f"{folder}/{cfg.expname}_resume", device=dev)[-1]
+        _require(loop["epoch"] == cfg.n_stage1 and loop["next_view"] == 1,
+                 f"the crashed fit's resume point is not the boundary's: {loop}")
+        n_rows = len(_rows_of(folder))
+        services.inpaint = inpaint
+        _counts_zeroed()
+        t0 = time.perf_counter()
+        _, _, _, scene_r, _ = trainer.reconstruction(cfg_a, scene_a, services, ex, device=dev)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        launches = _read_counts(report, "resume", ("factor_features", "factor_features_bwd",
+                                                    "shading_mlp"))
+    finally:
+        ckpt.save_orbax, ckpt.save_checkpoint = saves0
+    final = f"{folder}/{cfg.expname}_final"
+    _, f_dir, aabb_dir, loop_dir = ckpt.load_orbax(final, device=dev)
+    _, f_npz, aabb_npz, _, loop_npz = ckpt.load_checkpoint(f"{final}.npz", device=dev)
+    leaves_dir, leaves_npz = ckpt.params_to_jax(f_dir), ckpt.params_to_jax(f_npz)
+    _require(leaves_dir.keys() == leaves_npz.keys()
+             and all(np.array_equal(leaves_dir[k], leaves_npz[k]) for k in leaves_npz)
+             and torch.equal(aabb_dir, aabb_npz) and loop_dir == loop_npz,
+             f"{final}/ does not hold its _final.npz's field")
+    field_mib = sum(v.nbytes for v in leaves_npz.values()) / 2 ** 20
+    dir_mib = sum(os.path.getsize(f"{final}/{n}") for n in os.listdir(final)) / 2 ** 20
+    print(f"(a) orbax directories: {len(orbax_saves.ms)} saves "
+          f"({[round(x, 1) for x in orbax_saves.ms]} ms, the last the final directory), "
+          f"{sum(orbax_saves.ms) / 1e3:.3f} s; the npz saves of the same run "
+          f"{[round(x, 1) for x in npz_saves.ms]} ms (the final .npz, with its mask); the "
+          f"field {field_mib:.1f} MiB of leaves, the final directory {dir_mib:.1f} MiB, its "
+          f".npz {os.path.getsize(f'{final}.npz') / 2 ** 20:.1f} MiB; {final}/ equal to its "
+          f".npz bit for bit; phase 7's npz resume points (field and snapshot) "
+          f"{[round(x, 1) for x in prog['resume_save_ms']]} ms, "
+          f"{sum(prog['resume_save_ms']) / 1e3:.3f} s, on {card}", flush=True)
     rows = _rows_of(folder, n_rows)
     _require([r["resume_epoch"] for r in rows if "resume_epoch" in r] == [cfg.n_stage1],
              "the rerun did not log its resume epoch")
@@ -3067,7 +3102,8 @@ def phase_resume(dev, card, report, workdir, prog, seed_kept):
              f"the resumed fit's PSNRs {psnr_a} are not within {RESUME_PSNR_DB} dB of "
              f"{prog['psnr']}")
     out.update(resume_crash_s=crash_s, resume_rerun_s=resume_s, resume_psnr=psnr_a,
-               resume_psnr_gap_db=gap)
+               resume_psnr_gap_db=gap, resume_orbax_save_ms=orbax_saves.ms,
+               resume_npz_save_ms=npz_saves.ms, resume_field_mib=field_mib)
 
     # (b) phase 7's last resume point (the entry of stage 3), resumed
     folder_b = trainer.log_folder(dataclasses.replace(cfg, basedir=f"{workdir}/b/log"),

@@ -2,7 +2,7 @@
 
 - No module of text2nerf_tpu_torch/ (its tools/ package included), and
   not chip_smoke.py, tools/kernel_variants.py or tools/fit_ab.py,
-  imports jax, jaxlib, flax or text2nerf_tpu;
+  imports jax, jaxlib, flax, orbax, tensorstore or text2nerf_tpu;
   the generative and depth services' modules, the command line, the
   port's tools and chip_smoke.py import no image or checkpoint library
   the card's machine lacks (cv2, PIL, imageio, safetensors).  A
@@ -50,7 +50,8 @@ from text2nerf_tpu_torch.services import registry as PREG
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "text2nerf_tpu"}
+# orbax and tensorstore: not on the card's machine either
+FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "tensorstore", "text2nerf_tpu"}
 # not on the card's machine: the services' path imports none of them
 IMAGE_LIBS = {"cv2", "PIL", "imageio", "safetensors"}
 SERVICE_PATH = ("models/diffusion.py", "models/clip.py", "models/tokenizer.py",

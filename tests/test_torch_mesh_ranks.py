@@ -1,4 +1,5 @@
-"""Rank bodies for tests/test_torch_mesh.py, run on gloo ranks by
+"""Rank bodies for tests/test_torch_mesh.py and
+tests/test_torch_orbax_checkpoint.py, run on gloo ranks by
 ``text2nerf_tpu_torch.parallel.dryrun.launch`` (imports no JAX).  The
 module holds no test of its own.
 
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from text2nerf_tpu_torch.engine import checkpoints as ckpt
 from text2nerf_tpu_torch.engine import train_step as ts
 from text2nerf_tpu_torch.models import monodepth as md
 from text2nerf_tpu_torch.models import tensorf as tf
@@ -182,3 +184,63 @@ def distributed_farm(rank, world, workdir):
     return {"scenes": sorted(ran), "result_procs": sorted({r["proc"] for r in results}),
             "mse": float(m["mse"]), "dp": dp,
             "basis_grad_sum": float(field.basis.grad.sum())}
+
+
+ORBAX_MODELS = ("vm_split", "cp", "vm")
+
+
+def orbax_field(name):
+    """A tiny seeded field; vm_split's axes of unequal widths."""
+    nd, na = ((2, 3, 1), (4, 6, 2)) if name == "vm_split" else ((2,) * 3, (4,) * 3)
+    cfg = tf.TensoRFConfig(model_name=name, density_n_comp=nd, app_n_comp=na, app_dim=6,
+                           fea_pe=2, feature_c=16)
+    return tf.init_params(cfg, (5, 6, 7), generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+
+
+def _same(a, b):
+    """Bit-equal parameters (names, shapes, values) and config."""
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    return (a.cfg.to_dict() == b.cfg.to_dict() and pa.keys() == pb.keys()
+            and all(torch.equal(pa[k], pb[k]) for k in pa))
+
+
+def _distcp_bytes(path):
+    return {n: os.path.getsize(os.path.join(path, n)) for n in sorted(os.listdir(path))
+            if n.endswith(".distcp")}
+
+
+def orbax_ranks(rank, world, workdir):
+    """Sharded saves and restores of each decomposition, at model 2 and at
+    data 2 (two ranks): each rank's restored shard against
+    ``shard_params(whole)``, the one-process restore against the whole
+    field, and the bytes each rank wrote."""
+    torch.set_num_threads(1)
+    meshes = {"model2": pmesh.make_mesh(data=1, model=world),
+              "data2": pmesh.make_mesh(data=world, model=1)}
+    aabb = torch.tensor([[-1.0] * 3, [1.0] * 3])
+    out = {}
+    for name in ORBAX_MODELS:
+        whole = orbax_field(name)
+        one = os.path.join(workdir, f"{name}_one")
+        if rank == 0:
+            ckpt.save_orbax(one, whole, aabb, loop_state={"epoch": 1})
+        dist.barrier()
+        for tag, mesh in meshes.items():
+            path = os.path.join(workdir, f"{name}_{tag}")
+            shard = pmesh.shard_params(whole, mesh)
+            ckpt.save_orbax(path, shard, aabb, loop_state={"epoch": 1}, mesh=mesh)
+            cfg, got, got_aabb, loop = ckpt.load_orbax(path, mesh=mesh, device="cpu")
+            res = {"shard_equal": _same(got, shard),
+                   "reduce": (got.app_reduce is None) == (shard.app_reduce is None),
+                   "cfg_whole": cfg.to_dict() == whole.cfg.to_dict(),
+                   "aabb": torch.equal(got_aabb, aabb), "loop": loop,
+                   "files": sorted(os.listdir(path)), "distcp": _distcp_bytes(path),
+                   "one_distcp": _distcp_bytes(one)}
+            dist.barrier()
+            if rank == 0:
+                cfg1, got1, aabb1, loop1 = ckpt.load_orbax(path, device="cpu")
+                res.update(whole_equal=_same(got1, whole), whole_aabb=torch.equal(aabb1, aabb),
+                           whole_loop=loop1)
+            out[f"{name}_{tag}"] = res
+    return out

@@ -57,6 +57,7 @@ from text2nerf_tpu.models import tensorf as tf
 from text2nerf_tpu.services import fallbacks as jfb
 from text2nerf_tpu.services.registry import Services
 from text2nerf_tpu_torch.data import scene_state as pss
+from text2nerf_tpu_torch.engine import checkpoints as PC
 from text2nerf_tpu_torch.engine import renderer as PER
 from text2nerf_tpu_torch.engine import train_step as PTS
 from text2nerf_tpu_torch.engine import trainer as PT
@@ -326,16 +327,29 @@ def test_write_video_falls_back_to_mjpeg_avi(tmp_path):
 
 
 def test_unported_options_raise_before_any_work(tmp_path):
-    scene = _scene(pss.SceneConfig, tmp_path / "d")
-    cfg = PT.TrainConfig(basedir=str(tmp_path / "log"), checkpoint_backend="orbax")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        PT.reconstruction(cfg, scene, device="cpu")
-    assert not os.path.exists(tmp_path / "log") and not os.path.exists(tmp_path / "d")
+    # nothing is left unported: checkpoint_backend="orbax" (the directory
+    # backend, held in test_torch_orbax_checkpoint.py) is accepted, with the
+    # JAX trainer's paths; its fit writes <expname>_final/ beside the npz
+    assert not hasattr(PT, "_check_ported")
+    for backend, name in (("orbax", "e_resume"), ("npz", "e_resume.npz"),
+                          ("other", "e_resume.npz")):
+        got = PT._resume_path(PT.TrainConfig(expname="e", checkpoint_backend=backend), "L")
+        assert got == os.path.join("L", name), backend
+    cfg = PT.TrainConfig(expname="o", basedir=str(tmp_path / "log"), checkpoint_backend="orbax",
+                         model=ptf.TensoRFConfig(**MODEL),
+                         **dict(SCHEDULE, n_stage1=1, n_stage3=0, batch_size=1024,
+                                upsamp_list=(), update_alphamask_list=()))
+    _, field, aabb, _, logfolder = PT.reconstruction(
+        cfg, _scene(pss.SceneConfig, tmp_path / "d", (16, 16)), device="cpu")
+    _, got, got_aabb, loop = PC.load_orbax(os.path.join(logfolder, "o_final"), device="cpu")
+    want = PC.load_checkpoint(os.path.join(logfolder, "o_final.npz"), device="cpu")
+    for a, b in zip(got.parameters(), want[1].parameters()):
+        assert torch.equal(a, b)
+    assert torch.equal(got_aabb, want[2]) and loop == want[4]
     # the bf16 train step and NDC rays run (their fits are held against
     # JAX in test_torch_model_family.py): accepted, and the trainer builds
     # its step with them as the JAX trainer does
     for kw in (dict(train_compute_dtype="bf16"), dict(ndc_ray=True)):
-        PT._check_ported(PT.TrainConfig(**kw))
         want = JT._step_kwargs(JT.TrainConfig(**kw), n_samples=32, group=1, block=4,
                                white_bg=True)
         got = PT._step_kwargs(PT.TrainConfig(**kw), n_samples=32, group=1, block=4,

@@ -19,19 +19,32 @@ in the other:
 :func:`train_state_from_jax` / :func:`train_state_to_jax` carry a train
 state (the params and optax's Adam moments) across, so a JAX run can be
 resumed in the port; :func:`grads_to_jax` splits gradients as the params.
+
+:func:`save_orbax` / :func:`load_orbax` are the directory backend
+(``checkpoint_backend="orbax"``; port of the JAX package's functions of
+that name).  JAX writes orbax's OCDBT format, which needs JAX and
+tensorstore; the port writes the same leaves, under the same names, in
+``torch.distributed.checkpoint``'s format: ``.metadata`` and one
+``__<rank>_0.distcp`` a rank, each rank writing its own shards, with
+JAX's sidecars ``cfg.json`` and ``loop_state.json``.  Neither package
+reads the other's directory; the npz files are the format both read.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import os
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.tensorf import TensoRF, TensoRFConfig
-from ..utils.atomic_io import atomic_savez
+from ..models.tensorf import TensoRF, TensoRFConfig, component_counts, grid_resolution
+from ..utils.atomic_io import atomic_savez, replace_dir, temp_dir
 
 
 _MLP_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
@@ -308,3 +321,187 @@ def load_checkpoint(path: str, *, device=None):
     flat = {k[len("params/"):]: v for k, v in data.items() if k.startswith("params/")}
     field = params_from_jax(flat, cfg, device=dev)
     return cfg, field, aabb, alpha_mask, loop_state
+
+
+# -- the directory backend (checkpoint_backend="orbax") -----------------------
+
+
+def _fsync_json(path: str, obj) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _whole_cfg(field: TensoRF, mesh) -> TensoRFConfig:
+    """The config of the whole field a model shard of ``field`` is part of."""
+    if mesh is None or mesh.model == 1:
+        return field.cfg
+    na = component_counts(field.cfg)[1]
+    return dataclasses.replace(field.cfg, app_n_comp=tuple(a * mesh.model for a in na))
+
+
+def _whole_specs(cfg: TensoRFConfig, reso, mesh) -> dict:
+    """``param_sharding_spec`` of the whole field (built on the meta
+    device: shapes only)."""
+    from ..parallel.mesh import param_sharding_spec
+
+    return param_sharding_spec(TensoRF(cfg, reso, device="meta"), mesh)
+
+
+def _device_mesh(mesh):
+    """A CPU ``DeviceMesh`` ``(data, model)`` over the process group, made
+    once per mesh (every rank calls it, as every rank saves)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if getattr(mesh, "_device_mesh", None) is None:
+        mesh._device_mesh = init_device_mesh("cpu", (mesh.data, mesh.model),
+                                             mesh_dim_names=("data", "model"))
+    return mesh._device_mesh
+
+
+@contextlib.contextmanager
+def _one_process_quiet():
+    """DCP warns on every one-process (``no_dist``) call that it assumes
+    one process; that is what the call asked for."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+        yield
+
+
+def _app_key(key: str) -> bool:
+    """A leaf split along its channels over ``model`` (``vm``'s stacks hold
+    app and density channels in one leaf, so they are written whole)."""
+    return key.startswith(("app_planes/", "app_lines/"))
+
+
+def _app_shard(mesh, local: torch.Tensor):
+    """This rank's channel slice ``local`` of an app table as a ``DTensor``:
+    replicated over ``data``, split along the last axis over ``model``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    shape = torch.Size((*local.shape[:-1], local.shape[-1] * mesh.model))
+    return DTensor.from_local(local, _device_mesh(mesh), [Replicate(), Shard(local.ndim - 1)],
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def save_orbax(path: str, field: TensoRF, aabb, extras=None,
+               loop_state: Optional[dict] = None, *, mesh=None):
+    """Write the field, ``aabb`` and ``extras`` (a tree of arrays) as a
+    checkpoint directory at ``path``, replacing what is there whole (as
+    orbax's ``force=True``): the leaves ``params/<JAX path>``, ``aabb``
+    and ``extras/<path>`` through ``torch.distributed.checkpoint``, then
+    the sidecars ``cfg.json`` (the whole field's config) and
+    ``loop_state.json``.  It is written beside ``path`` and renamed into
+    place once every rank is done, so a crash mid-save leaves the previous
+    directory (or none), never a partial one.
+
+    With ``mesh`` (``field`` a shard from ``parallel.mesh.shard_params``;
+    every rank calls) each rank writes its slice of every app table (a
+    ``DTensor`` sharded along channels over ``model``); the density
+    tables, the head and ``aabb`` are replicated and written once, the
+    basis and ``vm``'s stacks gathered over ``model`` and written whole,
+    and ranks along ``data`` write nothing twice.  Without it one process
+    writes the whole field."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+
+    distributed = mesh is not None
+    split = distributed and mesh.model > 1
+    rank0 = not distributed or dist.get_rank() == 0
+    cfg = _whole_cfg(field, mesh)
+    values = _params(field)
+    if split:
+        # the basis (and vm's tables) whole on every model rank
+        specs = _whole_specs(cfg, grid_resolution(field), mesh)
+        names = [*(f"planes.{i}" for i in range(len(field.planes))),
+                 *(f"lines.{i}" for i in range(len(field.lines))), "basis"]
+        with torch.no_grad():
+            values = [specs[n].gather(v.detach().cpu(), mesh)
+                      if n == "basis" or cfg.model_name == "vm" else v
+                      for n, v in zip(names, values)] + values[len(names):]
+    state = {f"params/{k}": _app_shard(mesh, torch.from_numpy(v))
+             if split and _app_key(k) else torch.from_numpy(v)
+             for k, v in _to_flat(field, values).items()}
+    state["aabb"] = torch.as_tensor(aabb).detach().cpu().clone()
+    if extras:
+        state.update({f"extras/{k}": torch.from_numpy(np.array(v))
+                      for k, v in _flatten_tree(extras).items()})
+
+    path = os.path.abspath(path)
+    tmp = [temp_dir(path) if rank0 else None]
+    if distributed:
+        dist.broadcast_object_list(tmp, src=0)
+    with _one_process_quiet():
+        dcp.save(state, storage_writer=dcp.FileSystemWriter(tmp[0]), no_dist=not distributed)
+    if rank0:
+        _fsync_json(os.path.join(tmp[0], "cfg.json"), cfg.to_dict())
+        if loop_state is not None:
+            _fsync_json(os.path.join(tmp[0], "loop_state.json"), loop_state)
+        replace_dir(tmp[0], path)
+    if distributed:
+        dist.barrier()
+
+
+ORBAX_FORMAT = ("manifest.ocdbt", "_CHECKPOINT_METADATA")
+
+
+def load_orbax(path: str, *, mesh=None, device=None):
+    """Read a :func:`save_orbax` directory → (cfg, field, aabb,
+    loop_state | None), tensors on ``device`` (cuda unless asked).  With
+    ``mesh`` (every rank calls) each rank reads its own shard: the field
+    equals ``shard_params(whole, mesh)``.  Without it one process reads
+    the whole field.  A directory in orbax's own format (written by the
+    JAX package) raises ``ValueError``."""
+    import torch.distributed.checkpoint as dcp
+
+    dev = resolve_device(device)
+    path = os.path.abspath(path)
+    if not os.path.exists(os.path.join(path, ".metadata")):
+        if any(os.path.exists(os.path.join(path, n)) for n in ORBAX_FORMAT):
+            raise ValueError(
+                f"{path} is a checkpoint in orbax's OCDBT format (written by the JAX "
+                "package); the port cannot read it.  The run's <expname>_final.npz, or an "
+                "npz resume point (checkpoint_backend='npz'), is the file both packages read")
+        raise FileNotFoundError(f"{path}: no torch.distributed.checkpoint metadata (.metadata)")
+    with open(os.path.join(path, "cfg.json")) as f:
+        cfg = TensoRFConfig.from_dict(json.load(f))
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    sharded = mesh is not None and mesh.model > 1 and cfg.model_name != "vm"
+    state = {}
+    for key, m in meta.items():
+        if not (key == "aabb" or key.startswith("params/")):
+            continue
+        t = torch.empty(tuple(m.size), dtype=m.properties.dtype)
+        if sharded and _app_key(key[len("params/"):]):
+            local = torch.empty((*t.shape[:-1], t.shape[-1] // mesh.model), dtype=t.dtype)
+            t = _app_shard(mesh, local)
+        state[key] = t
+    with _one_process_quiet():
+        dcp.load(state, storage_reader=dcp.FileSystemReader(path), no_dist=mesh is None)
+    aabb = state.pop("aabb").to(dev)
+    flat = {k[len("params/"):]: (v.to_local() if hasattr(v, "to_local") else v).numpy()
+            for k, v in state.items()}
+    if mesh is None:
+        field = params_from_jax(flat, cfg, device=dev)
+    elif not sharded:
+        from ..parallel.mesh import shard_params
+
+        field = shard_params(params_from_jax(flat, cfg, device=dev), mesh)
+    else:
+        # the app tables are this rank's slices already; the basis is whole
+        from ..parallel.mesh import ModelSum
+
+        reso = tuple(int(flat[f"density_lines/{i}"].shape[0]) for i in (2, 1, 0))
+        basis = _whole_specs(cfg, reso, mesh)["basis"]
+        flat["basis"] = basis.take(torch.from_numpy(flat["basis"]), mesh).numpy()
+        na = component_counts(cfg)[1]
+        field = params_from_jax(flat, dataclasses.replace(
+            cfg, app_n_comp=tuple(a // mesh.model for a in na)), device=dev)
+        field.app_reduce = ModelSum(mesh)
+    loop_state = None
+    if os.path.exists(os.path.join(path, "loop_state.json")):
+        with open(os.path.join(path, "loop_state.json")) as f:
+            loop_state = json.load(f)
+    return cfg, field, aabb, loop_state

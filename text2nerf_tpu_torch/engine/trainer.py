@@ -32,6 +32,11 @@ Crash-safe resume (``resume``): every stage-2 boundary, and every
 ``resume_every_epochs`` epochs, writes ``<expname>_resume.npz`` (the
 field and the loop state) and ``scene_snapshot.npz`` atomically, in the
 JAX package's format, so a run killed in one package resumes in either.
+With ``checkpoint_backend="orbax"`` the field goes to the directory
+``<expname>_resume/`` instead, and the end writes ``<expname>_final/``
+beside ``<expname>_final.npz`` (:func:`.checkpoints.save_orbax`: the JAX
+trainer's paths and sidecars in ``torch.distributed.checkpoint``'s
+format, which only the port reads); any other value means npz.
 A resumed run skips the bootstrap, rebuilds the pools of the views done
 from the snapshot and, mid-stage, the in-flight stage's pools, samplers,
 schedule and mask; Adam's moments restart, and the step generator
@@ -46,8 +51,7 @@ of ``vm_split`` and ``cp`` only (``vm`` has no shrink, as in JAX), and
 switches the L1 weight for all three.  ``ndc_ray`` keeps every ray of the
 pools (no box filter), builds no mask (the steps and renders stay dense)
 and renders with the NDC sampler; ``train_compute_dtype="bf16"`` runs
-the bf16 train step.  Left out, raising ``NotImplementedError`` before
-any work: ``checkpoint_backend="orbax"`` (orbax is built on JAX).
+the bf16 train step.
 
 The JAX trainer overlaps the first train step's XLA compile with the
 bootstrap in a warm-up thread that swallows its failures.  PyTorch
@@ -293,12 +297,6 @@ def init_field(cfg: TrainConfig, scene: ss.SceneState, generator=None, device=No
     return cfg.model, field, as_tensor(scene.scene_bbox, dev), None
 
 
-def _check_ported(cfg: TrainConfig) -> None:
-    if cfg.checkpoint_backend != "npz":
-        raise NotImplementedError(
-            f"checkpoint_backend={cfg.checkpoint_backend!r}: only 'npz' is ported")
-
-
 def log_folder(cfg: TrainConfig, scene_cfg: ss.SceneConfig) -> str:
     """The run's log folder (where a resumed run finds its resume point),
     before ``add_timestamp``'s suffix."""
@@ -321,7 +319,6 @@ def reconstruction(cfg: TrainConfig, scene_cfg: ss.SceneConfig,
         prompt=scene_cfg.prompt, push_depth=scene_cfg.push_depth,
         trans_range=scene_cfg.trans_range,
     )
-    _check_ported(cfg)
     services = services or default_services(hw=scene_cfg.hw, device=dev)
     logfolder = log_folder(cfg, scene_cfg)
     if cfg.add_timestamp:
@@ -342,20 +339,31 @@ def reconstruction(cfg: TrainConfig, scene_cfg: ss.SceneConfig,
     return out
 
 
+def _orbax(cfg: TrainConfig) -> bool:
+    return cfg.checkpoint_backend == "orbax"
+
+
+def _resume_path(cfg: TrainConfig, logfolder: str) -> str:
+    return os.path.join(logfolder, f"{cfg.expname}_resume" + ("" if _orbax(cfg) else ".npz"))
+
+
 def _save_resume(cfg, logfolder, scene, field, aabb, loop_state):
     """The resume point: the scene snapshot, then the field with its loop
     state (both atomic; the JAX trainer's file names and keys)."""
     ss.save_scene_snapshot(os.path.join(logfolder, "scene_snapshot.npz"), scene)
-    ckpt.save_checkpoint(os.path.join(logfolder, f"{cfg.expname}_resume.npz"), field, aabb,
-                         loop_state=loop_state)
+    save = ckpt.save_orbax if _orbax(cfg) else ckpt.save_checkpoint
+    save(_resume_path(cfg, logfolder), field, aabb, loop_state=loop_state)
 
 
 def _fit(cfg, scene_cfg, services, expansion_cfg, dev, logfolder, log):
-    resume_ckpt = os.path.join(logfolder, f"{cfg.expname}_resume.npz")
+    resume_ckpt = _resume_path(cfg, logfolder)
     resume_snap = os.path.join(logfolder, "scene_snapshot.npz")
     resume_state = None
     if cfg.resume and os.path.exists(resume_ckpt) and os.path.exists(resume_snap):
-        mcfg, field, aabb, _, resume_state = ckpt.load_checkpoint(resume_ckpt, device=dev)
+        if _orbax(cfg):
+            mcfg, field, aabb, resume_state = ckpt.load_orbax(resume_ckpt, device=dev)
+        else:
+            mcfg, field, aabb, _, resume_state = ckpt.load_checkpoint(resume_ckpt, device=dev)
         scene = ss.load_scene_snapshot(
             resume_snap, n_views_pools=resume_state["next_view"],
             trans_range=scene_cfg.trans_range, use_support_set=scene_cfg.use_support_set,
@@ -716,11 +724,14 @@ def _fit(cfg, scene_cfg, services, expansion_cfg, dev, logfolder, log):
         compact_k=cfg.eval_compact_k if eval_mask is not None else 0,
         eval_z_min=eval_z_floor(), device=dev,
     )
+    final_loop = {"view_idx": view_idx, "global_step": global_step}
     ckpt.save_checkpoint(
         os.path.join(logfolder, f"{cfg.expname}_final.npz"), state.field, aabb,
-        alpha_mask=render_mask(),
-        loop_state={"view_idx": view_idx, "global_step": global_step},
+        alpha_mask=render_mask(), loop_state=final_loop,
     )
+    if _orbax(cfg):
+        ckpt.save_orbax(os.path.join(logfolder, f"{cfg.expname}_final"), state.field, aabb,
+                        loop_state=final_loop)
     if cfg.render_train:
         eval_renderer.evaluation(
             state.field, aabb, scene.rays_gen_split[: scene.rgbs_gen_split.shape[0]],

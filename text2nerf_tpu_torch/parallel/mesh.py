@@ -164,6 +164,26 @@ class ShardSpec:
             off += size
         return torch.cat(parts, self.dim)
 
+    def gather(self, part, mesh: Mesh):
+        """The whole tensor from every model rank's ``part`` (the inverse
+        of :meth:`take`; outside autograd): each rank writes its slices
+        into zeros, the whole blocks from model rank 0 only, and the sum
+        over ``model`` is exact.  Every model rank gets the tensor."""
+        if self.dim is None or mesh.model_group is None:
+            return part
+        shape = list(part.shape)
+        shape[self.dim] = sum(size for size, _ in self.blocks)
+        out = part.new_zeros(shape)
+        off = src = 0
+        for size, split in self.blocks:
+            w = size // mesh.model if split else size
+            if split or mesh.model_index == 0:
+                dst = off + mesh.model_index * w if split else off
+                out.narrow(self.dim, dst, w).copy_(part.narrow(self.dim, src, w))
+            off, src = off + size, src + w
+        dist.all_reduce(out, group=mesh.model_group)
+        return out
+
 
 def replicated(mesh: Mesh) -> ShardSpec:
     return ShardSpec()

@@ -51,16 +51,24 @@ def scene_config_from_args_txt(path: str):
 
 
 def _resume_next_view(logfolder: str):
-    """``next_view`` of the newest readable ``*_resume.npz`` in the log
-    folder, or None.  The trainer snapshots the scene before each
-    expansion, so the DIBR tree may hold one view newer than the resume
-    point; recovering it would make the resumed run append it twice."""
-    cands = sorted((n for n in os.listdir(logfolder) if n.endswith("_resume.npz")),
+    """``next_view`` of the newest readable resume point in the log
+    folder (``*_resume.npz``, or a ``*_resume/`` directory's
+    ``loop_state.json``), or None.  The trainer snapshots the scene before
+    each expansion, so the DIBR tree may hold one view newer than the
+    resume point; recovering it would make the resumed run append it
+    twice."""
+    cands = sorted((n for n in os.listdir(logfolder) if n.endswith("_resume.npz") or (
+        n.endswith("_resume") and os.path.isdir(os.path.join(logfolder, n)))),
                    key=lambda n: os.path.getmtime(os.path.join(logfolder, n)), reverse=True)
     for name in cands:
+        full = os.path.join(logfolder, name)
         try:
-            data = np.load(os.path.join(logfolder, name))
-            return int(json.loads(bytes(data["__loop_state__"].tobytes()).decode())["next_view"])
+            if name.endswith(".npz"):
+                data = np.load(full)
+                return int(json.loads(bytes(data["__loop_state__"].tobytes()).decode())[
+                    "next_view"])
+            with open(os.path.join(full, "loop_state.json")) as f:
+                return int(json.load(f)["next_view"])
         except Exception as e:  # noqa: BLE001 — a recovery tool reads what it can
             print(f"warning: could not read loop state from {name}: {e}")
     return None
