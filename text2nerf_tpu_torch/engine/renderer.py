@@ -23,6 +23,7 @@ from ..ops import render as render_ops
 from ..utils.mjpeg_avi import write_mjpeg_avi, write_rgb_avi
 from ..utils.png import write_png
 from . import metrics as M
+from .tracing import span
 
 _lpips_warned = False
 
@@ -80,14 +81,16 @@ def render_view(
     Features default to fp32 here: view renders feed metrics and saved
     frames."""
     h, w = hw
-    out = render_ops.render_chunked(
-        field, aabb, rays, n_samples=n_samples, chunk=chunk, app_k=app_k,
-        white_bg=white_bg, ndc=ndc, alpha_mask=alpha_mask,
-        compact_k=compact_k, eval_z_min=eval_z_min,
-        feature_dtype=feature_dtype, k_ladder=k_ladder, device=device,
-    )
-    rgb = torch.clamp(out.rgb, 0.0, 1.0).cpu().numpy().reshape(h, w, 3)
-    depth = out.depth.cpu().numpy().reshape(h, w)
+    with span("t2n.view"):
+        out = render_ops.render_chunked(
+            field, aabb, rays, n_samples=n_samples, chunk=chunk, app_k=app_k,
+            white_bg=white_bg, ndc=ndc, alpha_mask=alpha_mask,
+            compact_k=compact_k, eval_z_min=eval_z_min,
+            feature_dtype=feature_dtype, k_ladder=k_ladder, device=device,
+        )
+        with span("t2n.view.out"):
+            rgb = torch.clamp(out.rgb, 0.0, 1.0).cpu().numpy().reshape(h, w, 3)
+            depth = out.depth.cpu().numpy().reshape(h, w)
     return rgb, depth
 
 

@@ -24,12 +24,12 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import as_tensor, check_on, resolve_device
 from ..models import tensorf as tf
 from ..ops import losses as L
 from ..ops import render as render_ops
+from .tracing import span
 
 
 class TrainState(NamedTuple):
@@ -176,7 +176,7 @@ def make_train_step(
                 is_train=True, white_bg=white_bg, ndc=ndc, feature_dtype=compute_dtype,
                 jitter=jitter, bg_coin=bg_coin,
             )
-        with record_function("t2n.loss"):
+        with span("t2n.loss"):
             depth_map = torch.nan_to_num(out.depth)
             loss_rgb = L.mse(out.rgb, batch["rgb"])
             metrics = {}
@@ -201,36 +201,36 @@ def make_train_step(
         metrics.update(mse=loss_rgb, depth_loss=loss_depth, transmit_loss=loss_trans)
         return total, metrics
 
-    @record_function("t2n.reg")
     def reg_loss(field, step, tv_decay):
         """Batch-independent regularizers (TV decayed per step)."""
-        decay = float(np.float32(tv_factor) ** np.float32(step)) if tv_decay is None \
-            else float(np.float32(tv_decay))
-        total = torch.zeros((), device=dev)
-        metrics = {}
-        if weights.tv_density > 0:
-            tv_d = tf.tv_loss_density(field) * weights.tv_density * decay
-            total = total + tv_d
-            metrics["reg_tv_density"] = tv_d
-        if weights.tv_app > 0:
-            tv_app = tf.tv_loss_app(field)
-            if sharded:
-                from ..parallel.mesh import model_mean
+        with span("t2n.reg"):
+            decay = float(np.float32(tv_factor) ** np.float32(step)) if tv_decay is None \
+                else float(np.float32(tv_decay))
+            total = torch.zeros((), device=dev)
+            metrics = {}
+            if weights.tv_density > 0:
+                tv_d = tf.tv_loss_density(field) * weights.tv_density * decay
+                total = total + tv_d
+                metrics["reg_tv_density"] = tv_d
+            if weights.tv_app > 0:
+                tv_app = tf.tv_loss_app(field)
+                if sharded:
+                    from ..parallel.mesh import model_mean
 
-                tv_app = model_mean(tv_app, mesh)
-            tv_a = tv_app * weights.tv_app * decay
-            total = total + tv_a
-            metrics["reg_tv_app"] = tv_a
-        if weights.l1 > 0:
-            total = total + weights.l1 * tf.density_l1(field)
-        if weights.ortho > 0:
-            app_lines = None
-            if sharded:
-                from ..parallel.mesh import model_gather
+                    tv_app = model_mean(tv_app, mesh)
+                tv_a = tv_app * weights.tv_app * decay
+                total = total + tv_a
+                metrics["reg_tv_app"] = tv_a
+            if weights.l1 > 0:
+                total = total + weights.l1 * tf.density_l1(field)
+            if weights.ortho > 0:
+                app_lines = None
+                if sharded:
+                    from ..parallel.mesh import model_gather
 
-                app_lines = tuple(model_gather(line, mesh) for line in field.app_lines())
-            total = total + weights.ortho * tf.vector_comp_diffs(field, app_lines)
-        return total, metrics
+                    app_lines = tuple(model_gather(line, mesh) for line in field.app_lines())
+                total = total + weights.ortho * tf.vector_comp_diffs(field, app_lines)
+            return total, metrics
 
     def _set_rates(step, lr_decay):
         for group in optimizer.param_groups:
@@ -246,74 +246,78 @@ def make_train_step(
 
     def train_step(state: TrainState, aabb, batch, rng: Optional[torch.Generator] = None,
                    tv_decay=None, alpha_mask=None, lr_decay=1.0, jitter=None, bg_coin=None):
-        field = state.field
-        if state.optimizer is not optimizer:
-            raise ValueError("the state's optimizer is not the one this step was built with")
-        check_on(dev, field)
-        aabb = as_tensor(aabb, dev)
-        batch = {k: as_tensor(v, dev) for k, v in batch.items()}
-        mb = microbatch
-        if compact and alpha_mask is not None:
-            # strided occupancy is licensed only by the mask's pool dilation
-            if density_group > 1 and not render_ops.occupancy_stride_safe(
-                field, aabb, alpha_mask, density_group
-            ):
-                raise ValueError(
-                    "density_group=%d needs a mask pool dilation licensing stride-%d "
-                    "occupancy tests (update_alpha_mask(pool>=%d))"
-                    % (density_group, density_group, 2 * density_group + 1)
-                )
-            if microbatch_compact:
-                mb = microbatch_compact
-        else:
-            alpha_mask = None
-        b = batch["rays"].shape[0]
-        r = effective_microbatch(b, mb)
-        width = n_samples if ndc else 1
-        if jitter is None and mesh is not None:
-            rows = torch.rand((b * mesh.data, width), generator=rng, device=dev)
-            jitter = rows[mesh.data_index * b:(mesh.data_index + 1) * b]
-        elif jitter is None:
-            jitter = torch.rand((b, width), generator=rng, device=dev)
-        jitter = as_tensor(jitter, dev).reshape(b, width)
-        if not white_bg and bg_coin is None and mesh is not None:
-            r, r_all, first = _rank_subbatches(b, mb, mesh)
-            bg_coin = torch.rand((r_all,), generator=rng, device=dev)[first:first + r]
-        elif not white_bg and bg_coin is None:
-            bg_coin = torch.rand((r,), generator=rng, device=dev)
-        coins = [None] * r if bg_coin is None else as_tensor(bg_coin, dev).reshape(r)
+        with span("t2n.step"):
+            field = state.field
+            if state.optimizer is not optimizer:
+                raise ValueError("the state's optimizer is not the one this step was built with")
+            check_on(dev, field)
+            aabb = as_tensor(aabb, dev)
+            batch = {k: as_tensor(v, dev) for k, v in batch.items()}
+            mb = microbatch
+            if compact and alpha_mask is not None:
+                # strided occupancy is licensed only by the mask's pool dilation
+                if density_group > 1 and not render_ops.occupancy_stride_safe(
+                    field, aabb, alpha_mask, density_group
+                ):
+                    raise ValueError(
+                        "density_group=%d needs a mask pool dilation licensing stride-%d "
+                        "occupancy tests (update_alpha_mask(pool>=%d))"
+                        % (density_group, density_group, 2 * density_group + 1)
+                    )
+                if microbatch_compact:
+                    mb = microbatch_compact
+            else:
+                alpha_mask = None
+            b = batch["rays"].shape[0]
+            r = effective_microbatch(b, mb)
+            width = n_samples if ndc else 1
+            if jitter is None and mesh is not None:
+                rows = torch.rand((b * mesh.data, width), generator=rng, device=dev)
+                jitter = rows[mesh.data_index * b:(mesh.data_index + 1) * b]
+            elif jitter is None:
+                jitter = torch.rand((b, width), generator=rng, device=dev)
+            jitter = as_tensor(jitter, dev).reshape(b, width)
+            if not white_bg and bg_coin is None and mesh is not None:
+                r, r_all, first = _rank_subbatches(b, mb, mesh)
+                bg_coin = torch.rand((r_all,), generator=rng, device=dev)[first:first + r]
+            elif not white_bg and bg_coin is None:
+                bg_coin = torch.rand((r,), generator=rng, device=dev)
+            coins = [None] * r if bg_coin is None else as_tensor(bg_coin, dev).reshape(r)
 
-        optimizer.zero_grad(set_to_none=True)
-        if r == 1:
-            total, metrics = batch_loss(field, aabb, batch, alpha_mask, jitter, coins[0])
-            reg, reg_metrics = reg_loss(field, state.step, tv_decay)
-            (total + reg).backward()
-        else:
-            sb = b // r
-            subs = []
-            for i in range(r):
-                sl = slice(i * sb, (i + 1) * sb)
-                loss_i, m_i = batch_loss(field, aabb, {k: v[sl] for k, v in batch.items()},
-                                         alpha_mask, jitter[sl], coins[i])
-                loss_i.backward()
-                subs.append({k: v.detach() for k, v in m_i.items()})
-            params = [p for g in optimizer.param_groups for p in g["params"]]
-            with torch.no_grad():
-                for p in params:
-                    if p.grad is not None:
-                        p.grad.div_(r)
-            reg, reg_metrics = reg_loss(field, state.step, tv_decay)
-            if reg.requires_grad:
-                reg.backward()
-            metrics = {k: torch.mean(torch.stack([m[k] for m in subs])) for k in subs[0]}
-        metrics.update(reg_metrics)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if mesh is not None:
-            metrics = _mesh_reduce(optimizer, metrics, mesh)
-        metrics["psnr"] = L.mse2psnr(metrics["mse"])
-        _set_rates(state.step, lr_decay)
-        optimizer.step()
-        return TrainState(field, optimizer, state.step + 1), metrics
+            optimizer.zero_grad(set_to_none=True)
+            if r == 1:
+                # one backward serves the batch and the regularizers
+                with span("t2n.subbatch"):
+                    total, metrics = batch_loss(field, aabb, batch, alpha_mask, jitter, coins[0])
+                    reg, reg_metrics = reg_loss(field, state.step, tv_decay)
+                    (total + reg).backward()
+            else:
+                sb = b // r
+                subs = []
+                for i in range(r):
+                    sl = slice(i * sb, (i + 1) * sb)
+                    with span("t2n.subbatch"):
+                        loss_i, m_i = batch_loss(field, aabb, {k: v[sl] for k, v in batch.items()},
+                                                 alpha_mask, jitter[sl], coins[i])
+                        loss_i.backward()
+                    subs.append({k: v.detach() for k, v in m_i.items()})
+                params = [p for g in optimizer.param_groups for p in g["params"]]
+                with torch.no_grad():
+                    for p in params:
+                        if p.grad is not None:
+                            p.grad.div_(r)
+                reg, reg_metrics = reg_loss(field, state.step, tv_decay)
+                if reg.requires_grad:
+                    reg.backward()
+                metrics = {k: torch.mean(torch.stack([m[k] for m in subs])) for k in subs[0]}
+            metrics.update(reg_metrics)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if mesh is not None:
+                metrics = _mesh_reduce(optimizer, metrics, mesh)
+            metrics["psnr"] = L.mse2psnr(metrics["mse"])
+            _set_rates(state.step, lr_decay)
+            optimizer.step()
+            return TrainState(field, optimizer, state.step + 1), metrics
 
     return train_step
 

@@ -84,7 +84,7 @@ from . import expansion as exp
 from . import io_async
 from . import renderer as eval_renderer
 from . import train_step as ts
-from .tracing import MetricsLogger, phase_timer
+from .tracing import MetricsLogger, phase_timer, span
 
 
 @dataclasses.dataclass
@@ -196,11 +196,12 @@ def stage3_view_weights(cfg: TrainConfig, lengths, iters1: int) -> np.ndarray:
 
 def _batch_from_pool(pool, ids, device):
     rays, rgbs, depths = pool
-    return {
-        "rays": as_tensor(rays[ids], device),
-        "rgb": as_tensor(rgbs[ids], device),
-        "depth": as_tensor(depths[ids], device),
-    }
+    with span("t2n.batch"):
+        return {
+            "rays": as_tensor(rays[ids], device),
+            "rgb": as_tensor(rgbs[ids], device),
+            "depth": as_tensor(depths[ids], device),
+        }
 
 
 class _WeightedViewSampler:

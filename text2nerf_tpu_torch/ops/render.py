@@ -35,7 +35,9 @@ depths, a per-sample jitter in training, distances scaled by the ray
 norm); the compacted renderers take world rays only.  Sample placement, occupancy,
 the live selection, compositing and the escalation bookkeeping are plain
 PyTorch in this port slice.  Randomness (jitter, the background coin) is
-drawn from a ``torch.Generator`` unless the caller passes it in.
+drawn from a ``torch.Generator`` unless the caller passes it in.  Under a
+profiler the renders open the ``t2n.*`` spans and move the counters of
+:mod:`..engine.tracing`.
 """
 
 from __future__ import annotations
@@ -44,9 +46,9 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import as_tensor, check_on, resolve_device
+from ..engine.tracing import count, span
 from ..models import mlp as mlp_mod
 from ..models import tensorf as tf
 from .kernels import shading_mlp
@@ -67,6 +69,7 @@ def _shade(cfg, field, xn, dirs, app_feat, is_train: bool = False):
     tensors (its plain version on the CPU); training and every other mode
     run the plain head (under autograd in training)."""
     if not is_train and cfg.shading_mode == "MLP_Fea_noview":
+        count("head.samples", app_feat.shape[0])
         return shading_mlp.shade_fea_noview(field.mlp, app_feat, cfg.fea_pe)
     return mlp_mod.shade(cfg.shading_mode, field.mlp, xn, dirs, app_feat,
                          view_pe=cfg.view_pe, fea_pe=cfg.fea_pe, pos_pe=cfg.pos_pe)
@@ -199,7 +202,7 @@ def render_rays(
     if is_train:
         jitter, bg_coin = _draws(b, rays.device, jitter, bg_coin, generator, white_bg,
                                  n_samples if ndc else 1)
-    with torch.no_grad(), record_function("t2n.select"):
+    with torch.no_grad(), span("t2n.select"):
         if ndc:
             viewdirs, z_vals, pts, dists = _march_ndc(
                 cfg, rays, n_samples, jitter if is_train else None)
@@ -221,24 +224,24 @@ def render_rays(
         xn = torch.clamp(tf.normalize_coord(aabb, pts), -1.0, 1.0)
 
     with torch.set_grad_enabled(is_train and torch.is_grad_enabled()):
-        with record_function("t2n.features"):
+        with span("t2n.features"):
             feat = field.density_feature(xn.reshape(-1, 3), fdt).reshape(b, n_samples)
-        with record_function("t2n.composite"):
+        with span("t2n.composite"):
             sigma = torch.where(valid, tf.feature2density(cfg, feat), torch.zeros_like(feat))
             _, weights, _ = raw2alpha(sigma, dists * cfg.distance_scale)
             acc = torch.sum(weights, dim=-1)
 
         # appearance on the top-K weighted samples
         k = min(app_k, n_samples)
-        with record_function("t2n.select"):
+        with span("t2n.select"):
             w_top, idx = torch.topk(weights, k, dim=-1)
             xn_k = torch.gather(xn, 1, idx[..., None].expand(-1, -1, 3))
-        with record_function("t2n.features"):
+        with span("t2n.features"):
             app_feat = field.app_feature(xn_k.reshape(-1, 3), fdt)
-        with record_function("t2n.head"):
+        with span("t2n.head"):
             rgb_k = _shade(cfg, field, xn_k.reshape(-1, 3), _dirs(viewdirs, k), app_feat,
                            is_train).reshape(b, k, 3)
-        with record_function("t2n.composite"):
+        with span("t2n.composite"):
             rgb, depth = _composite(cfg, weights, acc, w_top, rgb_k, z_vals, rays, white_bg,
                                     is_train, bg_coin)
     return RenderOutput(rgb=rgb, depth=depth, z_vals=z_vals, weights=weights, acc=acc)
@@ -448,56 +451,63 @@ def _render_rays_compact(
     cfg = field.cfg
     fdt = _feature_dtype(feature_dtype)
     b = rays.shape[0]
-    rays_o, rays_d, step, t_min, _, live = _live_samples(
-        field, aabb, rays, alpha_mask, n_samples, eval_z_min, occ_stride)
-    n_live = torch.sum(live, dim=-1)
+    with span("t2n.select"):
+        rays_o, rays_d, step, t_min, _, live = _live_samples(
+            field, aabb, rays, alpha_mask, n_samples, eval_z_min, occ_stride)
+        n_live = torch.sum(live, dim=-1)
 
-    # first-K live samples per ray, in ray order; z and points recomputed
-    # from the indices with the expression that built z_vals
-    k = min(compact_k, n_samples)
-    idx, k_live = first_k_live(live, k, impl=select_impl)
-    z_k = t_min[:, None] + step * idx.to(rays.dtype)
-    pts_k = rays_o[:, None] + rays_d[:, None] * z_k[..., None]
-    xn_k = torch.clamp(tf.normalize_coord(aabb, pts_k), -1.0, 1.0)
+        # first-K live samples per ray, in ray order; z and points
+        # recomputed from the indices with the expression that built z_vals
+        k = min(compact_k, n_samples)
+        idx, k_live = first_k_live(live, k, impl=select_impl)
+        z_k = t_min[:, None] + step * idx.to(rays.dtype)
+        pts_k = rays_o[:, None] + rays_d[:, None] * z_k[..., None]
+        xn_k = torch.clamp(tf.normalize_coord(aabb, pts_k), -1.0, 1.0)
 
     # app_k >= k shades every compacted sample: one fused pass over the
     # tables serves density and appearance
     shade_all = app_k >= k
-    if shade_all:
-        feat, app_feat = field.fused_features(xn_k.reshape(-1, 3), fdt)
-    else:
-        feat = field.density_feature(xn_k.reshape(-1, 3), fdt)
-    feat = feat.reshape(b, k)
-    sigma = torch.where(k_live, tf.feature2density(cfg, feat), torch.zeros_like(feat))
-    # uniform eval sampling: every inter-sample dist is `step`, except the
-    # dense march's final sample, which carries dist 0
-    dists = torch.where(idx == n_samples - 1, torch.zeros_like(z_k), step) * cfg.distance_scale
-    _, weights, _ = raw2alpha(sigma, dists)
-    acc = torch.sum(weights, dim=-1)
+    with span("t2n.features"):
+        if shade_all:
+            feat, app_feat = field.fused_features(xn_k.reshape(-1, 3), fdt)
+        else:
+            feat = field.density_feature(xn_k.reshape(-1, 3), fdt)
+    with span("t2n.composite"):
+        feat = feat.reshape(b, k)
+        sigma = torch.where(k_live, tf.feature2density(cfg, feat), torch.zeros_like(feat))
+        # uniform eval sampling: every inter-sample dist is `step`, except
+        # the dense march's final sample, which carries dist 0
+        dists = torch.where(idx == n_samples - 1, torch.zeros_like(z_k), step)
+        _, weights, _ = raw2alpha(sigma, dists * cfg.distance_scale)
+        acc = torch.sum(weights, dim=-1)
 
     if shade_all:
         k2 = k
         w_top, xn_a = weights, xn_k
     else:
         k2 = min(app_k, k)
-        w_top, aidx = torch.topk(weights, k2, dim=-1)
-        xn_a = torch.gather(xn_k, 1, aidx[..., None].expand(-1, -1, 3))
-        app_feat = field.app_feature(xn_a.reshape(-1, 3), fdt)
-    rgb_a = _shade(cfg, field, xn_a.reshape(-1, 3), _dirs(rays_d, k2), app_feat).reshape(
-        b, k2, 3)
-    rgb, depth = _composite(cfg, weights, acc, w_top, rgb_a, z_k, rays, white_bg)
-    out = RenderOutput(rgb=rgb, depth=depth, z_vals=z_k, weights=weights, acc=acc)
-    if overflow_tol is not None:
+        with span("t2n.select"):
+            w_top, aidx = torch.topk(weights, k2, dim=-1)
+            xn_a = torch.gather(xn_k, 1, aidx[..., None].expand(-1, -1, 3))
+        with span("t2n.features"):
+            app_feat = field.app_feature(xn_a.reshape(-1, 3), fdt)
+    with span("t2n.head"):
+        rgb_a = _shade(cfg, field, xn_a.reshape(-1, 3), _dirs(rays_d, k2), app_feat).reshape(
+            b, k2, 3)
+    with span("t2n.composite"):
+        rgb, depth = _composite(cfg, weights, acc, w_top, rgb_a, z_k, rays, white_bg)
+        out = RenderOutput(rgb=rgb, depth=depth, z_vals=z_k, weights=weights, acc=acc)
+        if overflow_tol is None:
+            return out
         flagged = (n_live > k) & (acc < 1.0 - overflow_tol)
-        if need_ladder is not None:
-            # smallest ladder rung whose K covers the ray's live count,
-            # clipped to the top rung
-            ladder = torch.as_tensor(need_ladder, dtype=n_live.dtype, device=n_live.device)
-            rung = torch.clamp(torch.searchsorted(ladder, n_live), 0, len(need_ladder) - 1)
-            need = torch.where(flagged, rung, torch.zeros_like(rung)).to(torch.int8)
-            return out, need
-        return out, torch.sum(flagged)
-    return out
+        if need_ladder is None:
+            return out, torch.sum(flagged)
+        # smallest ladder rung whose K covers the ray's live count, clipped
+        # to the top rung
+        ladder = torch.as_tensor(need_ladder, dtype=n_live.dtype, device=n_live.device)
+        rung = torch.clamp(torch.searchsorted(ladder, n_live), 0, len(need_ladder) - 1)
+        need = torch.where(flagged, rung, torch.zeros_like(rung)).to(torch.int8)
+        return out, need
 
 
 def render_rays_train_compact(
@@ -557,7 +567,7 @@ def _render_rays_train_compact(
     g = density_group
     b = rays.shape[0]
     jitter, bg_coin = _draws(b, rays.device, jitter, bg_coin, generator, white_bg)
-    with torch.no_grad(), record_function("t2n.select"):
+    with torch.no_grad(), span("t2n.select"):
         # the jittered march, padded to a multiple of g so groups are
         # ray-consecutive samples; padding samples are never live
         s_pad = n_samples + ((-n_samples) % g)
@@ -606,12 +616,12 @@ def _render_rays_train_compact(
     # app_k covering the compacted set (the trainer's default) shades every
     # sample: one fused pass over the tables serves density and appearance
     shade_all = app_k >= kg * g
-    with record_function("t2n.features"):
+    with span("t2n.features"):
         if shade_all:
             feat, app_feat = field.fused_features(xn_k.reshape(-1, 3), fdt)
         else:
             feat = field.density_feature(xn_k.reshape(-1, 3), fdt)
-    with record_function("t2n.composite"):
+    with span("t2n.composite"):
         feat = feat.reshape(b, kg * g)
         sigma = torch.where(valid_k, tf.feature2density(cfg, feat), torch.zeros_like(feat))
         _, weights, _ = raw2alpha(sigma, dists)
@@ -622,15 +632,15 @@ def _render_rays_train_compact(
         w_top, xn_a = weights, xn_k
     else:
         k2 = min(app_k, kg * g)
-        with record_function("t2n.select"):
+        with span("t2n.select"):
             w_top, aidx = torch.topk(weights, k2, dim=-1)
             xn_a = torch.gather(xn_k, 1, aidx[..., None].expand(-1, -1, 3))
-        with record_function("t2n.features"):
+        with span("t2n.features"):
             app_feat = field.app_feature(xn_a.reshape(-1, 3), fdt)
-    with record_function("t2n.head"):
+    with span("t2n.head"):
         rgb_a = _shade(cfg, field, xn_a.reshape(-1, 3), _dirs(rays_d, k2), app_feat,
                        is_train=True).reshape(b, k2, 3)
-    with record_function("t2n.composite"):
+    with span("t2n.composite"):
         rgb, depth = _composite(cfg, weights, acc, w_top, rgb_a, z_k, rays, white_bg, True,
                                 bg_coin)
     return RenderOutput(rgb=rgb, depth=depth, z_vals=z_k, weights=weights, acc=acc), midx
@@ -728,26 +738,28 @@ def render_chunked_adaptive(
     # --- phase 1: one base-rung render per chunk, flags ride along ------
     outs, needs, pads = [], [], []
     for s in range(0, n, chunk):
-        part = rays[s : s + chunk]
-        pad = chunk - part.shape[0]
-        if pad:
-            # pad by repeating the last ray: its copies flag like it and
-            # are trimmed below
-            part = torch.cat([part, part[-1:].expand(pad, -1)], 0)
-        if base == top:
-            out, need = render_rays_compact(
-                field, aabb, part, alpha_mask, n_samples=n_samples,
-                compact_k=k_base, app_k=min(app_k, k_base),
-                white_bg=white_bg, eval_z_min=eval_z_min,
-                feature_dtype=feature_dtype,
-            ), None
-        else:
-            out, need = render_rays_compact_need(
-                field, aabb, part, alpha_mask, n_samples=n_samples,
-                compact_k=k_base, app_k=min(app_k, k_base),
-                k_ladder=ladder, white_bg=white_bg, eval_z_min=eval_z_min,
-                acc_tol=acc_tol, feature_dtype=feature_dtype,
-            )
+        with span("t2n.view.base"):
+            part = rays[s : s + chunk]
+            count("view.rays", part.shape[0])
+            pad = chunk - part.shape[0]
+            if pad:
+                # pad by repeating the last ray: its copies flag like it
+                # and are trimmed below
+                part = torch.cat([part, part[-1:].expand(pad, -1)], 0)
+            if base == top:
+                out, need = render_rays_compact(
+                    field, aabb, part, alpha_mask, n_samples=n_samples,
+                    compact_k=k_base, app_k=min(app_k, k_base),
+                    white_bg=white_bg, eval_z_min=eval_z_min,
+                    feature_dtype=feature_dtype,
+                ), None
+            else:
+                out, need = render_rays_compact_need(
+                    field, aabb, part, alpha_mask, n_samples=n_samples,
+                    compact_k=k_base, app_k=min(app_k, k_base),
+                    k_ladder=ladder, white_bg=white_bg, eval_z_min=eval_z_min,
+                    acc_tol=acc_tol, feature_dtype=feature_dtype,
+                )
         outs.append(out)
         needs.append(need)
         pads.append(pad)
@@ -755,31 +767,32 @@ def render_chunked_adaptive(
     ks = [k_base] * len(outs)
     idx_by_rung: dict = {}
     need_np = None
-    if outs and base != top:
-        # the view's one host sync: 1 byte/ray of escalation targets
-        need_mat = torch.stack(needs).cpu().numpy()
-        need_np = np.concatenate(
-            [need_mat[i, : chunk - pads[i]] for i in range(len(needs))]
-        )
-        esc = np.nonzero(need_np)[0]
-        for r in np.unique(need_np[esc]):
-            idx_by_rung[int(r)] = esc[need_np[esc] == r]
-        for i in range(len(outs)):
-            lo, hi = i * chunk, min((i + 1) * chunk, n)
-            m = int(need_np[lo:hi].max(initial=0))
-            if m:
-                ks[i] = ladder[m]
+    with span("t2n.view.need"):
+        if outs and base != top:
+            # the view's one host sync: 1 byte/ray of escalation targets
+            need_mat = torch.stack(needs).cpu().numpy()
+            need_np = np.concatenate(
+                [need_mat[i, : chunk - pads[i]] for i in range(len(needs))]
+            )
+            esc = np.nonzero(need_np)[0]
+            for r in np.unique(need_np[esc]):
+                idx_by_rung[int(r)] = esc[need_np[esc] == r]
+            for i in range(len(outs)):
+                lo, hi = i * chunk, min((i + 1) * chunk, n)
+                m = int(need_np[lo:hi].max(initial=0))
+                if m:
+                    ks[i] = ladder[m]
 
-    used_rungs = sorted(idx_by_rung)
-    k_max = max([k_base] + [ladder[r] for r in used_rungs])
+        used_rungs = sorted(idx_by_rung)
+        k_max = max([k_base] + [ladder[r] for r in used_rungs])
 
-    trimmed = []
-    for out, pad in zip(outs, pads):
-        out = _widen(out, k_max)
-        if pad:
-            out = _map(lambda x: x[: chunk - pad], out)
-        trimmed.append(out)
-    merged = _concat(trimmed)
+        trimmed = []
+        for out, pad in zip(outs, pads):
+            out = _widen(out, k_max)
+            if pad:
+                out = _map(lambda x: x[: chunk - pad], out)
+            trimmed.append(out)
+        merged = _concat(trimmed)
 
     # --- phase 2: all flagged rays in one top-needed-rung pass ----------
     if used_rungs:
@@ -789,24 +802,26 @@ def render_chunked_adaptive(
         gchunk = min(chunk, 16384)
         k_r = ladder[max(used_rungs)]
         idx_all = np.sort(np.concatenate([idx_by_rung[r] for r in used_rungs]))
+        count("view.rays_escalated", len(idx_all))
         for s0 in range(0, len(idx_all), gchunk):
-            sl = idx_all[s0 : s0 + gchunk]
-            part_idx = sl
-            if gchunk - len(sl):
-                part_idx = np.concatenate([sl, np.repeat(sl[-1:], gchunk - len(sl))])
-            # gather on the device: only the indices cross the host link
-            gidx = torch.as_tensor(part_idx, dtype=torch.int64, device=dev)
-            out_r = _widen(
-                render_rays_compact(
-                    field, aabb, rays.index_select(0, gidx), alpha_mask,
-                    n_samples=n_samples, compact_k=k_r,
-                    app_k=min(app_k, k_r), white_bg=white_bg,
-                    eval_z_min=eval_z_min, feature_dtype=feature_dtype,
-                ),
-                k_max,
-            )
-            for dst, src in zip(merged, out_r):
-                dst[gidx] = src
+            with span("t2n.view.escalate"):
+                sl = idx_all[s0 : s0 + gchunk]
+                part_idx = sl
+                if gchunk - len(sl):
+                    part_idx = np.concatenate([sl, np.repeat(sl[-1:], gchunk - len(sl))])
+                # gather on the device: only the indices cross the host link
+                gidx = torch.as_tensor(part_idx, dtype=torch.int64, device=dev)
+                out_r = _widen(
+                    render_rays_compact(
+                        field, aabb, rays.index_select(0, gidx), alpha_mask,
+                        n_samples=n_samples, compact_k=k_r,
+                        app_k=min(app_k, k_r), white_bg=white_bg,
+                        eval_z_min=eval_z_min, feature_dtype=feature_dtype,
+                    ),
+                    k_max,
+                )
+                for dst, src in zip(merged, out_r):
+                    dst[gidx] = src
 
     if probe and outs and need_np is not None:
         # memoize the median effective rung as the next base
@@ -852,26 +867,28 @@ def render_chunked(
     n = rays.shape[0]
     outs = []
     for s in range(0, n, chunk):
-        part = rays[s : s + chunk]
-        pad = chunk - part.shape[0]
-        if pad:
-            part = torch.cat([part, part.new_zeros((pad, 6))], 0)
-        if compact_k and alpha_mask is not None and not ndc:
-            out = render_rays_compact(
-                field, aabb, part, alpha_mask,
-                n_samples=n_samples, compact_k=compact_k,
-                app_k=min(app_k, compact_k), white_bg=white_bg,
-                eval_z_min=eval_z_min, feature_dtype=feature_dtype,
-            )
-        else:
-            # the dense path keeps fp32 features, as the JAX package's does
-            out = render_rays(
-                field, aabb, part, n_samples=n_samples, app_k=app_k,
-                white_bg=white_bg, ndc=ndc, alpha_mask=alpha_mask,
-                eval_z_min=eval_z_min,
-            )
-        if pad:
-            out = _map(lambda x: x[: chunk - pad], out)
+        with span("t2n.view.base"):
+            part = rays[s : s + chunk]
+            count("view.rays", part.shape[0])
+            pad = chunk - part.shape[0]
+            if pad:
+                part = torch.cat([part, part.new_zeros((pad, 6))], 0)
+            if compact_k and alpha_mask is not None and not ndc:
+                out = render_rays_compact(
+                    field, aabb, part, alpha_mask,
+                    n_samples=n_samples, compact_k=compact_k,
+                    app_k=min(app_k, compact_k), white_bg=white_bg,
+                    eval_z_min=eval_z_min, feature_dtype=feature_dtype,
+                )
+            else:
+                # the dense path keeps fp32 features, as the JAX package's does
+                out = render_rays(
+                    field, aabb, part, n_samples=n_samples, app_k=app_k,
+                    white_bg=white_bg, ndc=ndc, alpha_mask=alpha_mask,
+                    eval_z_min=eval_z_min,
+                )
+            if pad:
+                out = _map(lambda x: x[: chunk - pad], out)
         outs.append(out)
     return _concat(outs)
 
