@@ -15,7 +15,11 @@ Phases (any failure exits nonzero before the last line):
    app_raw), three output modes, held bit for bit, and timed in bf16 in
    each mode beside its plain version, F.grid_sample on bf16 tables and
    the bound for the bf16 bytes;
-   kernel B: 1M rows; kernel A': adversarial inputs (a run inside one
+   kernel B: 1M rows; the eval prepass: one 512^2 view of the serving
+   shell through a 200^3 pool-3 mask, 16 chunks of 16384 rays at 259
+   samples, K 32, held element for element to the plain select and timed
+   with its launches queued and as the host issues them; kernel A':
+   adversarial inputs (a run inside one
    cell, every upper edge, runs that cross rays, a ragged n, zero
    gradients, accumulation, both of its routes), then 1M samples at
    the train step's shape, 16384 rays x 64 consecutive steps, in three
@@ -643,10 +647,111 @@ def phase_kernels(dev, report):
         max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=bound_b,
         bound_by=by_b, library_ms=lib_b,
     )
+    report["eval_prepass"] = phase_prepass(dev, field, aabb, rays, flush)
     phase_backward(field, aabb, rays, gen, flush, report)
     phase_cp_kernels(dev, report, rays, aabb, gen, flush, field)
     del field, flush_buf, x
     torch.cuda.empty_cache()
+
+
+PREPASS_CHUNK, PREPASS_K, PREPASS_LADDER = 16384, 32, (32, 64, 128)
+
+
+def _queued_ms(fn, reps, flush):
+    """Mean device ms of ``fn``'s launches, as :func:`_time_ms`, but issued
+    while the device sleeps: the window holds the launches' own time and
+    not the host's time to issue them.  ``fn`` must not synchronize."""
+    import torch
+
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush()
+        torch.cuda._sleep(100_000_000)  # ~50 ms: the host queues fn meanwhile
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def _prepass_bytes(field, aabb, rays, mask, n_samples):
+    """Bytes the eval prepass of one 512^2 view must move: the rays in,
+    each slot's outputs out (idx 4, sel 1, z 4, xn 12 B), n_live and the
+    rung (9 B) a ray, and each mask value a sample in the box reads, once
+    (the kernel reads the mask only there)."""
+    import torch
+    from text2nerf_tpu_torch.models import tensorf as tf
+    from text2nerf_tpu_torch.ops import render as Rd
+
+    volume = mask["volume"]
+    touched = []
+    for s in range(0, rays.shape[0], PREPASS_CHUNK):
+        part = rays[s:s + PREPASS_CHUNK]
+        rays_o, rays_d, _, _, z = Rd._march(field.cfg, field, aabb, part, n_samples)
+        pts = rays_o[:, None] + rays_d[:, None] * z[..., None]
+        valid = Rd._in_aabb(pts, aabb) & (pts[..., 2] > 2.0)
+        xn = torch.clamp(tf.normalize_coord(mask["aabb"], pts[valid]), -1.0, 1.0)
+        d, h, w = volume.shape
+        ix, iy, iz = (torch.round((xn[:, c] + 1) * 0.5 * (n - 1)).to(torch.int64)
+                      for c, n in enumerate((w, h, d)))
+        touched.append(torch.unique((iz * h + iy) * w + ix))
+    voxels = int(torch.unique(torch.cat(touched)).numel())
+    n = rays.shape[0]
+    return n * rays.shape[1] * 4 + n * PREPASS_K * 21 + n * 9 + voxels * volume.element_size()
+
+
+def phase_prepass(dev, field, aabb, rays, flush):
+    """The eval prepass kernel against the plain select on one 512^2 view
+    of the serving field through a 200^3 pool-3 mask (the render cell's
+    shape: 16 chunks of 16384 rays, 259 samples, K 32, ladder 32/64/128),
+    element for element, then a view's 16 launches timed, L2 flushed
+    before each view, beside the plain select and the bound."""
+    import torch
+    from text2nerf_tpu_torch.models import tensorf as tf
+    from text2nerf_tpu_torch.ops import render as Rd
+    from text2nerf_tpu_torch.ops.kernels import eval_prepass as ep
+
+    mask, _ = tf.update_alpha_mask(field, aabb, (200, 200, 200), pool=3, device=dev)
+    n_samples = tf.default_n_samples(tf.grid_resolution(field), field.cfg.step_ratio)
+    kw = dict(n_samples=n_samples, k=PREPASS_K, eval_z_min=2.0, occ_stride=1,
+              select_impl="sort", need_ladder=PREPASS_LADDER)
+    chunks = [rays[s:s + PREPASS_CHUNK] for s in range(0, rays.shape[0], PREPASS_CHUNK)]
+    live = 0
+    for part in chunks:
+        got = Rd._select_kernel(field, aabb, part, mask, **kw)
+        want = Rd._select_plain(field, aabb, part, mask, **kw)
+        for name, g, w in zip(("step", "idx", "sel", "z_k", "xn_k", "n_live", "rung"), got, want):
+            _require(torch.equal(g.to(w.dtype), w),
+                     f"eval prepass: {name} differs from the plain select")
+        live += int(want[5].sum())
+    print(f"eval prepass: {len(chunks)} chunks equal to the plain select element for element "
+          f"({live} live samples, n_samples {n_samples})", flush=True)
+
+    def view(select):
+        for part in chunks:
+            select(field, aabb, part, mask, **kw)
+
+    before = ep.LAUNCHES
+    ms = _queued_ms(lambda: view(Rd._select_kernel), 10, flush)
+    paced = _time_ms(lambda: view(Rd._select_kernel), 10, flush)
+    launches = ep.LAUNCHES - before
+    plain = _time_ms(lambda: view(Rd._select_plain), 3, flush)
+    # about 60 operations a sample: the point, the box test, the mask index
+    moved = _prepass_bytes(field, aabb, rays, mask, n_samples)
+    ops = 60 * rays.shape[0] * n_samples
+    bound, by = _bound(moved, ops)
+    print(f"eval prepass: {ms:.3f} ms a view ({len(chunks)} launches queued; {paced:.3f} ms "
+          f"as the host issues them), plain select {plain:.3f} ms, bound {bound:.4f} ms by "
+          f"{by} (bytes {moved / 1e6:.1f} MB: {moved / HBM_BPS * 1e3:.4f} ms; operations "
+          f"{ops / FP32_FLOPS * 1e3:.4f} ms); {launches} launches timed", flush=True)
+    return dict(name="eval_prepass", route="cuda",
+                source="text2nerf_tpu_torch/csrc/eval_prepass.cu",
+                replaces="text2nerf_tpu/ops/render.py:589", max_abs_err=0.0, ms=ms,
+                host_paced_ms=paced, plain_ms=plain, bound_ms=bound, bound_by=by)
 
 
 def _bwd_layouts(field, aabb, rays, gen):
@@ -1561,7 +1666,7 @@ def phase_main_path(dev, card, report, workdir):
     t0 = time.perf_counter()
     frames, _ = evaluation_path(field, aabb_t, poses[:FRAMES], hw, intr, **kw)
     dt = time.perf_counter() - t0
-    launches = _read_counts(report, "serve", ("factor_features", "shading_mlp"))
+    launches = _read_counts(report, "serve", ("factor_features", "shading_mlp", "eval_prepass"))
     print(f"main path launches {launches}", flush=True)
     frames = np.stack(frames)
     _require(frames.shape == (FRAMES, *hw, 3), f"frames {frames.shape}")
@@ -4222,7 +4327,7 @@ def main(argv):
     kernels = [report[k] for k in ("factor_features", "factor_features_bf16", "shading_mlp",
                                    "factor_features_bwd", "factor_features_bwd_bf16",
                                    "cp_features", "cp_features_bf16", "cp_features_bwd",
-                                   "cp_features_bwd_bf16")]
+                                   "cp_features_bwd_bf16", "eval_prepass")]
     for k in kernels:
         k.setdefault("launches", 0)
     print(json.dumps({"kernels": kernels}), flush=True)

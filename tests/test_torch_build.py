@@ -63,6 +63,7 @@ def test_the_port_sources_and_their_headers():
         "factor_features_bwd": ["factor_features_bwd.cu", "factor_common.cuh"],
         "shading_mlp": ["shading_mlp.cu", "hopper.cuh"],
         "cp_features": ["cp_features.cu", "factor_common.cuh"],
+        "eval_prepass": ["eval_prepass.cu"],
     }
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast" in f for f in _build.NVCC_FLAGS)  # no fast math
@@ -159,6 +160,7 @@ def _launch_sites():
     import torch
 
     from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
+    from text2nerf_tpu_torch.ops.kernels import eval_prepass as ep
     from text2nerf_tpu_torch.ops.kernels import factor_features as ff
     from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
 
@@ -171,6 +173,9 @@ def _launch_sites():
            "w2": torch.rand((128, 128), generator=g), "b2": torch.rand(128, generator=g),
            "w3": torch.rand((128, 3), generator=g), "b3": torch.rand(3, generator=g)}
     feats = torch.rand((5, 2), generator=g)
+    box = torch.tensor([[-1.0, -1, -1], [1, 1, 1]])
+    prepass_args = (torch.rand((5, 6), generator=g), box, box, torch.tensor(0.1),
+                    torch.ones((4, 4, 4)), 8, 4, 0.5, 8.0, 2.0, 1, (2, 4))
     return {
         "factor_features": (lambda: ff._launch(xn, planes, lines, nd, True, True, False),
                             lambda: (ff.LAUNCHES, ff.DTYPES["fp32"])),
@@ -199,13 +204,14 @@ def _launch_sites():
             lambda: cpk._launch_backward(xn, lines, 1, xn[:, 0].contiguous(),
                                          torch.ones((5, 2), dtype=torch.bfloat16), True, None),
             lambda: (cpk.BWD_LAUNCHES, cpk.BWD_DTYPES["bf16"], cpk.BWD_ROUTES["shared"])),
+        "eval_prepass": (lambda: ep._launch(*prepass_args), lambda: ep.LAUNCHES),
     }
 
 
 @pytest.mark.parametrize("site", ["factor_features", "factor_features_bf16",
                                   "factor_features_bwd", "factor_features_bwd_bf16",
                                   "shading_mlp", "cp_features", "cp_features_bwd",
-                                  "cp_features_bf16", "cp_features_bwd_bf16"])
+                                  "cp_features_bf16", "cp_features_bwd_bf16", "eval_prepass"])
 def test_launch_counts_are_exact_under_two_threads(site, monkeypatch):
     """Two threads pass the same wrapper's launch site N times each (the
     CUDA library replaced by a fake that returns success; farm workers are
@@ -218,6 +224,7 @@ def test_launch_counts_are_exact_under_two_threads(site, monkeypatch):
     import torch
 
     from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
+    from text2nerf_tpu_torch.ops.kernels import eval_prepass as ep
     from text2nerf_tpu_torch.ops.kernels import factor_features as ff
     from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
 
@@ -229,14 +236,16 @@ def test_launch_counts_are_exact_under_two_threads(site, monkeypatch):
                            t2n_cp_features=_fake_launcher,
                            t2n_cp_features_bf16=_fake_launcher,
                            t2n_cp_features_bwd=_fake_backward_launcher,
-                           t2n_cp_features_bwd_bf16=_fake_backward_launcher)
-    for mod, names in ((ff, ("_lib", "_lib_backward")), (sm, ("_lib",)), (cpk, ("_lib",))):
+                           t2n_cp_features_bwd_bf16=_fake_backward_launcher,
+                           t2n_eval_prepass=_fake_launcher)
+    for mod, names in ((ff, ("_lib", "_lib_backward")), (sm, ("_lib",)), (cpk, ("_lib",)),
+                       (ep, ("_lib",))):
         for name in names:
             monkeypatch.setattr(mod, name, lambda: fake)
     # the counts are restored when the test ends
     for mod, names in ((ff, ("LAUNCHES", "DTYPES", "BF16_COPIES", "BWD_LAUNCHES", "BWD_MODES",
                              "BWD_DTYPES", "BWD_ROUTES", "BWD_LAST_GRID")),
-                       (sm, ("LAUNCHES",)),
+                       (sm, ("LAUNCHES",)), (ep, ("LAUNCHES",)),
                        (cpk, ("LAUNCHES", "DTYPES", "BWD_LAUNCHES", "BWD_DTYPES", "BWD_ROUTES",
                               "BWD_LAST_GRID"))):
         for name in names:

@@ -7,7 +7,12 @@ and bf16 (kernels A and A' in bf16 on the tables' bf16 copy, with bf16
 app_raw and d_app_raw); kernels C and C' (TensorCP) at the published, odd
 and 1-component widths, both compute types, both of C''s routes (in bf16
 on the lines' bf16 copy with bf16 app_raw and d_app_raw, C bit for bit,
-on the packed walks, the one-channel ones and the generic route).
+on the packed walks, the one-channel ones and the generic route); the
+eval prepass kernel against the plain select, element for element, at K
+16 to n_samples, n_samples 259 and under 32, occupancy stride 1 and 2,
+with and without a ladder, and the compacted renders through either
+route, with no host sync or copy inside a warm chunk's select or
+composite.
 
 These skip without an NVIDIA GPU.  The module imports no JAX, so on a
 machine with a card and no JAX it runs with
@@ -26,8 +31,11 @@ from text2nerf_tpu_torch.models import tensorf as ptf
 from text2nerf_tpu_torch.ops import rays as PR
 from text2nerf_tpu_torch.ops import render as PRd
 from text2nerf_tpu_torch.ops.kernels import cp_features as cpk
+from text2nerf_tpu_torch.ops.kernels import eval_prepass as ep
 from text2nerf_tpu_torch.ops.kernels import factor_features as ff
 from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
+from test_torch_eval_prepass import (K_CASES, LADDER, assert_same_select, prepass_scene,
+                                     select_kwargs)
 
 pytestmark = pytest.mark.cuda
 
@@ -755,6 +763,7 @@ def test_cuda_calls_never_reach_the_plain_versions(cuda, monkeypatch):
     monkeypatch.setattr(ff, "factor_features_plain", boom)
     monkeypatch.setattr(ff, "factor_features_backward_plain", boom)
     monkeypatch.setattr(sm, "shade_fea_noview_plain", boom)
+    monkeypatch.setattr(PRd, "_select_plain", boom)
     cfg = ptf.TensoRFConfig(density_n_comp=(4, 4, 4), app_n_comp=(8, 8, 8))
     field = _field(cfg, (16, 16, 16), cuda)
     aabb = torch.tensor([[-8.0] * 3, [8.0] * 3])
@@ -961,3 +970,96 @@ def test_resume_on_the_card(cuda, tmp_path):
     assert [r["resume_epoch"] for r in rows[n_first:] if "resume_epoch" in r] == [3]
     assert second[3].rgbs_gen_split.shape[0] == 2
     assert all(torch.isfinite(p).all() for p in second[1].parameters())
+
+
+@pytest.mark.parametrize("ladder", [None, LADDER], ids=["no_ladder", "ladder"])
+@pytest.mark.parametrize("pool", [3, 5])
+@pytest.mark.parametrize("n_samples", [259, 20])
+@pytest.mark.parametrize("k", K_CASES)
+def test_eval_prepass_matches_the_plain_select(cuda, k, n_samples, pool, ladder):
+    # rays that miss, leave or start in the box, run along the axes, cross
+    # only dead voxels, and hold fewer or more live samples than K
+    field, aabb, mask, rays = prepass_scene(cuda, pool)
+    kw = select_kwargs(k, n_samples, PRd._occ_stride(field, aabb, mask), ladder)
+    before = ep.LAUNCHES
+    got = PRd._select_kernel(field, aabb, rays, mask, **kw)
+    assert ep.LAUNCHES == before + 1
+    want = PRd._select_plain(field, aabb, rays, mask, **kw)
+    torch.cuda.synchronize()
+    assert got[1].dtype == torch.int32 and got[2].dtype == torch.bool
+    assert ladder is None or got[6].dtype == torch.int8
+    assert_same_select(got, want)
+    n_live = want[5]
+    assert bool((n_live == 0).any()) and bool(((n_live > 0) & (n_live < kw["k"])).any())
+
+
+def _render_routes(field, aabb, rays, mask, monkeypatch, render):
+    """``render()`` through the kernel route, then through the plain select
+    on the same CUDA tensors."""
+    before = ep.LAUNCHES
+    got = render()
+    assert ep.LAUNCHES > before
+    with monkeypatch.context() as m:
+        m.setattr(PRd, "_select_kernel", PRd._select_plain)
+        want = render()
+    return got, want
+
+
+def _assert_outputs_equal(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("pool", [3, 5])
+def test_compacted_renders_match_through_either_select(cuda, pool, monkeypatch):
+    field, aabb, mask, rays = prepass_scene(cuda, pool)
+    kw = dict(n_samples=259, app_k=64, eval_z_min=-0.6, feature_dtype="fp32")
+    # a padded last chunk; the ladder escalates the weak field's long rays
+    monkeypatch.setattr(PRd, "_ADAPTIVE_PROBE_CACHE", {})
+    (got, ks), (want, ks_p) = _render_routes(
+        field, aabb, rays, mask, monkeypatch,
+        lambda: PRd.render_chunked_adaptive(field, aabb, rays, mask, chunk=1024, probe=False,
+                                            k_ladder=(16, 32, 64), device=cuda, **kw))
+    assert ks == ks_p and max(ks) > 16
+    _assert_outputs_equal(got, want)
+    for render in (PRd.render_rays_compact_need, PRd.render_rays_compact_flagged):
+        extra = {"k_ladder": LADDER} if render is PRd.render_rays_compact_need else {}
+        (out, flag), (out_p, flag_p) = _render_routes(
+            field, aabb, rays, mask, monkeypatch,
+            lambda: render(field, aabb, rays, mask, compact_k=32, **extra, **kw))
+        _assert_outputs_equal(out, out_p)
+        assert flag.dtype == flag_p.dtype and torch.equal(flag, flag_p)
+    # app_k under K: the top-K by weight after the selection, bf16 features
+    got, want = _render_routes(
+        field, aabb, rays, mask, monkeypatch,
+        lambda: PRd.render_chunked(field, aabb, rays, alpha_mask=mask, chunk=1024,
+                                   compact_k=96, **dict(kw, app_k=48, feature_dtype="bf16")))
+    _assert_outputs_equal(got, want)
+
+
+def test_a_warm_chunk_selects_and_composites_without_a_host_sync(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    field, aabb, mask, rays = prepass_scene(cuda, 3)
+    kw = dict(n_samples=259, chunk=1024, app_k=64, eval_z_min=-0.6, feature_dtype="fp32",
+              k_ladder=LADDER, probe=False, device=cuda)
+    PRd.render_chunked_adaptive(field, aabb, rays, mask, **kw)  # the step memo filled
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        PRd.render_chunked_adaptive(field, aabb, rays, mask, **kw)
+        torch.cuda.synchronize()
+    events = prof.events()
+    inside = [e.time_range for e in events if e.name in ("t2n.select", "t2n.composite")]
+    assert inside
+
+    def within(e):
+        return any(r.start <= e.time_range.start and e.time_range.end <= r.end for r in inside)
+
+    # the host's calls into the runtime (the device's own copies run on
+    # the device clock, which a later span may overlap)
+    calls = [e.name for e in events if e.name.startswith(("cuda", "cu")) and within(e)]
+    assert any(name.startswith(("cudaLaunch", "cuLaunch")) for name in calls)
+    syncs = [name for name in calls if "Synchronize" in name or "Memcpy" in name]
+    syncs += [e.name for e in events if within(e) and e.name in ("aten::item",
+                                                                   "aten::_local_scalar_dense")]
+    assert not syncs, syncs

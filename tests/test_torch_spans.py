@@ -7,8 +7,8 @@ field through the plain paths:
 - a compacted and a dense train step record ``t2n.step`` around one
   ``t2n.subbatch`` a sub-batch, and the trainer's batch source
   ``t2n.batch``;
-- the counters equal a hand count of the view's rays, its escalated rays
-  and kernel B's rows;
+- the counters equal a hand count of the view's rays, its escalated rays,
+  kernel B's rows and the rays of the plain eval select;
 - with no profiler, ``span`` is the shared no-op and nothing is counted,
   and a frame's pixels and a step's metrics and parameters are bit-equal
   to a profiled run's.
@@ -177,7 +177,8 @@ def test_counts_match_a_hand_count():
     groups = -(-escalated // chunk)
     assert 0 < escalated < HW * HW
     assert got == {"view.rays": HW * HW, "view.rays_escalated": escalated,
-                   "head.samples": HW * HW * k_base + groups * chunk * k_top}
+                   "head.samples": HW * HW * k_base + groups * chunk * k_top,
+                   "select.plain_rays": HW * HW + groups * chunk}
 
 
 def test_no_profiler_no_span_no_count():

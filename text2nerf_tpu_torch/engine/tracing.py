@@ -26,8 +26,9 @@ trainer's gather and copy of one batch; ``t2n.step`` one train step;
 ``t2n.select``, ``t2n.features``, ``t2n.head``, ``t2n.composite``, then
 ``t2n.loss`` and ``t2n.reg`` in the step.  The counters: ``view.rays``
 (rays of a view's base pass, padding excluded), ``view.rays_escalated``
-(rays re-rendered at a higher rung) and ``head.samples`` (rows handed to
-kernel B).
+(rays re-rendered at a higher rung), ``head.samples`` (rows handed to
+kernel B), and ``select.kernel_rays`` / ``select.plain_rays`` (rays whose
+compacted eval prepass ran as the kernel / as its plain version).
 
 The JAX package's ``profile_trace`` wraps JAX's profiler and has no
 counterpart here; the port's profiles are ``profile_render`` and

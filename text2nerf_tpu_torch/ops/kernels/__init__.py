@@ -6,9 +6,11 @@ def launch_counts() -> dict:
     """Every kernel's launches in this process so far, by name and compute
     type (kernel A in fp32 as ``factor_features``, in bf16 as
     ``factor_features_bf16``; likewise ``_bwd`` for kernel A', and
-    ``cp_features`` / ``cp_features_bwd`` for kernels C and C').  Plain
-    versions on CPU tensors count nothing."""
+    ``cp_features`` / ``cp_features_bwd`` for kernels C and C'; the eval
+    prepass as ``eval_prepass``).  Plain versions on CPU tensors count
+    nothing."""
     from . import cp_features as cpk
+    from . import eval_prepass as ep
     from . import factor_features as ff
     from . import shading_mlp as sm
 
@@ -18,6 +20,7 @@ def launch_counts() -> dict:
         counts[name] = by_dtype["fp32"]
         counts[f"{name}_bf16"] = by_dtype["bf16"]
     counts["shading_mlp"] = sm.LAUNCHES
+    counts["eval_prepass"] = ep.LAUNCHES
     return counts
 
 
@@ -25,10 +28,12 @@ def reset_launch_counts() -> None:
     """Set every launch counter of the kernels to 0 (totals, and those by
     compute type, mode and route)."""
     from . import cp_features as cpk
+    from . import eval_prepass as ep
     from . import factor_features as ff
     from . import shading_mlp as sm
 
     ff.LAUNCHES = ff.BWD_LAUNCHES = sm.LAUNCHES = cpk.LAUNCHES = cpk.BWD_LAUNCHES = 0
+    ep.LAUNCHES = 0
     for counts in (ff.DTYPES, ff.BWD_DTYPES, ff.BWD_MODES, ff.BWD_ROUTES, cpk.DTYPES,
                    cpk.BWD_DTYPES, cpk.BWD_ROUTES):
         for k in counts:

@@ -23,7 +23,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("factor_features", "factor_features_bwd", "shading_mlp", "cp_features")
+SOURCES = ("factor_features", "factor_features_bwd", "shading_mlp", "cp_features",
+           "eval_prepass")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -32,12 +32,14 @@ autograd, as the JAX package runs its XLA head; the heads get the
 normalized sample coordinates and the view directions.  ``ndc=True``
 takes the NDC sampler of the dense renderer (``linspace(near, far)``
 depths, a per-sample jitter in training, distances scaled by the ray
-norm); the compacted renderers take world rays only.  Sample placement, occupancy,
-the live selection, compositing and the escalation bookkeeping are plain
-PyTorch in this port slice.  Randomness (jitter, the background coin) is
-drawn from a ``torch.Generator`` unless the caller passes it in.  Under a
-profiler the renders open the ``t2n.*`` spans and move the counters of
-:mod:`..engine.tracing`.
+norm); the compacted renderers take world rays only.  The compacted eval
+renderer's prepass (march, occupancy, first-K selection and escalation
+rung) is one kernel launch on CUDA tensors (``kernels/eval_prepass.py``),
+its plain version on the CPU; the train renderers' selection, the dense
+march and compositing are plain PyTorch.  Randomness (jitter, the
+background coin) is drawn from a ``torch.Generator`` unless the caller
+passes it in.  Under a profiler the renders open the ``t2n.*`` spans and
+move the counters of :mod:`..engine.tracing`.
 """
 
 from __future__ import annotations
@@ -46,12 +48,13 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..device import as_tensor, check_on, resolve_device
 from ..engine.tracing import count, span
 from ..models import mlp as mlp_mod
 from ..models import tensorf as tf
-from .kernels import shading_mlp
+from .kernels import eval_prepass, shading_mlp
 from .rays import aabb_slab_entry, aabb_slab_interval
 
 
@@ -451,18 +454,13 @@ def _render_rays_compact(
     cfg = field.cfg
     fdt = _feature_dtype(feature_dtype)
     b = rays.shape[0]
+    k = min(compact_k, n_samples)
+    rays_d = rays[:, 3:6]
     with span("t2n.select"):
-        rays_o, rays_d, step, t_min, _, live = _live_samples(
-            field, aabb, rays, alpha_mask, n_samples, eval_z_min, occ_stride)
-        n_live = torch.sum(live, dim=-1)
-
-        # first-K live samples per ray, in ray order; z and points
-        # recomputed from the indices with the expression that built z_vals
-        k = min(compact_k, n_samples)
-        idx, k_live = first_k_live(live, k, impl=select_impl)
-        z_k = t_min[:, None] + step * idx.to(rays.dtype)
-        pts_k = rays_o[:, None] + rays_d[:, None] * z_k[..., None]
-        xn_k = torch.clamp(tf.normalize_coord(aabb, pts_k), -1.0, 1.0)
+        select = _select_kernel if rays.device.type == "cuda" else _select_plain
+        step, idx, k_live, z_k, xn_k, n_live, rung = select(
+            field, aabb, rays, alpha_mask, n_samples=n_samples, k=k, eval_z_min=eval_z_min,
+            occ_stride=occ_stride, select_impl=select_impl, need_ladder=need_ladder)
 
     # app_k >= k shades every compacted sample: one fused pass over the
     # tables serves density and appearance
@@ -502,12 +500,67 @@ def _render_rays_compact(
         flagged = (n_live > k) & (acc < 1.0 - overflow_tol)
         if need_ladder is None:
             return out, torch.sum(flagged)
+        need = torch.where(flagged, rung, torch.zeros_like(rung)).to(torch.int8)
+        return out, need
+
+
+def _select_plain(field, aabb, rays, alpha_mask, *, n_samples, k, eval_z_min, occ_stride,
+                  select_impl, need_ladder):
+    """The eval prepass in plain PyTorch (CPU tensors): (step, idx, sel,
+    z_k, xn_k, n_live, rung) as :func:`_select_kernel` returns them, rung
+    int64 (None without a ladder)."""
+    count("select.plain_rays", rays.shape[0])
+    rays_o, rays_d, step, t_min, _, live = _live_samples(
+        field, aabb, rays, alpha_mask, n_samples, eval_z_min, occ_stride)
+    n_live = torch.sum(live, dim=-1)
+
+    # first-K live samples per ray, in ray order; z and points
+    # recomputed from the indices with the expression that built z_vals
+    idx, k_live = first_k_live(live, k, impl=select_impl)
+    z_k = t_min[:, None] + step * idx.to(rays.dtype)
+    pts_k = rays_o[:, None] + rays_d[:, None] * z_k[..., None]
+    xn_k = torch.clamp(tf.normalize_coord(aabb, pts_k), -1.0, 1.0)
+    rung = None
+    if need_ladder is not None:
         # smallest ladder rung whose K covers the ray's live count, clipped
         # to the top rung
         ladder = torch.as_tensor(need_ladder, dtype=n_live.dtype, device=n_live.device)
         rung = torch.clamp(torch.searchsorted(ladder, n_live), 0, len(need_ladder) - 1)
-        need = torch.where(flagged, rung, torch.zeros_like(rung)).to(torch.int8)
-        return out, need
+    return step, idx, k_live, z_k, xn_k, n_live, rung
+
+
+def _select_kernel(field, aabb, rays, alpha_mask, *, n_samples, k, eval_z_min, occ_stride,
+                   select_impl, need_ladder):
+    """The eval prepass kernel (CUDA tensors): :func:`_select_plain`'s
+    outputs bit for bit, idx int32 and rung int8, in one launch that
+    copies nothing between host and device.  ``select_impl`` names one
+    selection, as in :func:`first_k_live`."""
+    count("select.kernel_rays", rays.shape[0])
+    step = _eval_step(field, aabb)
+    out = eval_prepass.eval_prepass(
+        rays, aabb, step, alpha_mask, n_samples=n_samples, k=k, near=field.cfg.near,
+        far=field.cfg.far, eval_z_min=eval_z_min, occ_stride=occ_stride, ladder=need_ladder)
+    return (step, *out)
+
+
+#: aabb tensor -> (key, step): the eval march's step per box, resolution
+#: and step_ratio, so that a chunk's select does not copy the grid size to
+#: the device; an entry dies with its box and is rebuilt when the box is
+#: edited in place
+_EVAL_STEPS = WeakIdKeyDictionary()
+
+
+def _eval_step(field, aabb):
+    """``tf.step_size`` of the field's march as a 0-d tensor on the box's
+    device, memoized per box tensor (its version, the field's resolution
+    and step_ratio)."""
+    reso = tf.grid_resolution(field)
+    key = (aabb._version, reso, float(field.cfg.step_ratio))
+    hit = _EVAL_STEPS.get(aabb)
+    if hit is None or hit[0] != key:
+        hit = (key, tf.step_size(aabb, reso, field.cfg.step_ratio))
+        _EVAL_STEPS[aabb] = hit
+    return hit[1]
 
 
 def render_rays_train_compact(
