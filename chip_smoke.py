@@ -15,7 +15,9 @@ Phases (any failure exits nonzero before the last line):
    app_raw), three output modes, held bit for bit, and timed in bf16 in
    each mode beside its plain version, F.grid_sample on bf16 tables and
    the bound for the bf16 bytes;
-   kernel B: 1M rows; the eval prepass: one 512^2 view of the serving
+   kernel B: 1M rows, and in its view-dependent mode (TensoRF's MLP_Fea
+   head, 32 rows a ray) 1M rows with its registers and spills; the eval
+   prepass: one 512^2 view of the serving
    shell through a 200^3 pool-3 mask, 16 chunks of 16384 rays at 259
    samples, K 32, held element for element to the plain select and timed
    with its launches queued and as the host issues them; kernel A':
@@ -647,11 +649,81 @@ def phase_kernels(dev, report):
         max_abs_err=err_b, ms=ms_b, plain_ms=plain_b, bound_ms=bound_b,
         bound_by=by_b, library_ms=lib_b,
     )
+    report["shading_mlp_view"] = phase_view_head(dev, gen, flush)
     report["eval_prepass"] = phase_prepass(dev, field, aabb, rays, flush)
     phase_backward(field, aabb, rays, gen, flush, report)
     phase_cp_kernels(dev, report, rays, aabb, gen, flush, field)
     del field, flush_buf, x
     torch.cuda.empty_cache()
+
+
+#: rows a ray of kernel B's view mode in phase 3: the eval's base rung
+VIEW_ROWS_A_RAY = 32
+
+
+def _kernel_registers(name, kernel):
+    """ptxas's registers, stack and spills of ``kernel`` (a fragment of its
+    mangled name) from this process's build log of ``csrc/<name>.cu``."""
+    from text2nerf_tpu_torch.ops.kernels import _build
+
+    lines = (_build.BUILD_LOGS.get(name) or "").splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line:
+            return " ".join(x.strip().replace("ptxas info    : ", "") for x in lines[i + 1:i + 3])
+    return "not in this process's build log (built earlier)"
+
+
+def phase_view_head(dev, gen, flush):
+    """Kernel B's view-dependent mode (the eval MLP_Fea head) at TensoRF's
+    CP head (27 features, fea_pe 2, view_pe 2, 128 wide) on 1M rows, 32 a
+    ray, against its plain version, timed beside it and three
+    ``torch.addmm`` (TF32 off) on the head input made beforehand, with the
+    bound of its 3xTF32 route."""
+    import torch
+    from text2nerf_tpu_torch.models import tensorf as tf
+    from text2nerf_tpu_torch.models.mlp import positional_encoding
+    from text2nerf_tpu_torch.ops.kernels import shading_mlp as sm
+
+    cfg = tf.TensoRFConfig(model_name="cp", density_n_comp=(96,), app_n_comp=(288,),
+                           shading_mode="MLP_Fea", fea_pe=2, view_pe=2)
+    head = tf.init_params(cfg, (4, 4, 4), generator=gen, device=dev).requires_grad_(False).mlp
+    k = VIEW_ROWS_A_RAY
+    feats = 2.0 * torch.randn(N_ROWS_B, cfg.app_dim, generator=gen, device=dev)
+    dirs = torch.nn.functional.normalize(
+        torch.randn(N_ROWS_B // k, 3, generator=gen, device=dev))
+    args = (head, feats, dirs, k, cfg.fea_pe, cfg.view_pe)
+    got, ref = sm.shade_fea(*args), sm.shade_fea_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    print(f"kernel B view mode max_abs_err {err:.3e} (tol {TOL['head']:g})", flush=True)
+    _require(err <= TOL["head"], f"kernel B view mode: {err} > {TOL['head']}")
+    ms = _time_ms(lambda: sm.shade_fea(*args), 10, flush)
+    plain = _time_ms(lambda: sm.shade_fea_plain(*args), 3, flush)
+    d = torch.repeat_interleave(dirs, k, 0)
+    x = torch.cat([feats, d, positional_encoding(feats, cfg.fea_pe),
+                   positional_encoding(d, cfg.view_pe)], -1)
+
+    def addmm3():
+        h = torch.addmm(head.b1, x, head.w1).relu_()
+        h = torch.addmm(head.b2, h, head.w2).relu_()
+        return torch.addmm(head.b3, h, head.w3).sigmoid_()
+
+    lib = _time_ms(addmm3, 5, flush)
+    in_dim, fc = head.w1.shape
+    flops_12 = N_ROWS_B * 2 * (in_dim * fc + fc * fc)
+    moved = N_ROWS_B * (cfg.app_dim + 3) * 4 + dirs.numel() * 4 + sum(
+        head[n].numel() * 4 for n in ("w1", "b1", "w2", "b2", "w3", "b3"))
+    bound, by = _bound(moved, 3 * flops_12, TF32_FLOPS)
+    regs = _kernel_registers("shading_mlp", "shade_view_kernel")
+    print(f"kernel B view mode ({in_dim} in, {k} rows a ray): {ms:.3f} ms, plain {plain:.3f} ms, "
+          f"3x addmm (TF32 off) {lib:.3f} ms, bound {bound:.3f} ms by {by} (3xTF32: 3 x "
+          f"{flops_12 / 1e9:.1f} GFLOP at 495 TFLOP/s); {regs}", flush=True)
+    del x, d
+    return dict(name="shading_mlp_view", route="cuda",
+                source="text2nerf_tpu_torch/csrc/shading_mlp.cu",
+                replaces="text2nerf_tpu/models/mlp.py:101",  # XLA's head: no Pallas kernel
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib, registers=regs)
 
 
 PREPASS_CHUNK, PREPASS_K, PREPASS_LADDER = 16384, 32, (32, 64, 128)
@@ -3355,7 +3427,7 @@ FAMILY_RUNS = (
     ("cp", ["--model_name", "TensorCP", "--n_lamb_sigma", str(CP_WIDTHS[0]),
             "--n_lamb_sh", str(CP_WIDTHS[1]), "--shadingMode", "MLP_Fea", "--fea_pe", "2",
             "--view_pe", "2", "--L1_weight_inital", "1e-5", "--L1_weight_rest", "1e-5"],
-     ("cp_features", "cp_features_bf16", "cp_features_bwd"), 5.0),
+     ("cp_features", "cp_features_bf16", "cp_features_bwd", "shading_mlp_view"), 5.0),
     ("vm", ["--model_name", "TensorVM", "--n_lamb_sigma", "16", "--n_lamb_sh", "48",
             "--shadingMode", "SH"], ("factor_features", "factor_features_bf16",
                                      "factor_features_bwd"), 5.0),
@@ -4325,7 +4397,7 @@ def main(argv):
                       **depth, **resumed, **family, **scale, "card": card,
                       "wall_s": wall_s}), flush=True)
     kernels = [report[k] for k in ("factor_features", "factor_features_bf16", "shading_mlp",
-                                   "factor_features_bwd", "factor_features_bwd_bf16",
+                                   "shading_mlp_view", "factor_features_bwd", "factor_features_bwd_bf16",
                                    "cp_features", "cp_features_bf16", "cp_features_bwd",
                                    "cp_features_bwd_bf16", "eval_prepass")]
     for k in kernels:

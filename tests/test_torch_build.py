@@ -173,6 +173,9 @@ def _launch_sites():
            "w2": torch.rand((128, 128), generator=g), "b2": torch.rand(128, generator=g),
            "w3": torch.rand((128, 3), generator=g), "b3": torch.rand(3, generator=g)}
     feats = torch.rand((5, 2), generator=g)
+    # the MLP_Fea head at C 2, fea_pe 2, view_pe 0: 2 + 3 + 2 * 2 * 2 inputs
+    mlp_view = dict(mlp, w1=torch.rand((13, 128), generator=g))
+    dirs = torch.rand((5, 3), generator=g)
     box = torch.tensor([[-1.0, -1, -1], [1, 1, 1]])
     prepass_args = (torch.rand((5, 6), generator=g), box, box, torch.tensor(0.1),
                     torch.ones((4, 4, 4)), 8, 4, 0.5, 8.0, 2.0, 1, (2, 4))
@@ -191,7 +194,10 @@ def _launch_sites():
                                         torch.ones((5, 6), dtype=torch.bfloat16), True, None),
             lambda: (ff.BWD_LAUNCHES, ff.BWD_MODES["fused"], ff.BWD_DTYPES["bf16"],
                      ff.BWD_ROUTES["shared"])),
-        "shading_mlp": (lambda: sm._launch(mlp, feats, 2), lambda: sm.LAUNCHES),
+        "shading_mlp": (lambda: sm._launch(mlp, feats, 2),
+                        lambda: (sm.LAUNCHES, sm.MODES["noview"])),
+        "shading_mlp_view": (lambda: sm._launch_view(mlp_view, feats, dirs, 1, 2, 0),
+                             lambda: (sm.LAUNCHES, sm.MODES["view"])),
         "cp_features": (lambda: cpk._launch(xn, lines, 1, True, True, False),
                         lambda: (cpk.LAUNCHES, cpk.DTYPES["fp32"])),
         "cp_features_bwd": (
@@ -210,8 +216,9 @@ def _launch_sites():
 
 @pytest.mark.parametrize("site", ["factor_features", "factor_features_bf16",
                                   "factor_features_bwd", "factor_features_bwd_bf16",
-                                  "shading_mlp", "cp_features", "cp_features_bwd",
-                                  "cp_features_bf16", "cp_features_bwd_bf16", "eval_prepass"])
+                                  "shading_mlp", "shading_mlp_view", "cp_features",
+                                  "cp_features_bwd", "cp_features_bf16", "cp_features_bwd_bf16",
+                                  "eval_prepass"])
 def test_launch_counts_are_exact_under_two_threads(site, monkeypatch):
     """Two threads pass the same wrapper's launch site N times each (the
     CUDA library replaced by a fake that returns success; farm workers are
@@ -233,6 +240,7 @@ def test_launch_counts_are_exact_under_two_threads(site, monkeypatch):
                            t2n_factor_features_bwd=_fake_backward_launcher,
                            t2n_factor_features_bwd_bf16=_fake_backward_launcher,
                            t2n_shade_fea_noview=_fake_launcher,
+                           t2n_shade_fea=_fake_launcher,
                            t2n_cp_features=_fake_launcher,
                            t2n_cp_features_bf16=_fake_launcher,
                            t2n_cp_features_bwd=_fake_backward_launcher,
@@ -245,7 +253,7 @@ def test_launch_counts_are_exact_under_two_threads(site, monkeypatch):
     # the counts are restored when the test ends
     for mod, names in ((ff, ("LAUNCHES", "DTYPES", "BF16_COPIES", "BWD_LAUNCHES", "BWD_MODES",
                              "BWD_DTYPES", "BWD_ROUTES", "BWD_LAST_GRID")),
-                       (sm, ("LAUNCHES",)), (ep, ("LAUNCHES",)),
+                       (sm, ("LAUNCHES", "MODES")), (ep, ("LAUNCHES",)),
                        (cpk, ("LAUNCHES", "DTYPES", "BWD_LAUNCHES", "BWD_DTYPES", "BWD_ROUTES",
                               "BWD_LAST_GRID"))):
         for name in names:

@@ -9,10 +9,12 @@ and 1-component widths, both compute types, both of C''s routes (in bf16
 on the lines' bf16 copy with bf16 app_raw and d_app_raw, C bit for bit,
 on the packed walks, the one-channel ones and the generic route); the
 eval prepass kernel against the plain select, element for element, at K
-16 to n_samples, n_samples 259 and under 32, occupancy stride 1 and 2,
+16 to n_samples, n_samples 259, 433 and under 32, occupancy stride 1 and 2,
 with and without a ladder, and the compacted renders through either
 route, with no host sync or copy inside a warm chunk's select or
-composite.
+composite; kernel B's view-dependent mode (the eval ``MLP_Fea`` head) at
+TensoRF's CP head and other widths, 1 to 64 rows a ray, and a TensorCP
+frame through it against the plain head.
 
 These skip without an NVIDIA GPU.  The module imports no JAX, so on a
 machine with a card and no JAX it runs with
@@ -176,6 +178,132 @@ def test_shading_weight_cache_follows_the_weights(cuda):
     assert float((got - sm.shade_fea_noview_plain(other, feats, cfg.fea_pe)).abs().max()) <= 1e-4
     again = sm.shade_fea_noview(head, feats, cfg.fea_pe)
     assert torch.equal(again, edited)
+
+
+#: kernel B's view mode: (app_dim, fea_pe, view_pe, k rows a ray, rays):
+#: TensoRF's CP head at k 1, 32 and 64 over odd row counts, either PE off,
+#: other widths, no rows
+VIEW_CASES = {
+    "published_k1": (27, 2, 2, 1, 4097),
+    "published_k32": (27, 2, 2, 32, 33),
+    "published_k64": (27, 2, 2, 64, 2 ** 14 + 1),
+    "fea_pe_0": (27, 0, 2, 32, 65),
+    "view_pe_0": (27, 2, 0, 64, 65),
+    "narrow": (12, 1, 3, 1, 63),
+    "widest": (32, 2, 2, 3, 1001),
+    "no_rows": (27, 2, 2, 32, 0),
+}
+
+
+def _view_inputs(case, device, seed=2):
+    c, fea_pe, view_pe, k, n_rays = VIEW_CASES[case]
+    cfg = ptf.TensoRFConfig(model_name="cp", density_n_comp=(2,), app_n_comp=(4,), app_dim=c,
+                            shading_mode="MLP_Fea", fea_pe=fea_pe, view_pe=view_pe)
+    head = _field(cfg, (4, 4, 4), device).mlp
+    gen = torch.Generator(device=device).manual_seed(seed)
+    feats = 2.0 * torch.randn(n_rays * k, c, generator=gen, device=device)
+    rays = torch.randn(n_rays, 6, generator=gen, device=device)
+    rays[::3, 3:6] *= -40.0  # negative and large components
+    dirs = rays[:, 3:6]  # rays 6 floats apart: the wrapper copies them
+    return head, feats, dirs, k, fea_pe, view_pe
+
+
+@pytest.mark.parametrize("case", list(VIEW_CASES))
+def test_view_shading_kernel_matches_plain(cuda, case):
+    head, feats, dirs, k, fea_pe, view_pe = _view_inputs(case, cuda)
+    before = sm.MODES["view"]
+    got = sm.shade_fea(head, feats, dirs, k, fea_pe, view_pe)
+    torch.cuda.synchronize()
+    assert sm.MODES["view"] == before + (feats.shape[0] > 0)
+    ref = sm.shade_fea_plain(head, feats, dirs, k, fea_pe, view_pe)
+    assert got.shape == (feats.shape[0], 3)
+    if feats.shape[0]:
+        assert float((got - ref).abs().max()) <= 1e-4
+
+
+def test_view_shading_kernel_is_fp32_faithful_at_full_width(cuda):
+    # as the noview mode: ~3e-7 from the plain head at TensoRF's CP head
+    # (27 / 2 / 2 / 128), where one TF32 product per term gives ~3.5e-5
+    head, feats, dirs, k, fea_pe, view_pe = _view_inputs("published_k32", cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    feats = 2.0 * torch.randn(2 ** 20, feats.shape[1], generator=gen, device=cuda)
+    dirs = torch.nn.functional.normalize(torch.randn(2 ** 15, 3, generator=gen, device=cuda))
+    got = sm.shade_fea(head, feats, dirs, k, fea_pe, view_pe)
+    ref = sm.shade_fea_plain(head, feats, dirs, k, fea_pe, view_pe)
+    assert float((got - ref).abs().max()) <= 3e-6
+
+
+def test_view_shading_kernel_past_the_fast_trig_range(cuda):
+    # direction components whose 2^j multiples pass 105615 take sincosf
+    head, feats, dirs, k, fea_pe, view_pe = _view_inputs("published_k1", cuda, seed=6)
+    dirs = torch.nn.functional.normalize(dirs)
+    dirs[::11] = torch.tensor([0.9, -0.95, 0.3], device=cuda) * 6e4
+    assert float((dirs.abs() * 2 ** (view_pe - 1)).max()) > 105615
+    got = sm.shade_fea(head, feats, dirs, k, fea_pe, view_pe)
+    ref = sm.shade_fea_plain(head, feats, dirs, k, fea_pe, view_pe)
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+def _cp_shell(device, reso=(32, 32, 32)):
+    """A TensorCP field at TensoRF's head (27 / 2 / 2) whose density is a
+    far-wall slab: density line 0 (world z) +2 in z (2.5, 4), -2 elsewhere,
+    the other density lines |init| + 1."""
+    cfg = ptf.TensoRFConfig(model_name="cp", density_n_comp=(8,), app_n_comp=(24,),
+                            shading_mode="MLP_Fea", fea_pe=2, view_pe=2, distance_scale=1.0)
+    field = _field(cfg, reso, device)
+    zs = torch.linspace(-8, 8, reso[2], device=device)
+    with torch.no_grad():
+        field.lines[0][:, :8] = torch.where((zs > 2.5) & (zs < 4.0), 2.0, -2.0)[:, None]
+        for i in (1, 2):
+            field.lines[i][:, :8] = field.lines[i][:, :8].abs() + 1.0
+    return field
+
+
+def test_cp_render_view_through_the_view_mode_matches_the_plain_head(cuda, monkeypatch):
+    # a TensorCP frame through render_view: kernel C and the view mode
+    # against the same path with the plain head, every rung of the ladder;
+    # under the profiler the head makes no matrix product and no
+    # per-row direction tensor
+    from torch.profiler import ProfilerActivity, profile
+
+    from text2nerf_tpu_torch.engine import renderer, tracing
+
+    field = _cp_shell(cuda)
+    aabb = torch.tensor([[-8.0] * 3, [8.0] * 3], device=cuda)
+    mask, _ = ptf.update_alpha_mask(field, aabb, (24, 24, 24), pool=3, device=cuda)
+    hw = (48, 40)
+    intr = PR.default_intrinsics(*hw)
+    dirs = PR.ray_directions(*hw, intr[:2], intr[2:], device=cuda)
+    rays = torch.cat(PR.rays_from_pose(dirs, np.eye(4)), -1)
+    kw = dict(n_samples=ptf.default_n_samples((32, 32, 32), 1.0), chunk=512, app_k=16,
+              alpha_mask=mask, compact_k=-1, eval_z_min=2.0, feature_dtype="fp32",
+              k_ladder=(8, 16, 32), device=cuda)
+    monkeypatch.setattr(PRd, "_ADAPTIVE_PROBE_CACHE", {})
+    renderer.render_view(field, aabb, rays, hw, **kw)  # the head's weights laid out
+    views, c0 = sm.MODES["view"], cpk.LAUNCHES
+    tracing.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = renderer.render_view(field, aabb, rays, hw, **kw)
+    counts = tracing.counts()
+    tracing.reset_counts()
+    assert sm.MODES["view"] > views and cpk.LAUNCHES > c0
+    assert counts["head.view_samples"] > 0 and "head.samples" not in counts
+    assert counts["cp.sigma_samples"] >= counts["cp.app_samples"] > 0
+    events = prof.events()
+    heads = [e.time_range for e in events if e.name == "t2n.head"]
+    assert heads
+    inside = [e.name for e in events if e.name.startswith("aten::") and any(
+        r.start <= e.time_range.start and e.time_range.end <= r.end for r in heads)]
+    for op in ("aten::mm", "aten::addmm", "aten::matmul", "aten::repeat_interleave",
+               "aten::expand", "aten::cat", "aten::sin"):
+        assert op not in inside, (op, sorted(set(inside)))
+    with monkeypatch.context() as m:
+        m.setattr(PRd, "_ADAPTIVE_PROBE_CACHE", {})
+        m.setattr(PRd.shading_mlp, "shade_fea", sm.shade_fea_plain)
+        want = renderer.render_view(field, aabb, rays, hw, **kw)
+    assert np.abs(got[0] - want[0]).max() <= 1e-4
+    assert np.array_equal(got[1], want[1])
+    assert got[0].min() < 0.9  # the wall is in the frame
 
 
 def test_kernels_refuse_grad_inputs(cuda):
@@ -974,7 +1102,7 @@ def test_resume_on_the_card(cuda, tmp_path):
 
 @pytest.mark.parametrize("ladder", [None, LADDER], ids=["no_ladder", "ladder"])
 @pytest.mark.parametrize("pool", [3, 5])
-@pytest.mark.parametrize("n_samples", [259, 20])
+@pytest.mark.parametrize("n_samples", [259, 20, 433])
 @pytest.mark.parametrize("k", K_CASES)
 def test_eval_prepass_matches_the_plain_select(cuda, k, n_samples, pool, ladder):
     # rays that miss, leave or start in the box, run along the axes, cross

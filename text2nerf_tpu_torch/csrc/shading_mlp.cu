@@ -1,15 +1,22 @@
-// Kernel B: the MLP_Fea_noview shading head, forward only (eval).
+// Kernel B: the eval shading heads MLP_Fea_noview and MLP_Fea, forward only.
 //
 // Replaces the Pallas TPU kernel text2nerf_tpu/ops/pallas/shading_mlp.py
 // shade_fea_noview_pallas (:55, pallas_call at :89), which computes
 // models/mlp.py shade("MLP_Fea_noview") (:96-100):
 //   x = [f, sin(f * 2^k), cos(f * 2^k)] for k < F     (width C * (1 + 2F))
 //   rgb = sigmoid(relu(relu(x W1 + b1) W2 + b2) W3 + b3)
-// in fp32, weights in (in, out) layout.
+// in fp32, weights in (in, out) layout.  The view-dependent mode
+// (shade_view_kernel) computes shade("MLP_Fea") the same way, from
+//   x = [f, d, sin(f * 2^k), cos(f * 2^k), sin(d * 2^j), cos(d * 2^j)]
+// for k < F, j < V (width C + 3 + 2CF + 6V), d the direction of the row's
+// ray; the JAX package runs that head as XLA, so this mode replaces no
+// Pallas kernel: it serves the eval renders of TensoRF's own head.
 //
 // What bounds it on an H100: operations.  Layers 1 and 2 are
 // 2 * (351*128 + 128*128) = 123 kFLOP per row against 120 B of input and
-// output.  They run on the tensor cores in 3xTF32: a*b ~ a_hi*b_hi +
+// output (MLP_Fea at C 27, F 2, V 2: 2 * (150*128 + 128*128) = 71 kFLOP
+// against 120 B, the direction read once a ray).  They run on the tensor
+// cores in 3xTF32: a*b ~ a_hi*b_hi +
 // a_hi*b_lo + a_lo*b_hi, each part rounded to TF32 (to nearest, as
 // cvt.rna), fp32 accumulation, about 2^-21 relative error per product, so the head stays
 // fp32-faithful.  Three TF32 products at 495 TFLOP/s: 0.78 ms per 1M rows.
@@ -30,12 +37,18 @@
 //    3), one sine-cosine pair per (channel, band) and row.  The K axis is
 //    permuted so that a thread's two K slots of a slice hold one sine and
 //    its cosine; W1^T's columns are permuted to match, and K is
-//    zero-padded to a multiple of 8 (351 -> 352).  A step takes two
+//    zero-padded to a multiple of 8 (351 -> 352; MLP_Fea 150 -> 152).  A
+//    row's values are its C features and, in the view mode, its ray's 3
+//    direction components (staged beside the features, each row's from
+//    its ray, row / k: the rows of a ray lie one after another, so a ray's
+//    direction crosses L2 once); the pairs are the sine-cosine pairs of
+//    the features, then of the direction components, then the raw values
+//    two a pair.  A step takes two
 //    slices: its fragments (four sine-cosine chains, interleaved) are
 //    computed while the tensor cores run the step before it.  sin/cos come
 //    from a branch-free reduction and polynomial within 1.5 ulp (sincosf's
 //    slow-path branch keeps a warp's chains from interleaving); sincosf
-//    takes arguments past 105615.  The pair table (channel, 2^band) is
+//    takes arguments past 105615.  The pair table (value, 2^band) is
 //    built once per block: no division or conversion per slice.
 //  - Layer 1's B operand (W1^T, 360 KB hi+lo) is streamed slice by slice
 //    by cp.async.bulk into an 8-stage ring of 8 KB, with full and empty
@@ -51,6 +64,9 @@
 //    cores from layer 2's accumulators: 32 columns per thread, reduced
 //    over the 4 threads that share a row with shuffles; 12 B written per
 //    row.
+// Both modes are one body (shade_tiles), compiled once per mode: the
+// noview kernel keeps its code, the view mode adds the direction's
+// staging and a select per value read.
 // What holds it above the bound: the consumers' own work per step (the PE,
 // the splits, the barrier and wgmma bookkeeping) is not fully hidden
 // behind the tensor cores.  The build uses no fast math.
@@ -119,20 +135,32 @@ __device__ __forceinline__ void sincos_fast(float x, float& s, float& c) {
   c = ((q + 1) & 2) ? -b : b;
 }
 
-// what pair q of the layer-1 operand holds: the sine and cosine of
-// feature `ch` times `scale` = 2^band for q < c*f (ch, band = q / f,
-// q % f), else raw features ch = 2(q - c*f) and ch + 1 (zero past c).
-// Built once per block into a table: no division or conversion per slice.
+// what pair q of the layer-1 operand holds: the sine and cosine of value
+// `ch` of the row times `scale` = 2^band for q < the trig pairs (feature
+// ch = q / f, band q % f, for q < c*f; then direction component
+// ch = c + (q - c*f) / fv, band (q - c*f) % fv, for fv bands a
+// component), else raw values ch = 2(q - trig pairs) and ch + 1 (zero
+// past the row's values).  Built once per block into a table: no division
+// or conversion per slice.
 struct PeSlot {
   int ch;
   float scale;
   bool trig;
 };
 
-__device__ __forceinline__ float2 pe_slot_entry(int q, int f, int cf) {
-  const bool trig = q < cf;
-  const int ch = trig ? q / f : 2 * (q - cf);
-  const float scale = static_cast<float>(1 << (trig ? q - (q / f) * f : 0));  // exact
+__device__ __forceinline__ float2 pe_slot_entry(int q, int f, int fv, int c) {
+  const int cf = c * f, ntrig = cf + 3 * fv;
+  const bool trig = q < ntrig;
+  int ch = 2 * (q - ntrig), band = 0;
+  if (q < cf) {
+    ch = q / f;
+    band = q - ch * f;
+  } else if (trig) {
+    const int j = (q - cf) / fv;
+    ch = c + j;
+    band = q - cf - j * fv;
+  }
+  const float scale = static_cast<float>(1 << band);  // exact
   return make_float2(__int_as_float(ch | (trig ? 1 << 16 : 0)), scale);
 }
 
@@ -141,11 +169,23 @@ __device__ __forceinline__ PeSlot pe_slot(float2 e) {
   return {bits & 0xFFFF, e.y, (bits >> 16) != 0};
 }
 
-// the two K slots a thread holds for one row (features `fr`)
-__device__ __forceinline__ void pe_row(const float* fr, const PeSlot& sl, int c, float& first,
-                                       float& second) {
-  const float v0 = sl.ch < c ? fr[sl.ch] : 0.0f;
-  const float v1 = !sl.trig && sl.ch + 1 < c ? fr[sl.ch + 1] : 0.0f;
+// value ch of a row: its c features `fr`, then (view mode) its ray's
+// direction `dr`; zero past them
+template <bool kView>
+__device__ __forceinline__ float row_value(const float* fr, const float* dr, int ch, int c) {
+  if constexpr (kView) {
+    return ch < c ? fr[ch] : (ch < c + 3 ? dr[ch - c] : 0.0f);
+  } else {
+    return ch < c ? fr[ch] : 0.0f;
+  }
+}
+
+// the two K slots a thread holds for one row (features `fr`, direction `dr`)
+template <bool kView>
+__device__ __forceinline__ void pe_row(const float* fr, const float* dr, const PeSlot& sl, int c,
+                                       float& first, float& second) {
+  const float v0 = row_value<kView>(fr, dr, sl.ch, c);
+  const float v1 = sl.trig ? 0.0f : row_value<kView>(fr, dr, sl.ch + 1, c);
   float sn, cs;
   sincos_fast(v0 * sl.scale, sn, cs);
   first = sl.trig ? sn : v0;
@@ -153,10 +193,11 @@ __device__ __forceinline__ void pe_row(const float* fr, const PeSlot& sl, int c,
 }
 
 // sincosf for an argument past sincos_fast's range
-__device__ __forceinline__ void pe_row_wide(const float* fr, const PeSlot& sl, float& first,
-                                            float& second) {
+template <bool kView>
+__device__ __forceinline__ void pe_row_wide(const float* fr, const float* dr, const PeSlot& sl,
+                                            int c, float& first, float& second) {
   if (sl.trig) {
-    const float x = fr[sl.ch] * sl.scale;
+    const float x = row_value<kView>(fr, dr, sl.ch, c) * sl.scale;
     if (fabsf(x) > kFastTrigMax) sincosf(x, &first, &second);
   }
 }
@@ -249,17 +290,22 @@ __device__ __forceinline__ void head_tail(float (&acc)[64], const float* w2s, co
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-shade_kernel(const float* __restrict__ feat, int n, int c, int f, int kk1,
-             const float* __restrict__ w1img, const float* __restrict__ w2img,
-             const float* __restrict__ b1, const float* __restrict__ b2,
-             const float* __restrict__ w3, const float* __restrict__ b3,
-             float* __restrict__ out) {
+// The head over all tiles of the rows (the kernels' one body): features
+// (n, c); in the view mode the directions of the rays (n / k, 3), and k
+// rows a ray.
+template <bool kView>
+__device__ __forceinline__ void shade_tiles(
+    const float* __restrict__ feat, const float* __restrict__ dirs, int n, int c, int k,
+    int f, int fv, int kk1, const float* __restrict__ w1img,
+    const float* __restrict__ w2img, const float* __restrict__ b1,
+    const float* __restrict__ b2, const float* __restrict__ w3,
+    const float* __restrict__ b3, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* w2s = reinterpret_cast<float*>(smem);
   float* ring = reinterpret_cast<float*>(smem + kW2Bytes);
   float* fbuf = reinterpret_cast<float*>(smem + kW2Bytes + kStages * kSliceBytes);
-  float* par = fbuf + kTileRows * c;
+  float* dbuf = fbuf + kTileRows * c;  // view mode: a tile's rows' directions
+  float* par = dbuf + (kView ? kTileRows * 3 : 0);
   const float* sb1 = par;
   const float* sb2 = par + kFeat;
   const float* sw3 = par + 2 * kFeat;
@@ -286,7 +332,7 @@ shade_kernel(const float* __restrict__ feat, int n, int c, int f, int kk1,
     else if (i < 5 * kFeat + 3) v = b3[i - 5 * kFeat];
     par[i] = v;
   }
-  for (int q = tid; q < 4 * kk1; q += kThreads) slots[q] = pe_slot_entry(q, f, c * f);
+  for (int q = tid; q < 4 * kk1; q += kThreads) slots[q] = pe_slot_entry(q, f, fv, c);
   __syncthreads();
 
   const int64_t ntiles = (static_cast<int64_t>(n) + kTileRows - 1) / kTileRows;
@@ -298,9 +344,9 @@ shade_kernel(const float* __restrict__ feat, int n, int c, int f, int kk1,
     setmaxnreg_dec<kProducerRegs>();
     if (tid == 0) {
       mbar_arrive_expect_tx(w2bar, kW2Bytes);
-      for (int k = 0; k < kW2Bytes / 16384; ++k) {
-        bulk_g2s(reinterpret_cast<unsigned char*>(w2s) + k * 16384,
-                 reinterpret_cast<const unsigned char*>(w2img) + k * 16384, 16384, w2bar);
+      for (int j = 0; j < kW2Bytes / 16384; ++j) {
+        bulk_g2s(reinterpret_cast<unsigned char*>(w2s) + j * 16384,
+                 reinterpret_cast<const unsigned char*>(w2img) + j * 16384, 16384, w2bar);
       }
       // slice qq of the block's sequence (kk = qq % kk1) into stage
       // qq % kStages, once both consumers are done with its previous slice
@@ -324,7 +370,8 @@ shade_kernel(const float* __restrict__ feat, int n, int c, int f, int kk1,
   const int r0 = wg * 64 + (ct >> 5) * 16 + g;  // the thread's rows: r0 and r0 + 8
   const int64_t n_elems = static_cast<int64_t>(n) * c;
 
-  // the warpgroup's rows of a tile's features -> fbuf, zero past n
+  // the warpgroup's rows of a tile's features -> fbuf (view mode: their
+  // rays' directions -> dbuf), zero past n
   auto prefetch = [&](int64_t tile) {
     const int64_t base = (tile * kTileRows + wg * 64) * c;
     float* dst = fbuf + wg * 64 * c;
@@ -332,6 +379,16 @@ shade_kernel(const float* __restrict__ feat, int n, int c, int f, int kk1,
       const int64_t e = base + i;
       const bool ok = e < n_elems;
       cp_async4(dst + i, feat + (ok ? e : 0), ok ? 4u : 0u);
+    }
+    if constexpr (kView) {
+      const int64_t row0 = tile * kTileRows + wg * 64;
+      float* ddst = dbuf + wg * 64 * 3;
+      for (int i = ct; i < 64 * 3; i += 128) {
+        const int r = i / 3;
+        const bool ok = row0 + r < n;
+        const int64_t ray = ok ? static_cast<int>(row0 + r) / k : 0;  // rows < 2^31
+        cp_async4(ddst + i, dirs + ray * 3 + (i - 3 * r), ok ? 4u : 0u);
+      }
     }
     cp_async_commit();
   };
@@ -352,6 +409,8 @@ shade_kernel(const float* __restrict__ feat, int n, int c, int f, int kk1,
     named_barrier(1 + wg, 128);  // the warpgroup's rows of this tile are staged
     const float* fa = fbuf + r0 * c;
     const float* fb = fa + 8 * c;
+    const float* da = dbuf + r0 * 3;  // read in the view mode only
+    const float* db = da + 8 * 3;
 
     // layer 1: acc = x W1, two K-slices a step; a step's fragments (four
     // sine-cosine chains that interleave) are computed while the tensor
@@ -362,10 +421,10 @@ shade_kernel(const float* __restrict__ feat, int n, int c, int f, int kk1,
     auto fragment = [&](int kk, uint32_t(&fr)[8]) {
       const PeSlot sl = pe_slot(slots[4 * kk + t]);
       float x0, x1, x2, x3;  // rows r0, r0 + 8 of the first slot; then the second
-      pe_row(fa, sl, c, x0, x2);
-      pe_row(fb, sl, c, x1, x3);
-      pe_row_wide(fa, sl, x0, x2);
-      pe_row_wide(fb, sl, x1, x3);
+      pe_row<kView>(fa, da, sl, c, x0, x2);
+      pe_row<kView>(fb, db, sl, c, x1, x3);
+      pe_row_wide<kView>(fa, da, sl, c, x0, x2);
+      pe_row_wide<kView>(fb, db, sl, c, x1, x3);
       split4(x0, x1, x2, x3, fr);
     };
     auto step = [&](int kk, uint32_t(&fr)[2][8]) {
@@ -409,6 +468,56 @@ shade_kernel(const float* __restrict__ feat, int n, int c, int f, int kk1,
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+shade_kernel(const float* __restrict__ feat, int n, int c, int f, int kk1,
+             const float* __restrict__ w1img, const float* __restrict__ w2img,
+             const float* __restrict__ b1, const float* __restrict__ b2,
+             const float* __restrict__ w3, const float* __restrict__ b3,
+             float* __restrict__ out) {
+  shade_tiles<false>(feat, nullptr, n, c, 1, f, 0, kk1, w1img, w2img, b1, b2, w3, b3, out);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+shade_view_kernel(const float* __restrict__ feat, const float* __restrict__ dirs, int n, int c,
+                  int k, int f, int fv, int kk1,
+                  const float* __restrict__ w1img, const float* __restrict__ w2img,
+                  const float* __restrict__ b1, const float* __restrict__ b2,
+                  const float* __restrict__ w3, const float* __restrict__ b3,
+                  float* __restrict__ out) {
+  shade_tiles<true>(feat, dirs, n, c, k, f, fv, kk1, w1img, w2img, b1, b2, w3, b3, out);
+}
+
+// shared memory of a launch: W2^T, the ring, a tile's features (and
+// directions), the parameters, the barriers and the pair table
+size_t shade_smem(int c, int kk1, bool view) {
+  return static_cast<size_t>(kW2Bytes) + kStages * kSliceBytes +
+         static_cast<size_t>(kTileRows) * (c + (view ? 3 : 0)) * 4 + kParFloats * 4 +
+         (2 * kStages + 1) * 8 + 4 * static_cast<size_t>(kk1) * 8;
+}
+
+// launches `kernel` on one persistent block per SM (at most one per tile)
+template <typename... P, typename... A>
+int launch_shade(void (*kernel)(P...), size_t smem, int n, void* stream, A... args) {
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  // the register split assumes the launch count; a block that got fewer
+  // would wait in setmaxnreg.inc for registers that never come
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (attr.numRegs != kLaunchRegs) return static_cast<int>(cudaErrorInvalidConfiguration);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t ntiles = (static_cast<int64_t>(n) + kTileRows - 1) / kTileRows;
+  const unsigned blocks = static_cast<unsigned>(ntiles < sms ? ntiles : sms);
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // feat (n, c) fp32; w1img (kk1, 2, 1024) and w2img (16, 2, 1024): W1^T and
@@ -424,26 +533,21 @@ extern "C" int t2n_shade_fea_noview(const float* feat, int n, int c, int f, int 
   if (n <= 0 || c <= 0 || f <= 0 || f > 30 || 4 * kk1 < c * f + (c + 1) / 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = static_cast<size_t>(kW2Bytes) + kStages * kSliceBytes +
-                      static_cast<size_t>(kTileRows) * c * 4 + kParFloats * 4 +
-                      (2 * kStages + 1) * 8 + 4 * static_cast<size_t>(kk1) * 8;
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  // the register split assumes the launch count; a block that got fewer
-  // would wait in setmaxnreg.inc for registers that never come
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, shade_kernel);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (attr.numRegs != kLaunchRegs) return static_cast<int>(cudaErrorInvalidConfiguration);
-  e = cudaFuncSetAttribute(shade_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int dev = 0, sms = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int64_t ntiles = (static_cast<int64_t>(n) + kTileRows - 1) / kTileRows;
-  const unsigned blocks = static_cast<unsigned>(ntiles < sms ? ntiles : sms);
-  shade_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      feat, n, c, f, kk1, w1img, w2img, b1, b2, w3, b3, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_shade(shade_kernel, shade_smem(c, kk1, false), n, stream, feat, n, c, f, kk1,
+                      w1img, w2img, b1, b2, w3, b3, out);
+}
+
+// The MLP_Fea head: as t2n_shade_fea_noview, with dirs (n / k, 3) the
+// rays' directions, row r taking ray r / k's; f feature bands and fv
+// direction bands (either may be 0).
+extern "C" int t2n_shade_fea(const float* feat, const float* dirs, int n, int c, int k,
+                             int f, int fv, int kk1, const float* w1img, const float* w2img,
+                             const float* b1, const float* b2,
+                             const float* w3, const float* b3, float* out, void* stream) {
+  if (n <= 0 || c <= 0 || k <= 0 || f < 0 || f > 30 || fv < 0 || fv > 30 ||
+      4 * kk1 < c * f + 3 * fv + (c + 4) / 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_shade(shade_view_kernel, shade_smem(c, kk1, true), n, stream, feat, dirs,
+                      n, c, k, f, fv, kk1, w1img, w2img, b1, b2, w3, b3, out);
 }

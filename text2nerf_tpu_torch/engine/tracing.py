@@ -27,8 +27,12 @@ trainer's gather and copy of one batch; ``t2n.step`` one train step;
 ``t2n.loss`` and ``t2n.reg`` in the step.  The counters: ``view.rays``
 (rays of a view's base pass, padding excluded), ``view.rays_escalated``
 (rays re-rendered at a higher rung), ``head.samples`` (rows handed to
-kernel B), and ``select.kernel_rays`` / ``select.plain_rays`` (rays whose
-compacted eval prepass ran as the kernel / as its plain version).
+kernel B's noview mode), ``head.view_samples`` (rows handed to its
+view-dependent ``MLP_Fea`` mode), ``select.kernel_rays`` /
+``select.plain_rays`` (rays whose compacted eval prepass ran as the kernel
+/ as its plain version), and ``cp.sigma_samples`` / ``cp.app_samples``
+(samples of kernel C's eval launches that compute the density / the app
+channels; a fused launch counts in both).
 
 The JAX package's ``profile_trace`` wraps JAX's profiler and has no
 counterpart here; the port's profiles are ``profile_render`` and

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import check_on, resolve_device
+from ..engine.tracing import count
 from ..ops.kernels.cp_features import CPFeatures, cp_features
 from ..ops.kernels.factor_features import (
     MAT_MODE, VEC_MODE, FactorFeatures, factor_features,
@@ -210,6 +211,10 @@ class TensoRF(nn.Module):
             # kernel C forward; in training kernel C' (the scatter-add) backward
             if train:
                 return CPFeatures.apply(xn, self.nd[0], sigma, app, dtype, *lines)
+            if xn.is_cuda:  # an eval launch of kernel C
+                for name, want in (("cp.sigma_samples", sigma), ("cp.app_samples", app)):
+                    if want:
+                        count(name, xn.shape[0])
             return cp_features(xn, lines, self.nd[0], sigma=sigma, app=app, dtype=dtype)
         if train:
             # kernel A forward, kernel A' (the scatter-add) backward

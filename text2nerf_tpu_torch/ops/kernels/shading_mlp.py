@@ -1,10 +1,15 @@
-"""Kernel B wrapper: the fused ``MLP_Fea_noview`` head
-(``csrc/shading_mlp.cu``).
+"""Kernel B wrappers: the fused ``MLP_Fea_noview`` head and its
+view-dependent mode, the ``MLP_Fea`` head (``csrc/shading_mlp.cu``).
 
-Port of the Pallas TPU kernel ``text2nerf_tpu/ops/pallas/shading_mlp.py``
-(``shade_fea_noview_pallas``).  Eval only: the kernel has no backward.
+The noview mode ports the Pallas TPU kernel
+``text2nerf_tpu/ops/pallas/shading_mlp.py`` (``shade_fea_noview_pallas``);
+the view mode serves the eval renders of TensoRF's own head, which the
+JAX package runs as XLA.  It reads each ray's direction, not each row's:
+the rows of a ray lie one after another, ``k`` of them.  Eval only: the
+kernel has no backward.
 
-For CPU tensors the wrapper runs :func:`shade_fea_noview_plain`; for CUDA
+For CPU tensors each wrapper runs its plain version
+(:func:`shade_fea_noview_plain`, :func:`shade_fea_plain`); for CUDA
 tensors it launches the kernel or raises.
 
 The kernel runs layers 1 and 2 on the tensor cores in 3xTF32 (each
@@ -32,8 +37,10 @@ KERNEL_FEATURE_C = 128
 #: widest feature vector the kernel's shared memory holds
 KERNEL_MAX_C = 32
 
-#: kernel launches since the last reset (the main path's proof of use)
+#: kernel launches since the last reset (the main path's proof of use),
+#: in all and by mode
 LAUNCHES = 0
+MODES = {"noview": 0, "view": 0}
 
 _WEIGHTS = ("w1", "b1", "w2", "b2", "w3", "b3")
 
@@ -46,28 +53,53 @@ def shade_fea_noview_plain(mlp, features, fea_pe: int = 6):
     return mlp_mod.shade("MLP_Fea_noview", mlp, None, None, features, fea_pe=fea_pe)
 
 
-def layer1_slices(c: int, fea_pe: int) -> int:
-    """K-slices of 8 in the kernel's layer-1 operand: c·F (sin, cos) pairs
-    and ceil(c/2) pairs of raw features, four pairs per slice."""
-    pairs = c * fea_pe + (c + 1) // 2
-    return (pairs + 3) // 4
+def shade_fea_plain(mlp, features, dirs, k: int, fea_pe: int = 6, view_pe: int = 6):
+    """Plain PyTorch version: ``mlp.shade("MLP_Fea")`` with row r seen
+    along ``dirs[r // k]``."""
+    viewdirs = torch.repeat_interleave(dirs, k, dim=0)
+    return mlp_mod.shade("MLP_Fea", mlp, None, viewdirs, features, view_pe=view_pe,
+                         fea_pe=fea_pe)
 
 
-def layer1_columns(c: int, fea_pe: int) -> torch.Tensor:
-    """Column of x = [f, sin(f·2ᵏ), cos(f·2ᵏ)] (the reference's
-    channel-major PE) held by each K slot of the kernel's layer-1 operand,
-    -1 for zero padding.  Slot 8·kk + t holds the first and slot 8·kk + t + 4
-    the second of pair q = 4·kk + t: the sine and cosine of (channel, band)
-    q for q < c·F, else raw features 2r and 2r + 1 (r = q - c·F)."""
+def _pairs(c: int, fea_pe: int, view_pe):
+    """(trig pairs, all pairs) of the layer-1 operand: a (sin, cos) pair per
+    (feature, band), then per (direction component, band) in the view mode
+    (``view_pe`` not None), then the row's raw values two a pair."""
+    values = c if view_pe is None else c + 3
+    trig = c * fea_pe + (0 if view_pe is None else 3 * view_pe)
+    return trig, trig + (values + 1) // 2
+
+
+def layer1_slices(c: int, fea_pe: int, view_pe=None) -> int:
+    """K-slices of 8 in the kernel's layer-1 operand, four pairs per slice
+    (:func:`_pairs`); ``view_pe`` None is the noview head."""
+    return (_pairs(c, fea_pe, view_pe)[1] + 3) // 4
+
+
+def layer1_columns(c: int, fea_pe: int, view_pe=None) -> torch.Tensor:
+    """Column of the reference's head input held by each K slot of the
+    kernel's layer-1 operand, -1 for zero padding.  The input is x = [f,
+    sin(f·2ᵏ), cos(f·2ᵏ)] for the noview head (``view_pe`` None) and x =
+    [f, d, sin(f·2ᵏ), cos(f·2ᵏ), sin(d·2ʲ), cos(d·2ʲ)] for ``MLP_Fea``,
+    each PE channel-major.  Slot 8·kk + t holds the first and slot
+    8·kk + t + 4 the second of pair q = 4·kk + t: the sine and cosine of
+    (feature, band) q for q < c·F, then of (direction component, band)
+    q - c·F, else the row's raw values (features, then direction) 2r and
+    2r + 1 (r = q - the trig pairs)."""
     cf = c * fea_pe
-    cols = torch.full((8 * layer1_slices(c, fea_pe),), -1, dtype=torch.long)
+    trig, _ = _pairs(c, fea_pe, view_pe)
+    values = c if view_pe is None else c + 3  # the raw values; the PE's columns follow
+    cols = torch.full((8 * layer1_slices(c, fea_pe, view_pe),), -1, dtype=torch.long)
     for q in range(cols.numel() // 2):
         if q < cf:
-            first, second = c + q, c + cf + q
+            first, second = values + q, values + cf + q
+        elif q < trig:
+            d0 = values + 2 * cf
+            first, second = d0 + q - cf, d0 + 3 * view_pe + q - cf
         else:
-            c0 = 2 * (q - cf)
-            first = c0 if c0 < c else -1
-            second = c0 + 1 if c0 + 1 < c else -1
+            c0 = 2 * (q - trig)
+            first = c0 if c0 < values else -1
+            second = c0 + 1 if c0 + 1 < values else -1
         slot = 8 * (q // 4) + q % 4
         cols[slot], cols[slot + 4] = first, second
     return cols
@@ -107,36 +139,38 @@ def _image(wt):
     return torch.stack([core_matrix_image(hi), core_matrix_image(lo)], dim=1).contiguous()
 
 
-def prepare_weights(mlp, c: int, fea_pe: int):
+def prepare_weights(mlp, c: int, fea_pe: int, view_pe=None):
     """(w1 image (kk1, 2, 1024), w2 image (16, 2, 1024)): W1^T with its K
     axis in :func:`layer1_columns` order (zero padding at -1) and W2^T in
     :func:`layer2_columns` order, each split into TF32 hi and lo."""
     w1, w2 = mlp["w1"].detach(), mlp["w2"].detach()
-    cols = layer1_columns(c, fea_pe).to(w1.device)
+    cols = layer1_columns(c, fea_pe, view_pe).to(w1.device)
     w1t = torch.where(cols >= 0, w1.T[:, cols.clamp(min=0)], torch.zeros((), device=w1.device))
     w2t = w2.T[:, layer2_columns(w2.shape[0]).to(w2.device)]
     return _image(w1t), _image(w2t)
 
 
-def _prepared(mlp, c, fea_pe):
+def _prepared(mlp, c, fea_pe, view_pe=None):
     w1, w2 = mlp["w1"], mlp["w2"]
-    key = (w1.data_ptr(), w1._version, id(w2), w2.data_ptr(), w2._version, c, fea_pe)
+    key = (w1.data_ptr(), w1._version, id(w2), w2.data_ptr(), w2._version, c, fea_pe, view_pe)
     hit = _PREPARED.get(w1)
     if hit is None or hit[0] != key:
-        hit = (key, prepare_weights(mlp, c, fea_pe))
+        hit = (key, prepare_weights(mlp, c, fea_pe, view_pe))
         _PREPARED[w1] = hit
     return hit[1]
 
 
-def _check(mlp, features, fea_pe):
+def _check(mlp, features, fea_pe, view_pe=None):
     if features.dim() != 2 or features.dtype != torch.float32:
         raise ValueError(
             f"features must be (N, C) float32, got {tuple(features.shape)} {features.dtype}"
         )
     c = features.shape[1]
     fc = mlp["w2"].shape[0]
+    mode = "MLP_Fea_noview" if view_pe is None else "MLP_Fea"
+    d_in = mlp_mod.mlp_input_dim(mode, c, view_pe or 0, fea_pe, 0)
     want = {
-        "w1": (c * (1 + 2 * fea_pe), fc), "b1": (fc,), "w2": (fc, fc),
+        "w1": (d_in, fc), "b1": (fc,), "w2": (fc, fc),
         "b2": (fc,), "w3": (fc, 3), "b3": (3,),
     }
     for k in _WEIGHTS:
@@ -157,33 +191,35 @@ def shade_fea_noview(mlp, features, fea_pe: int = 6):
     return _launch(mlp, features, fea_pe)
 
 
-def _launch(mlp, features, fea_pe):
-    global LAUNCHES
+def _launchable(name, mlp, features, fea_pe, least_pe):
+    """Refuses what the kernel does not take; returns (n, c)."""
     if torch.is_grad_enabled() and (
         features.requires_grad or any(mlp[k].requires_grad for k in _WEIGHTS)
     ):
         raise RuntimeError(
-            "shade_fea_noview: the CUDA kernel is forward-only; call it under "
-            "torch.no_grad()"
+            f"{name}: the CUDA kernel is forward-only; call it under torch.no_grad()"
         )
     if mlp["w2"].shape[0] != KERNEL_FEATURE_C:
-        raise ValueError(
-            f"shade_fea_noview: the kernel takes feature_c={KERNEL_FEATURE_C}"
-        )
+        raise ValueError(f"{name}: the kernel takes feature_c={KERNEL_FEATURE_C}")
     n, c = features.shape
-    if not 1 <= c <= KERNEL_MAX_C or not 1 <= fea_pe <= 30:
+    if not 1 <= c <= KERNEL_MAX_C or not least_pe <= fea_pe <= 30:
         raise ValueError(
-            f"shade_fea_noview: the kernel takes 1 <= C <= {KERNEL_MAX_C} and "
-            f"1 <= fea_pe <= 30, got C={c}, fea_pe={fea_pe}"
+            f"{name}: the kernel takes 1 <= C <= {KERNEL_MAX_C} and "
+            f"{least_pe} <= fea_pe <= 30, got C={c}, fea_pe={fea_pe}"
         )
-    tensors = [features] + [mlp[k] for k in _WEIGHTS]
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("shade_fea_noview: inputs must be contiguous")
+    if not all(t.is_contiguous() for t in [features] + [mlp[k] for k in _WEIGHTS]):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if n >= 2 ** 31:
+        raise ValueError(f"{name}: at most 2^31 - 1 rows per launch")
+    return n, c
+
+
+def _launch(mlp, features, fea_pe):
+    global LAUNCHES
+    n, c = _launchable("shade_fea_noview", mlp, features, fea_pe, 1)
     out = torch.empty((n, 3), dtype=torch.float32, device=features.device)
     if n == 0:
         return out
-    if n >= 2 ** 31:
-        raise ValueError("shade_fea_noview: at most 2^31 - 1 rows per launch")
     w1img, w2img = _prepared(mlp, c, int(fea_pe))
     lib = _lib()
     with torch.cuda.device(features.device):
@@ -196,15 +232,64 @@ def _launch(mlp, features, fea_pe):
     _build.check(err, "shade_fea_noview launch")
     with _build.COUNT_LOCK:
         LAUNCHES += 1
+        MODES["noview"] += 1
+    return out
+
+
+def shade_fea(mlp, features, dirs, k: int, fea_pe: int = 6, view_pe: int = 6):
+    """(N, 3) rgb in [0, 1] of the ``MLP_Fea`` head: row r of ``features``
+    (N, C) seen along its ray's direction ``dirs[r // k]`` (``dirs`` (N / k,
+    3), each ray's ``k`` rows one after another)."""
+    _check(mlp, features, fea_pe, view_pe)
+    k = int(k)
+    if dirs.dim() != 2 or dirs.shape[1] != 3 or dirs.dtype != torch.float32:
+        raise ValueError(f"dirs must be (B, 3) float32, got {tuple(dirs.shape)} {dirs.dtype}")
+    if k < 1 or dirs.shape[0] * k != features.shape[0]:
+        raise ValueError(f"shade_fea: {features.shape[0]} rows are not {k} rows of each of "
+                         f"{dirs.shape[0]} rays")
+    if dirs.device != features.device:
+        raise ValueError("shade_fea: dirs and features are on different devices")
+    if features.device.type == "cpu":
+        return shade_fea_plain(mlp, features, dirs, k, fea_pe, view_pe)
+    if features.device.type != "cuda":
+        raise ValueError(f"shade_fea: no kernel for device {features.device}")
+    return _launch_view(mlp, features, dirs, k, int(fea_pe), int(view_pe))
+
+
+def _launch_view(mlp, features, dirs, k, fea_pe, view_pe):
+    global LAUNCHES
+    n, c = _launchable("shade_fea", mlp, features, fea_pe, 0)
+    if not 0 <= view_pe <= 30:
+        raise ValueError(f"shade_fea: the kernel takes 0 <= view_pe <= 30, got {view_pe}")
+    out = torch.empty((n, 3), dtype=torch.float32, device=features.device)
+    if n == 0:
+        return out
+    dirs = dirs.contiguous()  # rays[:, 3:6] is not
+    w1img, w2img = _prepared(mlp, c, fea_pe, view_pe)
+    lib = _lib()
+    with torch.cuda.device(features.device):
+        err = lib.t2n_shade_fea(
+            _build.ptr(features), _build.ptr(dirs), n, c, k, fea_pe, view_pe,
+            w1img.shape[0], _build.ptr(w1img), _build.ptr(w2img),
+            *(_build.ptr(mlp[name]) for name in ("b1", "b2", "w3", "b3")),
+            _build.ptr(out), _build.stream_of(features),
+        )
+    _build.check(err, "shade_fea launch")
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
+        MODES["view"] += 1
     return out
 
 
 def _lib():
     lib = _build.library("shading_mlp")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = lib.t2n_shade_fea_noview
     if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.argtypes = [vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       vp, vp, vp, vp, vp, vp, vp, vp]
-        fn.restype = ctypes.c_int
+        fn.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp]
+        fn.restype = ci
+    fn = lib.t2n_shade_fea
+    if fn.argtypes is None:
+        fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp]
+        fn.restype = ci
     return lib

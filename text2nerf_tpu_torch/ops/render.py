@@ -26,10 +26,11 @@
 
 Factor features go through kernel A (``vm_split`` and ``vm``) or kernel C
 (``cp``), and in training through their backward kernels A' and C', on
-CUDA tensors; the eval ``MLP_Fea_noview`` head goes through kernel B.  The
-train head, and every other shading mode, is plain ``torch`` under
-autograd, as the JAX package runs its XLA head; the heads get the
-normalized sample coordinates and the view directions.  ``ndc=True``
+CUDA tensors; the eval ``MLP_Fea_noview`` head goes through kernel B, and
+the eval ``MLP_Fea`` head through kernel B's view-dependent mode on CUDA
+tensors.  The train head, and every other shading mode, is plain
+``torch`` under autograd, as the JAX package runs its XLA head; the heads
+get the normalized sample coordinates and the view directions.  ``ndc=True``
 takes the NDC sampler of the dense renderer (``linspace(near, far)``
 depths, a per-sample jitter in training, distances scaled by the ray
 norm); the compacted renderers take world rays only.  The compacted eval
@@ -66,15 +67,21 @@ class RenderOutput(NamedTuple):
     acc: torch.Tensor      # (B,) accumulated opacity
 
 
-def _shade(cfg, field, xn, dirs, app_feat, is_train: bool = False):
-    """Shading head at normalized coords ``xn`` (N, 3) along directions
-    ``dirs`` (N, 3): the eval ``MLP_Fea_noview`` head is kernel B on CUDA
-    tensors (its plain version on the CPU); training and every other mode
-    run the plain head (under autograd in training)."""
+def _shade(cfg, field, xn, rays_d, k: int, app_feat, is_train: bool = False):
+    """Shading head at normalized coords ``xn`` (B·k, 3), ``k`` rows of
+    each ray in turn, along the rays' directions ``rays_d`` (B, 3): the
+    eval ``MLP_Fea_noview`` head is kernel B on CUDA tensors (its plain
+    version on the CPU), the eval ``MLP_Fea`` head on CUDA tensors kernel
+    B's view-dependent mode, which reads a direction a ray; training,
+    every other mode and ``MLP_Fea`` on the CPU run the plain head (under
+    autograd in training)."""
     if not is_train and cfg.shading_mode == "MLP_Fea_noview":
         count("head.samples", app_feat.shape[0])
         return shading_mlp.shade_fea_noview(field.mlp, app_feat, cfg.fea_pe)
-    return mlp_mod.shade(cfg.shading_mode, field.mlp, xn, dirs, app_feat,
+    if not is_train and cfg.shading_mode == "MLP_Fea" and app_feat.is_cuda:
+        count("head.view_samples", app_feat.shape[0])
+        return shading_mlp.shade_fea(field.mlp, app_feat, rays_d, k, cfg.fea_pe, cfg.view_pe)
+    return mlp_mod.shade(cfg.shading_mode, field.mlp, xn, _dirs(rays_d, k), app_feat,
                          view_pe=cfg.view_pe, fea_pe=cfg.fea_pe, pos_pe=cfg.pos_pe)
 
 
@@ -242,7 +249,7 @@ def render_rays(
         with span("t2n.features"):
             app_feat = field.app_feature(xn_k.reshape(-1, 3), fdt)
         with span("t2n.head"):
-            rgb_k = _shade(cfg, field, xn_k.reshape(-1, 3), _dirs(viewdirs, k), app_feat,
+            rgb_k = _shade(cfg, field, xn_k.reshape(-1, 3), viewdirs, k, app_feat,
                            is_train).reshape(b, k, 3)
         with span("t2n.composite"):
             rgb, depth = _composite(cfg, weights, acc, w_top, rgb_k, z_vals, rays, white_bg,
@@ -490,7 +497,7 @@ def _render_rays_compact(
         with span("t2n.features"):
             app_feat = field.app_feature(xn_a.reshape(-1, 3), fdt)
     with span("t2n.head"):
-        rgb_a = _shade(cfg, field, xn_a.reshape(-1, 3), _dirs(rays_d, k2), app_feat).reshape(
+        rgb_a = _shade(cfg, field, xn_a.reshape(-1, 3), rays_d, k2, app_feat).reshape(
             b, k2, 3)
     with span("t2n.composite"):
         rgb, depth = _composite(cfg, weights, acc, w_top, rgb_a, z_k, rays, white_bg)
@@ -691,7 +698,7 @@ def _render_rays_train_compact(
         with span("t2n.features"):
             app_feat = field.app_feature(xn_a.reshape(-1, 3), fdt)
     with span("t2n.head"):
-        rgb_a = _shade(cfg, field, xn_a.reshape(-1, 3), _dirs(rays_d, k2), app_feat,
+        rgb_a = _shade(cfg, field, xn_a.reshape(-1, 3), rays_d, k2, app_feat,
                        is_train=True).reshape(b, k2, 3)
     with span("t2n.composite"):
         rgb, depth = _composite(cfg, weights, acc, w_top, rgb_a, z_k, rays, white_bg, True,
